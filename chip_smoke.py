@@ -7,9 +7,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. device   the card's name and power limit; TF32 off in matmuls and cuDNN
   2. build    the CUDA kernels from voicecraft_tpu_torch/csrc (nvcc, sm_90a)
-  3. kernels  each kernel against its plain PyTorch version on the card, at
-              the main path's shapes: max abs error against a stated
-              tolerance, and both times from CUDA events
+  3. kernels  the bf16 rounding points of mha, decode_attention_self and
+              apply_heads on the card against the same functions on CPU
+              copies of the inputs; each kernel against its plain PyTorch
+              version on the card, at the main path's shapes and at edge
+              shapes: max abs error against a stated tolerance, and both
+              times from CUDA events; the attention kernel's grid, and its
+              time against dense mha over a range of S (the crossover)
   4. slice    giga830M in bf16 and the 16 kHz EnCodec, random weights from a
               seed, serving three zero-shot TTS requests through the
               functions tts_torch_cli.py calls: (a) a ~17 s prompt, whose
@@ -18,13 +22,15 @@ Phases, in order; any failure raises and the script exits non-zero:
               prompt, dense prefill, greedy, unfused FFN.  Checks the launch
               counts and that every wav is finite; then the logits of the
               kernel path against the plain path after prefill and after 16
-              teacher-forced decode steps.
+              teacher-forced decode steps; then request (a)'s prefill time
+              through the attention kernel and through dense mha.
 
 The last three lines are the card (as nvidia-smi reports it), one JSON
 object with each kernel's result, and {"ok": true, "device": {...}}.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -40,11 +46,27 @@ TARGET = "the river runs past the old mill in the morning light"
 LONG_TILES = 4                       # demo.wav (4.32 s) tiled to 17.28 s
 
 # kernel vs plain tolerances (both accumulate in f32; they differ in
-# summation order, and in bf16 by at most one or two ulps of the rounded
-# output, whose magnitudes here stay below ~2)
-TOL_FLASH_BF16 = 2e-2
+# summation order, and in bf16 by one or two ulps of the rounded output)
 TOL_FLASH_F32 = 1e-4
 TOL_FFN = 2e-2
+# the bf16 attention kernel, per element, in bf16 ulps of max(|out|, 1).
+# Against its plain version, which keeps the probs in f32 where the kernel
+# rounds them to bf16: each prob is off by up to 2^-9 of itself, which
+# moves p@v by at most 2^-9 max|v| (~1 ulp of 1 for |v| up to ~4), and the
+# two outputs' roundings by up to 1 ulp more; 3 bounds the sum.  Against
+# dense bf16 mha, which rounds at the same points (f32 logits, probs to
+# bf16, f32 p@v, one output rounding), only the summation order and the
+# roundings it flips remain: 2.  The floor at 1: the probs' rounding
+# errors are summed against v, whose entries are ~1, so they scale with
+# |v|, not with a small output
+FLASH_VS_PLAIN_ULPS = 3.0
+FLASH_VS_MHA_ULPS = 2.0
+# the bf16 rounding points on the card against the CPU (which upcasts the
+# bf16 operands): one bf16 ulp of the output's largest magnitude, where the
+# two devices' f32 sums in different orders flip a rounding, plus 1e-5 of
+# that magnitude for the f32 summation order itself; a bf16 logit (the
+# fault repaired) costs ~2.5 ulps
+REPAIR_F32_SLACK = 1e-5
 # kernel path vs plain path logits of giga830M in bf16: the two paths round
 # to bf16 at different places (the fused FFN rounds x@w1 once with its bias,
 # the unfused one twice; the attention kernel rounds its f32 output once),
@@ -79,51 +101,193 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bf16_ulp(x):
+    """The bf16 spacing at |x| (tensor or float), 2^(floor(log2|x|) - 7)."""
+    import torch
+    x = torch.as_tensor(x, dtype=torch.float32).abs().clamp(min=2.0 ** -100)
+    return torch.exp2(torch.floor(torch.log2(x)) - 7)
+
+
 def check(name: str, err: float, tol: float) -> None:
     log(f"  {name}: max abs err {err:.3e} (tolerance {tol:g})")
     if not err <= tol:
         raise AssertionError(f"{name}: max abs err {err} > {tol}")
 
 
+def check_ulps(name: str, got, want, limit: float) -> float:
+    """Holds bf16 results per element to `limit` ulps of max(|want|, 1);
+    returns the max abs error."""
+    diff = (got.float() - want.float()).abs()
+    ulps = (diff / bf16_ulp(want.float().abs().clamp(min=1.0))).max().item()
+    err = diff.max().item()
+    log(f"  {name}: max abs err {err:.3e}, {ulps:.2f} ulps of max(|out|, 1) "
+        f"(tolerance {limit:g})")
+    if not ulps <= limit:
+        raise AssertionError(f"{name}: {ulps} ulps > {limit}")
+    return err
+
+
 # ---- phase 3 -----------------------------------------------------------------
+
+def repair_phase():
+    """The port's bf16 rounding points on the card (cuBLAS with f32 output)
+    against the same functions on CPU copies of the inputs, at giga830M
+    width: f32 logits, probs cast to bf16, one rounding after p@v."""
+    import copy
+    import torch
+    from voicecraft_tpu_torch.models.voicecraft import Heads, apply_heads
+    from voicecraft_tpu_torch.ops.attention import (decode_attention_self, mha,
+                                                    segment_padding_bias)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    bf = torch.bfloat16
+
+    def randn(*shape, std=2.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(bf)
+
+    def compare(name, fn, *args):
+        got = fn(*args).float()
+        cpu = [a.cpu() if isinstance(a, (torch.Tensor, torch.nn.Module)) else a
+               for a in args]
+        want = fn(*cpu).float()
+        scale = want.abs().max().item()
+        tol = bf16_ulp(scale).item() + REPAIR_F32_SLACK * scale
+        check(f"{name} (max |out| {scale:.3f})",
+              (got.cpu() - want).abs().max().item(), tol)
+
+    log("bf16 rounding points, card vs CPU (giga830M width):")
+    S, D, H, x_pad = 352, 2048, 16, 96
+    for xl, yl in (([93], [256]), ([93, 60], [256, 200])):
+        B = len(xl)
+        xl = torch.tensor(xl, dtype=torch.int32, device="cuda")
+        yl = torch.tensor(yl, dtype=torch.int32, device="cuda")
+        compare(f"mha B={B} S=352 H=16 Dh=128",
+                lambda q, k, v, b: mha(q, k, v, b, H), randn(B, S, D),
+                randn(B, S, D), randn(B, S, D),
+                segment_padding_bias(S, x_pad, xl, yl))
+    S_max, kv_len = 1408, 1376
+    for x_len, xp in ((None, None), (221, 224)):
+        args = (randn(1, 1, D), randn(1, S_max, H, D // H),
+                randn(1, S_max, H, D // H), torch.tensor(kv_len, device="cuda"),
+                randn(1, 1, H, D // H), randn(1, 1, H, D // H),
+                None if x_len is None else torch.tensor(x_len, device="cuda"))
+        attn = lambda q, kc, vc, n, kn, vn, xl_: decode_attention_self(
+            q, kc, vc, n, kn, vn, H, x_len=xl_, x_pad=xp)
+        compare(f"decode_attention_self slab {S_max} x_pad {xp}", attn, *args)
+        # the slab reaches cuBLAS as strided views: no copy of it is made
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        attn(*args)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        slab = args[1].numel() * args[1].element_size()
+        log(f"  decode_attention_self allocates {extra} bytes at peak beside "
+            f"a {slab}-byte K slab")
+        if extra >= slab:
+            raise AssertionError("decode_attention_self copied the KV slab")
+    heads = Heads(4, D, 1024, 2052, bf, "cuda")
+    heads.init_weights(torch.Generator(device="cuda").manual_seed(SEED + 3))
+    compare("apply_heads D=2048 N=4", lambda hd, h: apply_heads(hd, h),
+            copy.deepcopy(heads), randn(4, D, std=1.0))
+
 
 def flash_phase(geom_long):
     import torch
+    from voicecraft_tpu_torch.ops.attention import mha, segment_padding_bias
     from voicecraft_tpu_torch.ops.flash_attention import (
         flash_prefix_attention, flash_prefix_attention_plain)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    def case(B, S, D, H, x_pad, x_lens, y_lens, dtype):
+    def inputs(B, S, D, x_lens, y_lens, dtype):
         q, k, v = (torch.randn((B, S, D), generator=gen, device="cuda").to(dtype)
                    for _ in range(3))
         xl = torch.tensor(x_lens, dtype=torch.int32, device="cuda")
         yl = torch.tensor(y_lens, dtype=torch.int32, device="cuda")
-        args = (q, k, v, xl, yl, x_pad, H)
-        got = flash_prefix_attention(*args).float()
-        want = flash_prefix_attention_plain(*args).float()
-        torch.cuda.synchronize()
+        return q, k, v, xl, yl
+
+    def valid_rows(B, S, x_pad, x_lens, y_lens):
         rows = torch.zeros((B, S), dtype=torch.bool, device="cuda")
         for b in range(B):
             rows[b, :x_lens[b]] = True
             rows[b, x_pad:x_pad + y_lens[b]] = True
-        err = (got - want)[rows].abs().max().item()
-        return err, args
+        return rows
+
+    def case(name, B, S, D, H, x_pad, x_lens, y_lens, dtype):
+        q, k, v, xl, yl = inputs(B, S, D, x_lens, y_lens, dtype)
+        args = (q, k, v, xl, yl, x_pad, H)
+        got = flash_prefix_attention(*args)
+        want = flash_prefix_attention_plain(*args)
+        torch.cuda.synchronize()
+        rows = valid_rows(B, S, x_pad, x_lens, y_lens)
+        if dtype == torch.bfloat16:
+            err = check_ulps(name, got[rows], want[rows], FLASH_VS_PLAIN_ULPS)
+        else:
+            err = (got - want)[rows].abs().max().item()
+            check(name, err, TOL_FLASH_F32)
+        return err, args, got, rows
 
     x_len, x_pad, y_len, y_pad = geom_long
     S = x_pad + y_pad
+    # the sm90 kernel's grid is (H, B, q tiles of BQ rows), as its launch()
+    # sets it
+    src = (REPO / "voicecraft_tpu_torch" / "csrc"
+           / "flash_prefix_attention_sm90.cu").read_text()
+    bq = int(re.search(r"constexpr int BQ = (\d+);", src).group(1))
+    blocks = 16 * -(-S // bq)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     log(f"flash_prefix_attention, bf16, B=1 S={S} D=2048 H=16 "
-        f"(x_len {x_len}, x_pad {x_pad}, y_len {y_len}):")
-    err, args = case(1, S, 2048, 16, x_pad, [x_len], [y_len], torch.bfloat16)
-    check("bf16 main-path shape", err, TOL_FLASH_BF16)
+        f"(x_len {x_len}, x_pad {x_pad}, y_len {y_len}): grid of {blocks} "
+        f"blocks of {bq} q rows = {blocks / sms:.2f} waves over {sms} SMs")
+    err, args, got, rows = case("bf16 main-path shape vs plain", 1, S, 2048,
+                                16, x_pad, [x_len], [y_len], torch.bfloat16)
+    q, k, v, xl, yl = args[:5]
+    dense = mha(q, k, v, segment_padding_bias(S, x_pad, xl, yl), 16)
+    check_ulps("bf16 main-path shape vs dense bf16 mha", got[rows],
+               dense[rows], FLASH_VS_MHA_ULPS)
     ms = cuda_ms(lambda: flash_prefix_attention(*args))
     plain_ms = cuda_ms(lambda: flash_prefix_attention_plain(*args))
     log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call")
-    for B, S2, D, H, xp, xl, yl in ((2, 200, 256, 4, 48, [30, 48], [100, 152]),
-                                    (2, 130, 128, 8, 32, [7, 32], [98, 50]),
-                                    (1, 333, 256, 8, 64, [50], [250]),
-                                    (1, 300, 512, 4, 64, [64], [236])):
-        e, _ = case(B, S2, D, H, xp, xl, yl, torch.float32)
-        check(f"f32 B={B} S={S2} Dh={D // H}", e, TOL_FLASH_F32)
+    # edge shapes: B=2 with different lens, S off every tile size, x_pad off
+    # the tile grid, every head dim, and a text padding wide enough that
+    # whole key tiles in it are skipped (one row with no text at all)
+    for B, S2, D, H, xp, xl2, yl2 in (
+            (2, 1120, 2048, 16, 224, [221, 150], [896, 700]),
+            (2, 600, 256, 2, 400, [30, 0], [200, 150]),
+            (1, 33, 64, 4, 8, [5], [20]),
+            (2, 130, 128, 8, 32, [7, 32], [98, 50]),
+            (2, 200, 256, 4, 48, [30, 48], [100, 152]),
+            (1, 333, 256, 8, 64, [50], [250]),
+            (1, 300, 512, 4, 70, [64], [230]),
+            (1, 1120, 1024, 16, 224, [221], [896]),
+            (1, 1120, 512, 16, 224, [221], [896]),
+            (1, 1120, 256, 16, 224, [221], [896])):
+        case(f"bf16 B={B} S={S2} Dh={D // H} x_pad={xp}", B, S2, D, H, xp,
+             xl2, yl2, torch.bfloat16)
+    for B, S2, D, H, xp, xl2, yl2 in ((2, 200, 256, 4, 48, [30, 48], [100, 152]),
+                                      (2, 130, 128, 8, 32, [7, 32], [98, 50]),
+                                      (1, 333, 256, 8, 64, [50], [250]),
+                                      (1, 300, 512, 4, 64, [64], [236])):
+        case(f"f32 B={B} S={S2} Dh={D // H}", B, S2, D, H, xp, xl2, yl2,
+             torch.float32)
+
+    log("flash_prefix_attention vs dense bf16 mha, B=1 D=2048 H=16 "
+        "(x_len S/5, x_pad x_len+3, the rest audio):")
+    crossover = None
+    for S2 in (352, 1024, 1120, 2048, 4096):
+        xl2 = S2 // 5
+        q, k, v, xl, yl = inputs(1, S2, 2048, [xl2], [S2 - xl2 - 3],
+                                 torch.bfloat16)
+        a = (q, k, v, xl, yl, xl2 + 3, 16)
+        bias = segment_padding_bias(S2, xl2 + 3, xl, yl)
+        k_ms = cuda_ms(lambda: flash_prefix_attention(*a))
+        p_ms = cuda_ms(lambda: flash_prefix_attention_plain(*a))
+        d_ms = cuda_ms(lambda: mha(q, k, v, bias, 16))
+        log(f"  S={S2}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"dense mha {d_ms:.4f} ms per call")
+        if crossover is None and k_ms < d_ms:
+            crossover = S2
+    log(f"  crossover: the kernel beats dense mha from S={crossover} on "
+        f"(FLASH_PREFILL_MIN_LEN stays 1024)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
@@ -178,24 +342,35 @@ class Request:
         self.scfg, self.fused_ffn = scfg, fused_ffn
 
 
-def teacher_forced_logits(model, x, codes, plain: bool):
-    """Logits after prefill and after each of 16 teacher-forced decode steps
-    of the long request, through the kernels (plain=False) or through
-    their plain versions and the unfused FFN (plain=True)."""
+def prefill_inputs(model, x, codes):
+    """The long request's prefill on the card: (embedded prefix, x_lens,
+    y_lens, x_pad, y_pad, prefix length)."""
     import torch
     from voicecraft_tpu_torch.data.spans import compose_tts_prefix
     from voicecraft_tpu_torch.inference.tts import decode_geometry, pad_inputs
-    from voicecraft_tpu_torch.models import transformer as trm
-    from voicecraft_tpu_torch.models.voicecraft import (apply_heads,
-                                                        embed_prefix, embed_step)
-    from voicecraft_tpu_torch.ops.flash_attention import (
-        flash_prefix_attention_plain, prefill_attention)
+    from voicecraft_tpu_torch.models.voicecraft import embed_prefix
     cfg = model.cfg
     prefix = compose_tts_prefix(codes, cfg)
     x_pad, y_pad, _ = decode_geometry(cfg, len(x), prefix.length, gen_max=16)
     xt, yt, mi = pad_inputs(cfg, x, prefix, x_pad, y_pad, "cuda")
     xl = torch.tensor([len(x)], dtype=torch.int32, device="cuda")
     yl = torch.tensor([prefix.length], dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        emb = embed_prefix(model, xt, yt, mi)
+    return emb, xl, yl, x_pad, y_pad, prefix.length
+
+
+def teacher_forced_logits(model, x, codes, plain: bool):
+    """Logits after prefill and after each of 16 teacher-forced decode steps
+    of the long request, through the kernels (plain=False) or through
+    their plain versions and the unfused FFN (plain=True)."""
+    import torch
+    from voicecraft_tpu_torch.models import transformer as trm
+    from voicecraft_tpu_torch.models.voicecraft import apply_heads, embed_step
+    from voicecraft_tpu_torch.ops.flash_attention import (
+        flash_prefix_attention_plain, prefill_attention)
+    cfg = model.cfg
+    emb, xl, yl, x_pad, y_pad, prefix_len = prefill_inputs(model, x, codes)
     if plain:
         attn = lambda q, k, v: flash_prefix_attention_plain(q, k, v, xl, yl,
                                                             x_pad, cfg.nhead)
@@ -208,11 +383,10 @@ def teacher_forced_logits(model, x, codes, plain: bool):
                            device="cuda")
     out = []
     with torch.inference_mode():
-        h, cache = trm.prefill(model.decoder, embed_prefix(model, xt, yt, mi),
-                               attn, cache)
-        out.append(apply_heads(model.heads, h[:, x_pad + prefix.length - 1]))
-        pos = torch.tensor(x_pad + prefix.length, device="cuda")
-        y_pos = torch.tensor(prefix.length, device="cuda")
+        h, cache = trm.prefill(model.decoder, emb, attn, cache)
+        out.append(apply_heads(model.heads, h[:, x_pad + prefix_len - 1]))
+        pos = torch.tensor(x_pad + prefix_len, device="cuda")
+        y_pos = torch.tensor(prefix_len, device="cuda")
         x_len = torch.tensor(len(x), device="cuda")
         for i in range(16):
             h, cache = trm.decode_step_fast(
@@ -224,21 +398,43 @@ def teacher_forced_logits(model, x, codes, plain: bool):
     return out
 
 
+def prefill_times(model, x, codes):
+    """Request (a)'s prefill (trm.prefill over every layer) in ms, through
+    the attention kernel and through dense mha, from CUDA events."""
+    import torch
+    from voicecraft_tpu_torch.models import transformer as trm
+    from voicecraft_tpu_torch.ops.attention import mha, segment_padding_bias
+    from voicecraft_tpu_torch.ops.flash_attention import prefill_attention
+    cfg = model.cfg
+    emb, xl, yl, x_pad, y_pad, _ = prefill_inputs(model, x, codes)
+    S = x_pad + y_pad
+    bias = segment_padding_bias(S, x_pad, xl, yl)
+    cache = trm.init_kv_cache(cfg.num_decoder_layers, 1, S, cfg.nhead,
+                              cfg.head_dim, model.dtype, "cuda")
+    paths = (("kernel", prefill_attention(xl, yl, x_pad, cfg.nhead, S)),
+             ("dense mha", lambda q, k, v: mha(q, k, v, bias, cfg.nhead)))
+    with torch.inference_mode():
+        return S, {name: cuda_ms(lambda: trm.prefill(model.decoder, emb, attn,
+                                                     cache), reps=5, warmup=2)
+                   for name, attn in paths}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs a CUDA card")
     sys.path.insert(0, str(REPO))
-    from voicecraft_tpu.config import PRESETS
-    from voicecraft_tpu.data.phonemes import (build_vocab, make_text_tokenizer,
-                                              phones_to_ids)
-    from voicecraft_tpu.utils import audio as au
+    from voicecraft_tpu_torch import PRESETS
+    from voicecraft_tpu_torch.data.phonemes import (build_vocab,
+                                                    make_text_tokenizer,
+                                                    phones_to_ids)
     from voicecraft_tpu_torch.inference.loader import load_codec, load_model
     from voicecraft_tpu_torch.inference.tts import decode_geometry, inference_tts
     from voicecraft_tpu_torch.models import encodec as ec
     from voicecraft_tpu_torch.models.voicecraft import SamplingConfig
     from voicecraft_tpu_torch.ops import _native
+    from voicecraft_tpu_torch.utils import audio as au
 
     # ---- 1. device ----
     card = card_line()
@@ -279,6 +475,7 @@ def main() -> None:
 
     # ---- 3. kernels vs plain ----
     log("[3 kernels]")
+    repair_phase()
     flash = flash_phase((len(requests[0].x), x_pad, long_frames + 1, y_pad))
     ffn = ffn_phase()
 
@@ -345,11 +542,18 @@ def main() -> None:
     log(f"  logits, kernel path vs plain path (max |logit| {scale:.3f}):")
     check("after prefill", errs[0], TOL_LOGITS)
     check("after 16 teacher-forced decode steps", max(errs[1:]), TOL_LOGITS)
+    S, pre = prefill_times(model, requests[0].x, long_codes)
+    log(f"  request (a) prefill, {cfg.num_decoder_layers} layers at S={S}: "
+        f"{pre['kernel']:.3f} ms through the attention kernel, "
+        f"{pre['dense mha']:.3f} ms through dense mha")
 
     kernels = [
         dict(name="flash_prefix_attention", route="cuda",
-             source="voicecraft_tpu_torch/csrc/flash_prefix_attention.cu",
+             source="voicecraft_tpu_torch/csrc/flash_prefix_attention_sm90.cu",
              replaces="voicecraft_tpu/ops/flash_attention.py:82",
+             variant={"bf16": "sm90 wgmma+tma "
+                              "(csrc/flash_prefix_attention_sm90.cu)",
+                      "f32": "simt (csrc/flash_prefix_attention.cu)"},
              launches=launches["flash_prefix_attention"], **flash),
         dict(name="fused_ffn", route="cuda",
              source="voicecraft_tpu_torch/csrc/fused_ffn.cu",
@@ -358,9 +562,10 @@ def main() -> None:
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))
+    # the run used one card (cuda:0), whatever else the host shows
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,111 @@
+"""The port's bf16 rounding points against the JAX package's, on the CPU.
+
+The JAX package takes attention logits, p@v and both products of the heads
+in f32 (``preferred_element_type=f32``) and rounds to bf16 only where it
+casts.  The other port tests run f32 (the loaders downgrade bf16 there), so
+they cannot see where bf16 is rounded; these feed both packages the same
+seeded bf16 inputs.  The two still sum in different orders in f32, which
+flips a rounding now and then: hence one bf16 ulp of the output's magnitude,
+on under 1% of the elements."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from voicecraft_tpu.ops.attention import decode_attention_self as jdecode_attn
+from voicecraft_tpu.ops.attention import mha as jmha
+from voicecraft_tpu.ops.attention import segment_padding_bias as jbias
+from voicecraft_tpu_torch.models.voicecraft import Heads, apply_heads
+from voicecraft_tpu_torch.ops.attention import (decode_attention_self,
+                                                matmul_f32, mha,
+                                                segment_padding_bias)
+
+BF16 = torch.bfloat16
+
+
+def _bf16(rng, shape, std=2.0):
+    """Seeded normal values rounded to bf16, as a torch tensor."""
+    return torch.from_numpy(
+        (rng.standard_normal(shape) * std).astype(np.float32)).to(BF16)
+
+
+def _jax(t):
+    return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+def _assert_within_one_ulp(got, want):
+    got = got.float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    diff = np.abs(got - want)
+    assert diff.max() <= ulp, (diff.max(), ulp)
+    assert (diff > 0).mean() < 0.01, (diff > 0).mean()
+
+
+@pytest.mark.parametrize("x_lens,y_lens", [([20], [60]), ([20, 32], [64, 40])])
+def test_mha_rounds_where_jax_does(x_lens, y_lens):
+    S, D, H, x_pad = 96, 256, 4, 32
+    rng = np.random.default_rng(len(x_lens))
+    q, k, v = (_bf16(rng, (len(x_lens), S, D)) for _ in range(3))
+    xl, yl = (torch.tensor(a, dtype=torch.int32) for a in (x_lens, y_lens))
+    got = mha(q, k, v, segment_padding_bias(S, x_pad, xl, yl), H)
+    want = jmha(_jax(q), _jax(k), _jax(v),
+                jbias(S, x_pad, jnp.asarray(xl.numpy()), jnp.asarray(yl.numpy())),
+                H)
+    assert got.dtype == BF16
+    _assert_within_one_ulp(got, want)
+
+
+@pytest.mark.parametrize("x_pad", [None, 32])
+def test_decode_attention_self_rounds_where_jax_does(x_pad):
+    B, S_max, H, Dh, kv_len, x_len = 2, 160, 4, 64, 150, 20
+    rng = np.random.default_rng(7)
+    q = _bf16(rng, (B, 1, H * Dh))
+    kc, vc = (_bf16(rng, (B, S_max, H, Dh)) for _ in range(2))
+    kn, vn = (_bf16(rng, (B, 1, H, Dh)) for _ in range(2))
+    xl = None if x_pad is None else x_len
+    got = decode_attention_self(
+        q, kc, vc, torch.tensor(kv_len), kn, vn, H,
+        x_len=None if xl is None else torch.tensor(xl), x_pad=x_pad)
+    want = jdecode_attn(_jax(q), _jax(kc), _jax(vc), jnp.asarray(kv_len),
+                        _jax(kn), _jax(vn), H,
+                        x_len=None if xl is None else jnp.asarray(xl),
+                        x_pad=x_pad)
+    assert got.dtype == BF16
+    _assert_within_one_ulp(got, want)
+
+
+def _heads_reference(heads, h):
+    """The JAX package's apply_heads (voicecraft.py:191-194) in f64: both
+    products and the GELU exact, the hidden layer rounded f32 -> bf16 after
+    its bias and the GELU, the logits plus b2 unrounded."""
+    d = lambda t: t.double()
+    h1 = torch.einsum("nd,kdh->knh", d(h), d(heads.w1)) + d(heads.b1)[:, None]
+    h1 = torch.nn.functional.gelu(h1, approximate="none")
+    h1 = h1.float().to(BF16)
+    logits = torch.einsum("knh,khc->knc", d(h1), d(heads.w2))
+    return (logits + d(heads.b2)[:, None]).transpose(0, 1)
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_apply_heads_rounds_where_jax_does(n):
+    K, D, card = 4, 256, 130
+    heads = Heads(K, D, 64, card, BF16, "cpu")
+    heads.init_weights(torch.Generator().manual_seed(n))
+    h = _bf16(np.random.default_rng(n), (n, D), std=1.0)
+    got = apply_heads(heads, h)
+    assert got.dtype == torch.float32 and got.shape == (n, K, card)
+    want = _heads_reference(heads, h)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-4)
+
+
+def test_matmul_f32_keeps_the_product_in_f32():
+    rng = np.random.default_rng(3)
+    a = _bf16(rng, (1, 5, 64))
+    b = _bf16(rng, (3, 64, 7))
+    got = matmul_f32(a, b)
+    assert got.dtype == torch.float32 and got.shape == (3, 5, 7)
+    want = torch.matmul(a.double(), b.double())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-5)
+    assert not torch.equal(got, torch.matmul(a, b).float())

@@ -84,13 +84,14 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
 
     import torch
-    from voicecraft_tpu.data.phonemes import (build_vocab, make_text_tokenizer,
-                                              phones_to_ids)
-    from voicecraft_tpu.utils import audio as au
+    from voicecraft_tpu_torch.data.phonemes import (build_vocab,
+                                                    make_text_tokenizer,
+                                                    phones_to_ids)
     from voicecraft_tpu_torch.inference.loader import load_codec, load_model
     from voicecraft_tpu_torch.inference.tts import inference_tts
     from voicecraft_tpu_torch.models import encodec as ec
     from voicecraft_tpu_torch.models.voicecraft import SamplingConfig
+    from voicecraft_tpu_torch.utils import audio as au
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():

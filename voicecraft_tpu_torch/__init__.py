@@ -5,4 +5,4 @@ stays the reference it is tested against."""
 
 __version__ = "0.1.0"
 
-from voicecraft_tpu.config import PRESETS, ModelConfig  # noqa: F401
+from .config import PRESETS, ModelConfig  # noqa: F401

@@ -1,0 +1,197 @@
+"""Model configuration and presets (PyTorch port of voicecraft_tpu/config.py,
+``ModelConfig`` and ``PRESETS``; the port has no trainer, so no
+``TrainConfig``).
+
+Field names are those of the reference's flags, so a reference checkpoint's
+pickled args and a config.json written by either package load 1:1
+(``from_dict``).  ``audio_vocab_size`` is an int and ``codebook_weight`` a
+tuple of floats, where the reference eval()'s strings.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture and token layout (reference config.py:54-84)."""
+
+    # token layout (reference config.py:67-73)
+    n_codebooks: int = 4
+    text_vocab_size: int = 100
+    text_pad_token: int = 100
+    audio_vocab_size: int = 2048
+    empty_token: int = 2048
+    eog: int = 2049
+    audio_pad_token: int = 2050
+    eos: int = -1            # >0 for TTS-enhanced models (=2051)
+    n_special: int = 3       # empty, eog, pad (+eos -> 4)
+    special_first: int = 0
+    reduced_eog: int = 0
+
+    # mask-span sampling (training), reference config.py:55-66
+    max_n_spans: int = 3
+    mask_len_min: int = 1
+    mask_len_max: int = 600
+    min_gap: int = 5
+    max_mask_portion: float = 0.7
+    mask_sample_dist: str = "poisson1"
+    shuffle_mask_embedding: int = 0
+
+    # model dims (reference config.py:76-84)
+    d_model: int = 2048
+    audio_embedding_dim: int = 2048
+    nhead: int = 16
+    num_decoder_layers: int = 16
+    text_embedding_dropout: float = 0.1
+    audio_embedding_dropout: float = 0.0
+    text_positional_embedding_dropout: float = 0.1
+    audio_positional_embedding_dropout: float = 0.1
+    trm_dropout: float = 0.1
+
+    # data / sequence caps (reference config.py:46-52)
+    encodec_sr: int = 50
+    audio_max_length: float = 20.0
+    text_max_length: int = 400
+
+    # loss
+    codebook_weight: Optional[Tuple[float, ...]] = None
+
+    # multi-token prediction heads (not yet ported; kept so that configs
+    # of MTP checkpoints load)
+    n_mtp: int = 0
+    mtp_weight: float = 0.5
+    mtp_detach: int = 1
+
+    # compute policy, and the training options of the JAX package (kept so
+    # that its config.json files load)
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    train_attn: str = "dense"
+    norm: str = "layernorm"
+    ffn_activation: str = "relu"
+    train_remat: str = "full"
+
+    # ---- derived quantities -------------------------------------------------
+
+    @property
+    def n_text_tokens(self) -> int:
+        return self.text_vocab_size + 1
+
+    @property
+    def card(self) -> int:
+        """Per-codebook output cardinality (reference voicecraft.py:132)."""
+        return self.audio_vocab_size + self.n_special
+
+    @property
+    def eog_inference(self) -> int:
+        return self.eos if self.eos > 0 else self.eog
+
+    @property
+    def head_dim(self) -> int:
+        assert self.d_model % self.nhead == 0
+        return self.d_model // self.nhead
+
+    @property
+    def ffn_dim(self) -> int:
+        return self.d_model * 4
+
+    def __post_init__(self):
+        # token-id layout invariants (reference voicecraft.py:130-135)
+        assert self.text_pad_token == self.text_vocab_size
+        assert self.empty_token == self.audio_vocab_size
+        assert self.eog == self.audio_vocab_size + 1
+        assert self.audio_pad_token == self.audio_vocab_size + 2
+        if self.eos > 0:
+            assert self.eos not in (self.audio_pad_token, self.empty_token)
+            assert self.n_special >= 4
+        assert self.norm in ("layernorm", "basicnorm", "balancedbasicnorm",
+                             "identity"), self.norm
+        assert self.ffn_activation in ("relu", "gelu", "doubleswish",
+                                       "balanceddoubleswish"), self.ffn_activation
+
+    # ---- (de)serialization ---------------------------------------------------
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, s: str) -> "ModelConfig":
+        return cls.from_dict(json.loads(s))
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ModelConfig":
+        """Build from a dict, tolerating extra keys (e.g. a full reference
+        args.pkl namespace dict) and the reference's stringly-typed fields."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        clean = {}
+        for k, v in d.items():
+            if k not in names:
+                continue
+            if k == "audio_vocab_size" and isinstance(v, str):
+                v = int(eval(v, {}, {}))  # as reference voicecraft.py:127
+            if k == "codebook_weight" and isinstance(v, str):
+                v = tuple(float(x) for x in eval(v, {}, {}))
+            if k == "codebook_weight" and isinstance(v, list):
+                v = tuple(float(x) for x in v)
+            clean[k] = v
+        return cls(**clean)
+
+
+# ---- presets ----------------------------------------------------------------
+
+def giga330M() -> ModelConfig:
+    """Small-model preset: the d_model=1024 reading of the giga330M family."""
+    return ModelConfig(d_model=1024, audio_embedding_dim=1024, nhead=16,
+                       num_decoder_layers=16, text_vocab_size=120,
+                       text_pad_token=120)
+
+
+def giga830M() -> ModelConfig:
+    """830M model (reference z_scripts/e830M.sh:34-37,56-60)."""
+    return ModelConfig(d_model=2048, audio_embedding_dim=2048, nhead=16,
+                       num_decoder_layers=16, text_vocab_size=120,
+                       text_pad_token=120)
+
+
+def giga830M_tts_enhanced() -> ModelConfig:
+    """TTS-enhanced 830M (eos=2051, n_special=4, reduced_eog)."""
+    return dataclasses.replace(giga830M(), eos=2051, n_special=4,
+                               reduced_eog=1)
+
+
+def tiny_test() -> ModelConfig:
+    """Small config for tests: the same token layout, tiny dims."""
+    return ModelConfig(
+        d_model=64, audio_embedding_dim=64, nhead=4, num_decoder_layers=2,
+        text_vocab_size=40, text_pad_token=40, audio_vocab_size=128,
+        empty_token=128, eog=129, audio_pad_token=130,
+        text_embedding_dropout=0.0, audio_embedding_dropout=0.0,
+        text_positional_embedding_dropout=0.0,
+        audio_positional_embedding_dropout=0.0, trm_dropout=0.0)
+
+
+def tiny_test_mtp() -> ModelConfig:
+    """tiny_test with 3 MTP head groups."""
+    return dataclasses.replace(tiny_test(), n_mtp=3)
+
+
+def proc50M() -> ModelConfig:
+    """~50M-param model with the giga family's token layout."""
+    return ModelConfig(d_model=512, audio_embedding_dim=512, nhead=8,
+                       num_decoder_layers=8, text_vocab_size=120,
+                       text_pad_token=120)
+
+
+PRESETS = {
+    "giga330M": giga330M,
+    "giga830M": giga830M,
+    "giga830M_TTSEnhanced": giga830M_tts_enhanced,
+    "tiny_test": tiny_test,
+    "tiny_test_mtp": tiny_test_mtp,
+    "proc50M": proc50M,
+}

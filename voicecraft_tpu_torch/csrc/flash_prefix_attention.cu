@@ -1,22 +1,23 @@
 // Forward-only prefix attention with an online softmax, for the prefill of
-// the [text ; audio] sequence.
+// the [text ; audio] sequence: the f32 kernel, and the C entry point that
+// sends bf16 to the tensor-core kernel of flash_prefix_attention_sm90.cu.
 //
 // Replaces: voicecraft_tpu/ops/flash_attention.py flash_prefix_attention
-// (Pallas body _flash_kernel).  Same semantics: causal over the joint
-// sequence, keys valid in [0, x_len) u [x_pad, x_pad + y_len), masked logits
-// -1e9, m/l/acc in f32, key tiles past the causal edge skipped, output
-// acc / max(l, 1e-20) in q's dtype.
+// (Pallas body _flash_kernel) for f32 inputs, which on the card serve only
+// the checks (a TF32 tensor-core path would keep ~3 decimal digits and miss
+// the 1e-4 f32 tolerance).  Same semantics: causal over the joint sequence,
+// keys valid in [0, x_len) u [x_pad, x_pad + y_len), masked logits -1e9,
+// m/l/acc in f32, key tiles past the causal edge skipped, output
+// acc / max(l, 1e-20).
 //
-// What bounds it on the H100: at the prefill shapes (S ~ 1.1k, D = 2048,
-// 16 heads of 128) the work is ~2*S^2*D flops per layer against ~4*S*D
-// bytes of q/k/v/out, far above the card's ~295 flop/byte balance point, so
-// it is compute bound.  This first version does its products on the CUDA
-// cores in f32 (no tensor cores), which makes shared-memory loads the
-// limiting instruction slot; wgmma/TMA are work for a later version.
+// What bounds it on the H100: every product is an f32 FMA on the CUDA cores
+// with one shared-memory operand, so shared-memory loads are the limiting
+// instruction slot (~0.6 ms at S = 1120, D = 2048, about as fast as f32
+// cuBLAS).  That is fine for a check path.
 //
 // Design: one block per (q tile of 16 rows, head, batch row); 4 warps, each
-// owning 4 query rows.  K/V tiles of 32 keys are staged in shared memory as
-// f32 straight from the [B, S, D] layout (head h = columns h*Dh ...), so
+// owning 4 query rows.  K/V tiles of 32 keys are staged in shared memory
+// straight from the [B, S, D] layout (head h = columns h*Dh ...), so
 // nothing is transposed.  A lane owns one key of the tile for the logits
 // (the k row is padded to Dh+1 floats so the 32 lanes hit 32 banks) and
 // Dh/32 output columns for the p@v update; the softmax max and sum are warp
@@ -31,11 +32,11 @@ constexpr int FA_WARPS = 4;
 constexpr int FA_THREADS = 32 * FA_WARPS;
 constexpr int FA_RPW = FA_BQ / FA_WARPS;      // query rows per warp
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_prefix_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ x_lens,
-                    const int* __restrict__ y_lens, T* __restrict__ out,
+flash_prefix_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const int* __restrict__ x_lens,
+                    const int* __restrict__ y_lens, float* __restrict__ out,
                     int S, int H, int x_pad, float scale) {
   constexpr int DPL = (DH + 31) / 32;         // output columns per lane
   __shared__ float qs[FA_BQ][DH];
@@ -55,7 +56,7 @@ flash_prefix_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = tid; i < FA_BQ * DH; i += FA_THREADS) {
     const int r = i / DH, c = i % DH, qp = q0 + r;
-    qs[r][c] = qp < S ? to_float(q[base + static_cast<size_t>(qp) * D + c]) * scale
+    qs[r][c] = qp < S ? q[base + static_cast<size_t>(qp) * D + c] * scale
                       : 0.f;
   }
 
@@ -76,8 +77,8 @@ flash_prefix_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / DH, c = i % DH, kp = k0 + r;
       const bool in = kp < S;
       const size_t off = base + static_cast<size_t>(kp) * D + c;
-      ks[r][c] = in ? to_float(k[off]) : 0.f;
-      vs[r][c] = in ? to_float(v[off]) : 0.f;
+      ks[r][c] = in ? k[off] : 0.f;
+      vs[r][c] = in ? v[off] : 0.f;
     }
     __syncthreads();
 
@@ -127,45 +128,52 @@ flash_prefix_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < DPL; ++i) {
       const int d = lane + 32 * i;
       if (d < DH)
-        out[base + static_cast<size_t>(qp) * D + d] = from_float<T>(acc[r][i] / denom);
+        out[base + static_cast<size_t>(qp) * D + d] = acc[r][i] / denom;
     }
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 static cudaError_t launch_flash(const void* q, const void* k, const void* v,
                                 const int* x_lens, const int* y_lens, void* out,
                                 int B, int S, int H, int x_pad, float scale,
                                 cudaStream_t stream) {
   const dim3 grid((S + FA_BQ - 1) / FA_BQ, H, B);
-  flash_prefix_kernel<T, DH><<<grid, FA_THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), x_lens, y_lens, static_cast<T*>(out), S, H,
-      x_pad, scale);
+  flash_prefix_kernel<DH><<<grid, FA_THREADS, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), x_lens, y_lens, static_cast<float*>(out),
+      S, H, x_pad, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-static cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
-                               const int* x_lens, const int* y_lens, void* out,
-                               int B, int S, int H, int Dh, int x_pad,
-                               float scale, cudaStream_t st) {
+static cudaError_t flash_prefix_attention_f32(
+    const void* q, const void* k, const void* v, const int* x_lens,
+    const int* y_lens, void* out, int B, int S, int H, int Dh, int x_pad,
+    float scale, cudaStream_t st) {
   switch (Dh) {
-    case 16: return launch_flash<T, 16>(q, k, v, x_lens, y_lens, out, B, S, H, x_pad, scale, st);
-    case 32: return launch_flash<T, 32>(q, k, v, x_lens, y_lens, out, B, S, H, x_pad, scale, st);
-    case 64: return launch_flash<T, 64>(q, k, v, x_lens, y_lens, out, B, S, H, x_pad, scale, st);
-    case 128: return launch_flash<T, 128>(q, k, v, x_lens, y_lens, out, B, S, H, x_pad, scale, st);
+    case 16: return launch_flash<16>(q, k, v, x_lens, y_lens, out, B, S, H, x_pad, scale, st);
+    case 32: return launch_flash<32>(q, k, v, x_lens, y_lens, out, B, S, H, x_pad, scale, st);
+    case 64: return launch_flash<64>(q, k, v, x_lens, y_lens, out, B, S, H, x_pad, scale, st);
+    case 128: return launch_flash<128>(q, k, v, x_lens, y_lens, out, B, S, H, x_pad, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
+
+// flash_prefix_attention_sm90.cu
+cudaError_t flash_prefix_attention_sm90(const void* q, const void* k,
+                                        const void* v, const int* x_lens,
+                                        const int* y_lens, void* out, int B,
+                                        int S, int H, int Dh, int x_pad,
+                                        float scale, cudaStream_t st);
 
 }  // namespace vc
 
 extern "C" {
 
-// q/k/v/out: [B, S, H*Dh] contiguous, dtype f32 or bf16 (dtype code);
-// x_lens/y_lens: [B] int32 on the device.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// q/k/v/out: [B, S, H*Dh] contiguous, dtype f32 or bf16 (dtype code): f32
+// runs the kernel above, bf16 the tensor-core kernel.  x_lens/y_lens: [B]
+// int32 on the device.  Launches on `stream` and returns cudaGetLastError()
+// (0 on success).
 int vc_flash_prefix_attention(const void* q, const void* k, const void* v,
                               const void* x_lens, const void* y_lens, void* out,
                               int B, int S, int H, int Dh, int x_pad,
@@ -177,10 +185,10 @@ int vc_flash_prefix_attention(const void* q, const void* k, const void* v,
   cudaError_t e;
   switch (dtype) {
     case vc::kF32:
-      e = vc::dispatch_dh<float>(q, k, v, xl, yl, out, B, S, H, Dh, x_pad, scale, st);
+      e = vc::flash_prefix_attention_f32(q, k, v, xl, yl, out, B, S, H, Dh, x_pad, scale, st);
       break;
     case vc::kBF16:
-      e = vc::dispatch_dh<__nv_bfloat16>(q, k, v, xl, yl, out, B, S, H, Dh, x_pad, scale, st);
+      e = vc::flash_prefix_attention_sm90(q, k, v, xl, yl, out, B, S, H, Dh, x_pad, scale, st);
       break;
     default:
       e = cudaErrorInvalidValue;

@@ -7,7 +7,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from voicecraft_tpu.config import ModelConfig
+from ..config import ModelConfig
 
 from ..ops import patterns
 

@@ -17,7 +17,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from voicecraft_tpu.config import PRESETS, ModelConfig
+from ..config import PRESETS, ModelConfig
 
 from ..models.encodec import EncodecConfig, Encodec
 from ..models.voicecraft import VoiceCraft

@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from voicecraft_tpu.config import ModelConfig
+from ..config import ModelConfig
 
 from ..data import spans
 from ..models.voicecraft import SamplingConfig, VoiceCraft, make_decode_loop

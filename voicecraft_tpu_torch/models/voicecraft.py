@@ -23,8 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from voicecraft_tpu.config import ModelConfig
+from ..config import ModelConfig
 
+from ..ops.attention import matmul_f32
 from ..ops.flash_attention import prefill_attention
 from ..ops.sampling import sample
 from . import transformer as trm
@@ -106,10 +107,12 @@ def embed_audio_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tenso
 
 
 def apply_heads(heads: Heads, h: torch.Tensor) -> torch.Tensor:
-    """h [N, D] -> logits [N, K, card] in f32 (exact-erf GELU)."""
-    h1 = torch.matmul(h.unsqueeze(0), heads.w1.to(h.dtype)).float()  # [K,N,half]
+    """h [N, D] -> logits [N, K, card] in f32 (exact-erf GELU).  Both
+    products come out in f32; the hidden layer is rounded to h's dtype once,
+    after its bias and the GELU, as in the JAX package."""
+    h1 = matmul_f32(h.unsqueeze(0), heads.w1.to(h.dtype))            # [K,N,half]
     h1 = F.gelu(h1 + heads.b1[:, None].float(), approximate="none")
-    logits = torch.matmul(h1.to(h.dtype), heads.w2.to(h.dtype)).float()  # [K,N,card]
+    logits = matmul_f32(h1.to(h.dtype), heads.w2.to(h.dtype))        # [K,N,card]
     return (logits + heads.b2[:, None].float()).transpose(0, 1)
 
 

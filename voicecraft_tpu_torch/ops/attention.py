@@ -1,7 +1,10 @@
 """Attention ops for the decoder (PyTorch port of voicecraft_tpu/ops/attention.py).
 
-Masks are computed from lengths, never materialised per head.  Logits and
-softmax are f32; products run in the activations' dtype.
+Masks are computed from lengths, never materialised per head.  The rounding
+points are the JAX package's: logits come out of their product in f32
+(``matmul_f32``, the counterpart of ``preferred_element_type=f32``), the
+scale and softmax are f32, probs are cast to v's dtype, and p@v sums in f32
+before one rounding to v's dtype.
 """
 
 from __future__ import annotations
@@ -13,6 +16,27 @@ import torch
 
 NEG_INF = -1e9  # large-negative instead of -inf: keeps softmax NaN-free for
                 # fully-masked (padding) query rows
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as f32, the product never rounded to the operands' dtype.
+    2-D, 3-D (one side may have a batch of 1) or 4-D [B, H, m, k].
+
+    On CUDA, bf16 operands go to cuBLAS with an f32 output
+    (``torch.bmm(..., out_dtype=f32)``); strided operands such as a KV slab
+    are passed as views and never copied.  On the CPU, where the port runs
+    in f32, the operands are upcast."""
+    if a.device.type != "cuda":
+        return torch.matmul(a.float(), b.float())
+    if a.dim() == 2:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    if a.dim() == 4:
+        if a.shape[0] == 1 and b.shape[0] == 1:
+            return matmul_f32(a[0], b[0])[None]
+        return torch.stack([matmul_f32(x, y) for x, y in zip(a, b)])
+    n = max(a.shape[0], b.shape[0])
+    return torch.bmm(a.expand(n, *a.shape[1:]), b.expand(n, *b.shape[1:]),
+                     out_dtype=torch.float32)
 
 
 def segment_padding_bias(s_total: int, x_max: int, x_lens: torch.Tensor,
@@ -41,9 +65,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
     qh = q.view(B, Sq, nhead, Dh).transpose(1, 2)
     kh = k.view(B, Skv, nhead, Dh).transpose(1, 2)
     vh = v.view(B, Skv, nhead, Dh).transpose(1, 2)
-    logits = torch.matmul(qh, kh.transpose(-1, -2)).float() * (1.0 / math.sqrt(Dh))
+    logits = matmul_f32(qh, kh.transpose(-1, -2)) * (1.0 / math.sqrt(Dh))
     probs = torch.softmax(logits + bias.float(), dim=-1).to(v.dtype)
-    out = torch.matmul(probs, vh)
+    out = matmul_f32(probs, vh).to(v.dtype)
     return out.transpose(1, 2).reshape(B, Sq, D)
 
 
@@ -65,7 +89,7 @@ def decode_attention_self(q: torch.Tensor, k_cache: torch.Tensor,
     B, S_max, H, Dh = k_cache.shape
     scale = 1.0 / math.sqrt(Dh)
     qh = q.view(B, 1, H, Dh).transpose(1, 2)                        # [B,H,1,Dh]
-    logits = torch.matmul(qh, k_cache.permute(0, 2, 3, 1)).float() * scale
+    logits = matmul_f32(qh, k_cache.permute(0, 2, 3, 1)) * scale
     j = torch.arange(S_max, device=q.device)
     mask = j < kv_len
     if x_pad is not None:
@@ -75,6 +99,6 @@ def decode_attention_self(q: torch.Tensor, k_cache: torch.Tensor,
         -1, keepdim=True) * scale                                    # [B,H,1,1]
     probs = torch.softmax(torch.cat([logits, logit_self], dim=-1),
                           dim=-1).to(v_cache.dtype)
-    out = (torch.matmul(probs[..., :-1], v_cache.permute(0, 2, 1, 3)).float()
+    out = (matmul_f32(probs[..., :-1], v_cache.permute(0, 2, 1, 3))
            + probs[..., -1:].float() * v_new.transpose(1, 2).float())
     return out.to(v_cache.dtype).transpose(1, 2).reshape(B, 1, H * Dh)

@@ -2,9 +2,11 @@
 one dispatcher that routes prefill attention (PyTorch port of
 voicecraft_tpu/ops/flash_attention.py).
 
-``flash_prefix_attention`` launches csrc/flash_prefix_attention.cu for CUDA
-tensors and takes the plain version for CPU tensors; there is no fallback
-between the two.
+``flash_prefix_attention`` takes the plain version for CPU tensors.  For
+CUDA tensors it launches one kernel per dtype: bf16 (the card's path) the
+tensor-core kernel of csrc/flash_prefix_attention_sm90.cu, f32 (the checks)
+the simple kernel of csrc/flash_prefix_attention.cu.  There is no fallback
+between any of them.
 """
 
 from __future__ import annotations

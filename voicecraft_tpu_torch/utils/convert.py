@@ -16,7 +16,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from voicecraft_tpu.config import ModelConfig
+from ..config import ModelConfig
 
 from ..models.encodec import EncodecConfig
 
