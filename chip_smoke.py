@@ -24,6 +24,18 @@ Phases, in order; any failure raises and the script exits non-zero:
               kernel path against the plain path after prefill and after 16
               teacher-forced decode steps; then request (a)'s prefill time
               through the attention kernel and through dense mha.
+  5. editing  the same model and codec, with codebook 0's eog bias raised by
+              EOG_BIAS, serving two multi-span edits through the functions
+              edit_torch_cli.py calls: (d) a 21.6 s recording (demo.wav
+              tiled 5x) with three masked intervals, whose prefill goes
+              through the attention kernel, sampled, fused FFN; (e) the
+              4.32 s demo with two, dense prefill, greedy, unfused FFN.
+              Checks that every span ends and is non-empty (so the span
+              feed queue runs), that the kept frames stand verbatim at their
+              offsets, the result's length, finite wavs and exact launch
+              counts; then the logits of the kernel path against the plain
+              path at (d)'s geometry across a span transition (prefill, K+4
+              tokens, the two queued feeds, 8 more tokens).
 
 The last three lines are the card (as nvidia-smi reports it), one JSON
 object with each kernel's result, and {"ok": true, "device": {...}}.
@@ -44,6 +56,17 @@ GEN_MAX = 256
 PROMPT = "the sound of birds over the river at dawn"
 TARGET = "the river runs past the old mill in the morning light"
 LONG_TILES = 4                       # demo.wav (4.32 s) tiled to 17.28 s
+EDIT_TILES = 5                       # demo.wav tiled to 21.6 s = 1080 frames
+EDIT_GEN_MAX = 384                   # recorded samples per edit request
+EDIT_TARGET = "the sound of waves over the sea at dawn"
+# Random weights end a span only when codebook 0 draws eog, 1 code of 2051:
+# thousands of steps.  Phase 5 adds EOG_BIAS to that logit's bias
+# (model.heads.b2[0, eog]) so that every span ends well within
+# EDIT_GEN_MAX.  The random heads' logits spread ~0.2 around 0 and their
+# largest of 2051 sits near +0.75.  A sweep on an H100 (seeds 0 and 1):
+# at 0.3 the spans of (d) and (e) end after 18-85 frames (at most 203
+# forwards); at 0.4 (e)'s greedy spans end at their first sample, empty.
+EOG_BIAS = 0.3
 
 # kernel vs plain tolerances (both accumulate in f32; they differ in
 # summation order, and in bf16 by one or two ulps of the rounded output)
@@ -342,55 +365,63 @@ class Request:
         self.scfg, self.fused_ffn = scfg, fused_ffn
 
 
-def prefill_inputs(model, x, codes):
-    """The long request's prefill on the card: (embedded prefix, x_lens,
-    y_lens, x_pad, y_pad, prefix length)."""
+def prefill_inputs(model, x, prefix):
+    """A request's prefill on the card, for text ids x and a composed
+    prefix: (embedded prefix, x_lens, y_lens, x_pad, y_pad)."""
     import torch
-    from voicecraft_tpu_torch.data.spans import compose_tts_prefix
     from voicecraft_tpu_torch.inference.tts import decode_geometry, pad_inputs
     from voicecraft_tpu_torch.models.voicecraft import embed_prefix
     cfg = model.cfg
-    prefix = compose_tts_prefix(codes, cfg)
     x_pad, y_pad, _ = decode_geometry(cfg, len(x), prefix.length, gen_max=16)
-    xt, yt, mi = pad_inputs(cfg, x, prefix, x_pad, y_pad, "cuda")
+    xt, yt, mi, _ = pad_inputs(cfg, x, prefix, x_pad, y_pad, "cuda")
     xl = torch.tensor([len(x)], dtype=torch.int32, device="cuda")
     yl = torch.tensor([prefix.length], dtype=torch.int32, device="cuda")
     with torch.inference_mode():
         emb = embed_prefix(model, xt, yt, mi)
-    return emb, xl, yl, x_pad, y_pad, prefix.length
+    return emb, xl, yl, x_pad, y_pad
 
 
-def teacher_forced_logits(model, x, codes, plain: bool):
-    """Logits after prefill and after each of 16 teacher-forced decode steps
-    of the long request, through the kernels (plain=False) or through
-    their plain versions and the unfused FFN (plain=True)."""
+def token_columns(model, n: int):
+    """The step embeddings [D] of n random delayed-space columns (seed 7)."""
+    import torch
+    from voicecraft_tpu_torch.models.voicecraft import column_embedding
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.audio_vocab_size, (n, cfg.n_codebooks),
+                           generator=torch.Generator(device="cuda").manual_seed(7),
+                           device="cuda")
+    with torch.inference_mode():
+        return [column_embedding(model, t) for t in tokens]
+
+
+def teacher_forced_logits(model, x, prefix, step_embs, plain: bool):
+    """Logits after prefill and after each teacher-forced decode step, one
+    step per embedding [D] of step_embs, through the kernels (plain=False)
+    or through their plain versions and the unfused FFN (plain=True)."""
     import torch
     from voicecraft_tpu_torch.models import transformer as trm
-    from voicecraft_tpu_torch.models.voicecraft import apply_heads, embed_step
+    from voicecraft_tpu_torch.models.voicecraft import apply_heads, step_input
     from voicecraft_tpu_torch.ops.flash_attention import (
         flash_prefix_attention_plain, prefill_attention)
     cfg = model.cfg
-    emb, xl, yl, x_pad, y_pad, prefix_len = prefill_inputs(model, x, codes)
+    emb, xl, yl, x_pad, y_pad = prefill_inputs(model, x, prefix)
     if plain:
         attn = lambda q, k, v: flash_prefix_attention_plain(q, k, v, xl, yl,
                                                             x_pad, cfg.nhead)
     else:
         attn = prefill_attention(xl, yl, x_pad, cfg.nhead, x_pad + y_pad)
-    cache = trm.init_kv_cache(cfg.num_decoder_layers, 1, x_pad + y_pad + 16,
-                              cfg.nhead, cfg.head_dim, model.dtype, "cuda")
-    tokens = torch.randint(0, cfg.audio_vocab_size, (16, cfg.n_codebooks),
-                           generator=torch.Generator(device="cuda").manual_seed(7),
-                           device="cuda")
+    cache = trm.init_kv_cache(cfg.num_decoder_layers, 1,
+                              x_pad + y_pad + len(step_embs), cfg.nhead,
+                              cfg.head_dim, model.dtype, "cuda")
     out = []
     with torch.inference_mode():
         h, cache = trm.prefill(model.decoder, emb, attn, cache)
-        out.append(apply_heads(model.heads, h[:, x_pad + prefix_len - 1]))
-        pos = torch.tensor(x_pad + prefix_len, device="cuda")
-        y_pos = torch.tensor(prefix_len, device="cuda")
+        out.append(apply_heads(model.heads, h[:, x_pad + prefix.length - 1]))
+        pos = torch.tensor(x_pad + prefix.length, device="cuda")
+        y_pos = torch.tensor(prefix.length, device="cuda")
         x_len = torch.tensor(len(x), device="cuda")
-        for i in range(16):
+        for e in step_embs:
             h, cache = trm.decode_step_fast(
-                model.decoder, embed_step(model, tokens[i], y_pos), cache, pos,
+                model.decoder, step_input(model, e, y_pos), cache, pos,
                 x_len=x_len, x_pad=x_pad, fused_ffn=not plain)
             out.append(apply_heads(model.heads, h[:, 0]))
             pos += 1
@@ -398,15 +429,16 @@ def teacher_forced_logits(model, x, codes, plain: bool):
     return out
 
 
-def prefill_times(model, x, codes):
-    """Request (a)'s prefill (trm.prefill over every layer) in ms, through
-    the attention kernel and through dense mha, from CUDA events."""
+def prefill_times(model, x, prefix):
+    """A request's prefill (trm.prefill over every layer) in ms, through
+    prefill_attention (the attention kernel at S >= 1024) and through dense
+    mha, from CUDA events."""
     import torch
     from voicecraft_tpu_torch.models import transformer as trm
     from voicecraft_tpu_torch.ops.attention import mha, segment_padding_bias
     from voicecraft_tpu_torch.ops.flash_attention import prefill_attention
     cfg = model.cfg
-    emb, xl, yl, x_pad, y_pad, _ = prefill_inputs(model, x, codes)
+    emb, xl, yl, x_pad, y_pad = prefill_inputs(model, x, prefix)
     S = x_pad + y_pad
     bias = segment_padding_bias(S, x_pad, xl, yl)
     cache = trm.init_kv_cache(cfg.num_decoder_layers, 1, S, cfg.nhead,
@@ -419,6 +451,148 @@ def prefill_times(model, x, codes):
                    for name, attn in paths}
 
 
+# ---- phase 5 -----------------------------------------------------------------
+
+class EditRequest:
+    def __init__(self, name, wav, target, intervals, scfg, fused_ffn):
+        self.name, self.wav, self.target = name, wav, target
+        self.intervals, self.scfg, self.fused_ffn = intervals, scfg, fused_ffn
+
+
+def kept_frames_verbatim(res, codes, intervals, span_frames) -> bool:
+    """Each kept interval of codes stands in res at its offset after the
+    generated spans before it, and nothing else is in res."""
+    starts = [s for s, _ in intervals]
+    ends = [e for _, e in intervals]
+    off = 0
+    for j, (lo, hi) in enumerate(zip([0] + ends, starts + [codes.shape[1]])):
+        if not np.array_equal(res[:, off:off + hi - lo], codes[:, lo:hi]):
+            return False
+        off += hi - lo + (span_frames[j] if j < len(span_frames) else 0)
+    return off == res.shape[1]
+
+
+def edit_phase(model, codec):
+    """Phase 5: two multi-span edits on the main path (launch counts set to
+    0 before and read after), then the kernel path's logits against the
+    plain path's across a span transition.  Returns the launch counts."""
+    import torch
+    from voicecraft_tpu_torch.data.phonemes import (build_vocab,
+                                                    make_text_tokenizer,
+                                                    phones_to_ids)
+    from voicecraft_tpu_torch.data.spans import compose_edit_prefix
+    from voicecraft_tpu_torch.inference.editing import inference_edit
+    from voicecraft_tpu_torch.inference.tts import decode_geometry
+    from voicecraft_tpu_torch.models import encodec as ec
+    from voicecraft_tpu_torch.models.voicecraft import (SamplingConfig,
+                                                        column_embedding)
+    from voicecraft_tpu_torch.ops import _native
+    from voicecraft_tpu_torch.utils import audio as au
+    cfg = model.cfg
+    K, L = cfg.n_codebooks, cfg.num_decoder_layers
+    with torch.no_grad():
+        model.heads.b2[0, cfg.eog] += EOG_BIAS
+    log(f"[5 editing] codebook 0's eog bias raised by {EOG_BIAS}")
+
+    # the requests' inputs, as edit_torch_cli.py makes them: text ids of the
+    # target transcript, codes of the whole recording
+    tok = make_text_tokenizer("en-us", "grapheme")
+    demo = au.load_audio(str(REPO / "demo" / "demo.wav"), 16000)
+    requests = [
+        EditRequest("d", np.tile(demo, (1, EDIT_TILES)),
+                    " ".join([EDIT_TARGET] * EDIT_TILES),
+                    [(200, 240), (520, 570), (860, 900)],
+                    SamplingConfig(top_k=40, top_p=1.0, temperature=1.0), True),
+        EditRequest("e", demo, EDIT_TARGET, [(40, 70), (130, 160)],
+                    SamplingConfig(top_k=40, top_p=1.0, temperature=0.0), False)]
+    for r in requests:
+        r.phones = tok.phonemize(r.target)
+    vocab = build_vocab([r.phones for r in requests])
+    for r in requests:
+        r.x = np.asarray(phones_to_ids(r.phones, vocab), np.int32)
+        r.codes = ec.encode_bucketed(codec, r.wav)[0]
+        r.prefix, r.queue_ids = compose_edit_prefix(r.codes, r.intervals, cfg)
+    d = requests[0]
+    x_pad, y_pad, _ = decode_geometry(cfg, len(d.x), d.prefix.length,
+                                      is_tts=False, n_spans=len(d.intervals),
+                                      gen_max=EDIT_GEN_MAX)
+    if d.codes.shape[1] != 1080 or x_pad + y_pad < 1024:
+        raise AssertionError(f"request (d): {d.codes.shape[1]} frames, "
+                             f"prefill {x_pad} + {y_pad} < 1024")
+
+    _native.reset_launch_counts()
+    for r in requests:
+        before = dict(_native.LAUNCHES)
+        stats = {}
+        t0 = time.time()
+        res = inference_edit(model, r.x, r.codes, r.intervals, r.scfg,
+                             seed=SEED, gen_max=EDIT_GEN_MAX,
+                             fused_ffn=r.fused_ffn, stats=stats)
+        wall = time.time() - t0
+        wav = ec.decode_bucketed(codec, res[None])[0]
+        d_flash = _native.LAUNCHES["flash_prefix_attention"] - before["flash_prefix_attention"]
+        d_ffn = _native.LAUNCHES["fused_ffn"] - before["fused_ffn"]
+        Sp, steps, feeds = stats["prefill_len"], stats["steps"], stats["feeds"]
+        m, span_frames = len(r.intervals), stats["span_frames"]
+        frames = sum(span_frames)
+        log(f"  request ({r.name}): {r.codes.shape[1]} frames, {m} masked "
+            f"intervals {r.intervals}, x_len {len(r.x)}, Sp {Sp}, "
+            f"{'sampled' if r.scfg.temperature > 0 else 'greedy'}, fused_ffn "
+            f"{r.fused_ffn}: {stats['spans_done']} spans done, frames "
+            f"{span_frames}, {steps} forwards ({feeds} feeds) in {wall:.3f} s "
+            f"= {frames / wall:.1f} frames/s ({steps / wall:.1f} forwards/s); "
+            f"launches flash {d_flash}, ffn {d_ffn}")
+        want_flash = L if Sp >= 1024 else 0
+        want_ffn = L * steps if r.fused_ffn else 0
+        if d_flash != want_flash or d_ffn != want_ffn:
+            raise AssertionError(f"request ({r.name}): launches flash {d_flash} "
+                                 f"(want {want_flash}), ffn {d_ffn} "
+                                 f"(want {want_ffn})")
+        masked = sum(e - s for s, e in r.intervals)
+        if stats["spans_done"] != m or min(span_frames) <= 0:
+            raise AssertionError(f"request ({r.name}): {stats['spans_done']} of "
+                                 f"{m} spans done, frames {span_frames}")
+        if not (kept_frames_verbatim(res, r.codes, r.intervals, span_frames)
+                and res.shape == (K, r.codes.shape[1] - masked + frames)
+                and wav.shape == (res.shape[1] * codec.cfg.hop_length,)
+                and np.isfinite(wav).all()):
+            raise AssertionError(f"request ({r.name}): bad output: result "
+                                 f"{res.shape}, wav {wav.shape}, finite "
+                                 f"{np.isfinite(wav).all()}")
+    launches = dict(_native.LAUNCHES)
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched by the edits")
+
+    for r in requests:
+        S, pre = prefill_times(model, r.x, r.prefix)
+        log(f"  request ({r.name}) prefill, {L} layers at S={S}: "
+            f"{pre['kernel']:.3f} ms through prefill_attention "
+            f"({'the attention kernel' if S >= 1024 else 'dense'}), "
+            f"{pre['dense mha']:.3f} ms through dense mha")
+
+    # across a span transition at (d)'s geometry: K+4 tokens, the two feeds
+    # the queue makes (the next span's mask embedding, an empty column),
+    # then 8 tokens
+    cols = token_columns(model, K + 12)
+    with torch.inference_mode():
+        feeds = [model.mask_emb[d.queue_ids[1]].to(model.dtype),
+                 column_embedding(model, torch.full((K,), cfg.empty_token,
+                                                    device="cuda"))]
+    steps = cols[:K + 4] + feeds + cols[K + 4:]
+    k_path = teacher_forced_logits(model, d.x, d.prefix, steps, plain=False)
+    p_path = teacher_forced_logits(model, d.x, d.prefix, steps, plain=True)
+    scale = max(t.abs().max().item() for t in p_path)
+    errs = [(a - b).abs().max().item() for a, b in zip(k_path, p_path)]
+    log(f"  logits at (d)'s geometry, kernel path vs plain path (max |logit| "
+        f"{scale:.3f}):")
+    check("after prefill", errs[0], TOL_LOGITS)
+    check(f"after {K + 4} teacher-forced tokens", max(errs[1:K + 5]), TOL_LOGITS)
+    check("after the mask and empty feeds", max(errs[K + 5:K + 7]), TOL_LOGITS)
+    check("after 8 more tokens", max(errs[K + 7:]), TOL_LOGITS)
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -429,6 +603,7 @@ def main() -> None:
     from voicecraft_tpu_torch.data.phonemes import (build_vocab,
                                                     make_text_tokenizer,
                                                     phones_to_ids)
+    from voicecraft_tpu_torch.data.spans import compose_tts_prefix
     from voicecraft_tpu_torch.inference.loader import load_codec, load_model
     from voicecraft_tpu_torch.inference.tts import decode_geometry, inference_tts
     from voicecraft_tpu_torch.models import encodec as ec
@@ -534,18 +709,25 @@ def main() -> None:
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched by the slice")
 
-    long_codes = ec.encode_bucketed(codec, long_wav)[0]
-    k_path = teacher_forced_logits(model, requests[0].x, long_codes, plain=False)
-    p_path = teacher_forced_logits(model, requests[0].x, long_codes, plain=True)
+    long_prefix = compose_tts_prefix(ec.encode_bucketed(codec, long_wav)[0], cfg)
+    steps = token_columns(model, 16)
+    k_path = teacher_forced_logits(model, requests[0].x, long_prefix, steps,
+                                   plain=False)
+    p_path = teacher_forced_logits(model, requests[0].x, long_prefix, steps,
+                                   plain=True)
     scale = max(t.abs().max().item() for t in p_path)
     errs = [(a - b).abs().max().item() for a, b in zip(k_path, p_path)]
     log(f"  logits, kernel path vs plain path (max |logit| {scale:.3f}):")
     check("after prefill", errs[0], TOL_LOGITS)
     check("after 16 teacher-forced decode steps", max(errs[1:]), TOL_LOGITS)
-    S, pre = prefill_times(model, requests[0].x, long_codes)
+    S, pre = prefill_times(model, requests[0].x, long_prefix)
     log(f"  request (a) prefill, {cfg.num_decoder_layers} layers at S={S}: "
         f"{pre['kernel']:.3f} ms through the attention kernel, "
         f"{pre['dense mha']:.3f} ms through dense mha")
+
+    # ---- 5. editing ----
+    edit_launches = edit_phase(model, codec)
+    launches = {name: n + edit_launches[name] for name, n in launches.items()}
 
     kernels = [
         dict(name="flash_prefix_attention", route="cuda",

@@ -115,7 +115,7 @@ def test_fp8_and_bf16_arrays_cross_bit_exact():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, its CLI and chip_smoke.py import with JAX
+    """Every module of the port, its CLIs and chip_smoke.py import with JAX
     and the JAX package unavailable (the machine with the card has no JAX,
     and the port stands alone)."""
     code = (
@@ -126,15 +126,17 @@ def test_port_imports_without_jax():
         "import voicecraft_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
-        "for n in names + ['tts_torch_cli', 'chip_smoke']:\n"
+        "for n in names + ['tts_torch_cli', 'edit_torch_cli', 'chip_smoke']:\n"
         "    importlib.import_module(n)\n"
-        "assert 'voicecraft_tpu_torch.models.voicecraft' in names\n"
+        "for n in ('models.voicecraft', 'inference.editing', 'align',\n"
+        "          'utils.convert_encodec', 'utils.transcribe'):\n"
+        "    assert 'voicecraft_tpu_torch.' + n in names, n\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 19
 
 
 @pytest.mark.parametrize("banned", ["import jax", "from jax",
@@ -144,10 +146,10 @@ def test_port_imports_without_jax():
                                     "scaled_dot_product_attention",
                                     "torch.compile"])
 def test_port_source_has_no(banned):
-    """Neither the port nor its two scripts (which import inside main())
-    name JAX, the JAX package, a library attention or the compiler."""
+    """Neither the port nor its scripts (which import inside main()) name
+    JAX, the JAX package, a library attention or the compiler."""
     files = [*PORT.rglob("*.py"), REPO / "tts_torch_cli.py",
-             REPO / "chip_smoke.py"]
+             REPO / "edit_torch_cli.py", REPO / "chip_smoke.py"]
     hits = [str(p.relative_to(REPO)) for p in files
             if banned in p.read_text()]
     assert not hits, hits

@@ -16,6 +16,11 @@ Smoke mode (no checkpoints, CPU):
       --text-backend grapheme --prompt-wav demo/demo.wav \\
       --prompt-transcript "the sound of birds over the river at dawn" \\
       --target-transcript "the river runs past the mill" --out /tmp/out.wav
+
+--prompt-end-sec with --mfa-csv (or --snap-cutoff, which aligns the prompt
+with the energy aligner) snaps the cut to a word boundary and cuts the
+prompt transcript there; --long synthesizes the target sentence by
+sentence against the prompt.
 """
 
 import argparse
@@ -26,8 +31,7 @@ import numpy as np
 
 # flags of tts_cli.py whose machinery the port does not have yet; each is
 # refused, never silently ignored
-NOT_YET_PORTED = ("spec", "sample_batch_size", "long", "mfa_csv",
-                  "snap_cutoff", "asr_model")
+NOT_YET_PORTED = ("spec", "sample_batch_size", "asr_model")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -35,15 +39,25 @@ def build_parser() -> argparse.ArgumentParser:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--model", required=True,
                     help=".pth bundle, HF snapshot dir, or preset name")
-    ap.add_argument("--codec", default=None,
-                    help="audiocraft .th checkpoint (not yet ported: use "
-                         "--random-init)")
+    ap.add_argument("--codec", default=None, help="audiocraft .th checkpoint")
     ap.add_argument("--prompt-wav", required=True)
     ap.add_argument("--prompt-transcript", default=None)
     ap.add_argument("--target-transcript", required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--prompt-end-sec", type=float, default=-1.0,
                     help="cut the prompt at this time")
+    ap.add_argument("--mfa-csv", default=None,
+                    help="MFA alignment CSV of the prompt: snap "
+                         "--prompt-end-sec to a word boundary and cut the "
+                         "prompt transcript there")
+    ap.add_argument("--snap-cutoff", action="store_true",
+                    help="snap --prompt-end-sec to a word boundary found by "
+                         "the energy aligner (no MFA CSV needed)")
+    ap.add_argument("--margin", type=float, default=0.04)
+    ap.add_argument("--cutoff-tolerance", type=float, default=1.0)
+    ap.add_argument("--long", action="store_true",
+                    help="split the target transcript into sentences and "
+                         "synthesize each against the prompt")
     # sampling defaults per the reference README (post 03/2025)
     ap.add_argument("--top-k", type=int, default=40)
     ap.add_argument("--top-p", type=float, default=1.0)
@@ -64,11 +78,35 @@ def build_parser() -> argparse.ArgumentParser:
     # not yet ported (refused when given)
     ap.add_argument("--spec", type=int, default=0)
     ap.add_argument("--sample-batch-size", type=int, default=1)
-    ap.add_argument("--long", action="store_true")
-    ap.add_argument("--mfa-csv", default=None)
-    ap.add_argument("--snap-cutoff", action="store_true")
     ap.add_argument("--asr-model", default=None)
     return ap
+
+
+def snap_prompt_cutoff(args, sample_rate: int):
+    """(prompt_end_sec, prompt_transcript) with the cut snapped to a word
+    boundary of the --mfa-csv rows (every row, in file order) or of the
+    energy aligner's rows, and the transcript cut after that row's word;
+    unchanged when no boundary lies at or after the cut."""
+    from voicecraft_tpu_torch.inference.tts import find_closest_word_boundary
+    if args.mfa_csv:
+        import csv
+        with open(args.mfa_csv) as f:
+            rows = [(r["Begin"], r["End"]) for r in csv.DictReader(f)]
+    else:
+        from voicecraft_tpu_torch.align import align_words
+        from voicecraft_tpu_torch.utils import audio as au
+        wav = au.load_audio(args.prompt_wav, sample_rate)
+        rows = [(r["Begin"], r["End"]) for r in
+                align_words(wav, sample_rate,
+                            args.prompt_transcript.strip().lower())]
+    snapped, idx = find_closest_word_boundary(
+        rows, args.prompt_end_sec, args.margin, args.cutoff_tolerance)
+    if snapped is None:
+        return args.prompt_end_sec, args.prompt_transcript
+    logging.info("prompt cutoff snapped: %.2fs -> %.3fs", args.prompt_end_sec,
+                 snapped)
+    words = args.prompt_transcript.split(" ")
+    return snapped, " ".join(words[:min(idx + 1, len(words))])
 
 
 def main(argv=None):
@@ -92,6 +130,7 @@ def main(argv=None):
     from voicecraft_tpu_torch.models import encodec as ec
     from voicecraft_tpu_torch.models.voicecraft import SamplingConfig
     from voicecraft_tpu_torch.utils import audio as au
+    from voicecraft_tpu_torch.utils.transcribe import split_sentences
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -103,13 +142,20 @@ def main(argv=None):
     ccfg, codec = load_codec(args.codec, args.random_init, args.seed, device,
                              codebook_size=cfg.audio_vocab_size)
 
+    if args.prompt_end_sec > 0 and (args.mfa_csv or args.snap_cutoff):
+        args.prompt_end_sec, args.prompt_transcript = snap_prompt_cutoff(
+            args, ccfg.sample_rate)
+
     tok = make_text_tokenizer(args.language, args.text_backend)
-    phones = tok.phonemize(args.prompt_transcript.strip() + " "
-                           + args.target_transcript.strip())
+    targets = (split_sentences(args.target_transcript) if args.long
+               else [args.target_transcript])
+    phones = [tok.phonemize(args.prompt_transcript.strip() + " " + t.strip())
+              for t in targets]
     if phn2num is None:
-        phn2num = build_vocab([phones])
-    x = np.asarray(phones_to_ids(phones, phn2num), np.int32)
-    logging.info("phonemized to %d symbols", len(x))
+        phn2num = build_vocab(phones)
+    xs = [np.asarray(phones_to_ids(p, phn2num), np.int32) for p in phones]
+    logging.info("phonemized %d target(s) to %s symbols", len(xs),
+                 [len(x) for x in xs])
 
     wav = au.load_audio(args.prompt_wav, ccfg.sample_rate)
     if args.prompt_end_sec > 0:
@@ -125,8 +171,12 @@ def main(argv=None):
                           stop_repetition=args.stop_repetition,
                           silence_tokens=tuple(args.silence_tokens))
     t0 = time.time()
-    full, gen = inference_tts(model, x, codes, scfg, seed=args.seed,
-                              fused_ffn=args.fused_ffn)
+    # long form: each sentence against the prompt, seeds seed, seed + 1, ...
+    gen = np.concatenate(
+        [inference_tts(model, x, codes, scfg, seed=args.seed + i,
+                       fused_ffn=args.fused_ffn)[1] for i, x in enumerate(xs)],
+        axis=1)
+    full = np.concatenate([codes, gen], axis=1)
     dt = time.time() - t0
     gen_sec = gen.shape[1] / cfg.encodec_sr
     logging.info("generated %d frames (%.2fs audio) in %.2fs on %s",

@@ -4,8 +4,9 @@ voicecraft_tpu/inference/loader.py).
 Model sources: a named preset with random weights (``random_init``), a
 reference ``*.pth`` bundle, or a local HF-hub snapshot directory
 (config.json + model.safetensors or pytorch_model.bin, optional
-vocab.txt).  Nothing is downloaded.  The compute dtype is the config's
-(bf16 for the presets) on CUDA, and f32 on the CPU.
+vocab.txt).  Codec sources: an audiocraft ``.th`` checkpoint or random
+weights.  Nothing is downloaded.  The compute dtype is the config's (bf16
+for the presets) on CUDA, and f32 on the CPU.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from ..config import PRESETS, ModelConfig
 from ..models.encodec import EncodecConfig, Encodec
 from ..models.voicecraft import VoiceCraft
 from ..utils.convert import from_reference_state_dict, load_reference_bundle
+from ..utils.convert_encodec import load_audiocraft_checkpoint
 
 
 def _device_dtype_fix(cfg: ModelConfig, device: torch.device) -> ModelConfig:
@@ -84,17 +86,19 @@ def load_model(path_or_preset: str, random_init: bool = False, seed: int = 0,
 def load_codec(path: Optional[str], random_init: bool = False, seed: int = 0,
                device="cuda", codebook_size: int = 2048
                ) -> Tuple[EncodecConfig, Encodec]:
-    """The default 4-codebook 16 kHz EnCodec with random weights, with
+    """An audiocraft ``.th`` codec checkpoint at ``path``; without a path,
+    the default 4-codebook 16 kHz EnCodec with random weights and
     ``codebook_size`` entries per codebook (give the model's
-    audio_vocab_size, so that its codes embed).  Loading an audiocraft
-    ``.th`` checkpoint is not yet ported."""
+    audio_vocab_size, so that its codes embed)."""
+    device = torch.device(device)
     if path is not None:
-        raise NotImplementedError("loading an audiocraft .th codec checkpoint "
-                                  "is not yet ported; use --random-init")
+        cfg, state = load_audiocraft_checkpoint(path)
+        codec = Encodec(cfg, device)
+        codec.load_state_dict(state)
+        return cfg, codec.eval()
     if not random_init:
         raise ValueError("a codec path is required unless random_init "
                          "(--random-init)")
-    device = torch.device(device)
     cfg = EncodecConfig(codebook_size=codebook_size)
     gen = torch.Generator(device=device).manual_seed(seed)
     return cfg, Encodec(cfg, device).init_weights(gen).eval()

@@ -1,5 +1,5 @@
-"""VoiceCraft model and its zero-shot TTS decode loop (PyTorch port of
-voicecraft_tpu/models/voicecraft.py).
+"""VoiceCraft model and its decode loop for zero-shot TTS and multi-span
+editing (PyTorch port of voicecraft_tpu/models/voicecraft.py).
 
 ``VoiceCraft`` holds the parameters: per-codebook audio embeddings (summed),
 text and mask embeddings, sine positional embeddings scaled by learnable
@@ -9,8 +9,8 @@ the JAX code reads them; every weight matrix is stored once in the compute
 dtype.
 
 The decode loop keeps its state in device tensors of static shape (the
-write pointer, the sampling state, the token buffer) and syncs with the host
-once per step, for ``done``.
+write pointer, the sampling state, the token and span buffers, the span
+feed queue) and syncs with the host once per step.
 """
 
 from __future__ import annotations
@@ -135,13 +135,19 @@ def embed_prefix(model: VoiceCraft, x_tokens: torch.Tensor,
     return torch.cat([x_in, y_in], dim=1)
 
 
-def embed_step(model: VoiceCraft, samples: torch.Tensor,
+def column_embedding(model: VoiceCraft, samples: torch.Tensor) -> torch.Tensor:
+    """The summed embedding [D] of one delayed-space column ``samples`` [K],
+    summed in f32 and rounded once to the compute dtype."""
+    return embed_audio_tokens(model.audio_emb,
+                              samples[None, :, None])[0, 0].to(model.dtype)
+
+
+def step_input(model: VoiceCraft, emb: torch.Tensor,
                y_pos: torch.Tensor) -> torch.Tensor:
-    """The decode-step input [1, 1, D]: the summed embedding of one
-    delayed-space column ``samples`` [K] at audio position ``y_pos`` (a 0-d
-    tensor, read on the device)."""
+    """The decode-step input [1, 1, D]: ``emb`` [D] (compute dtype) plus the
+    alpha-scaled positional term at audio position ``y_pos`` (a 0-d tensor,
+    read on the device)."""
     dtype = model.dtype
-    emb = embed_audio_tokens(model.audio_emb, samples[None, :, None])[0, 0].to(dtype)
     pe = model.pe.index_select(0, y_pos.view(1)).to(dtype)
     return (emb + model.alpha_audio.to(dtype) * pe)[None]
 
@@ -257,19 +263,39 @@ def _adjust_and_sample(cfg: ModelConfig, scfg: SamplingConfig, is_tts: bool,
 # decode loop
 # ==============================================================================
 
+@dataclasses.dataclass
+class DecodeResult:
+    """What one decode run leaves: the recorded samples and, from the last
+    host sync, the counts."""
+    gen_buf: torch.Tensor     # [gen_max, K] delayed-space samples (device)
+    span_buf: torch.Tensor    # [gen_max] span index of each sample (device)
+    gen_cnt: int              # recorded samples (rows of gen_buf in use)
+    spans_done: int           # spans started (the JAX loop's span_idx + 1)
+    forwards: int             # decoder forwards, feed steps included
+
+
 def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
                      y_pad: int, gen_max: int, scfg: SamplingConfig,
                      fused_ffn: bool = False):
-    """The single-sample, single-span decode function for one geometry.
+    """The single-sample decode function for one geometry: TTS (one span)
+    or multi-span editing.
 
     Static geometry: x padded to ``x_pad``, the composed y prefix padded to
-    ``y_pad``, at most ``gen_max`` decode steps.  The slab keeps the JAX
-    package's size, with room for the span-transition feeds of editing
-    (not yet ported: n_spans must be 1).
+    ``y_pad``, at most ``gen_max`` recorded samples.  When a span completes
+    and spans remain, a 2-deep queue feeds [mask embedding of the next
+    span, empty column] through the decoder.  Those feed steps advance
+    ``pos`` and ``y_pos`` but record nothing and do not count against
+    ``gen_max``, so the slab has 2 * (max_n_spans - 1) extra slots.  Every
+    step draws (a feed step's draw is thrown away), so each step of a decode
+    runs the same ops; the queue, the per-span resets and the span
+    bookkeeping are device tensors under ``torch.where``.  A one-span decode
+    (TTS) can never queue a feed and leaves that bookkeeping out (~30 fewer
+    launches per step).  One host sync per step reads ``done``, the sample
+    count and the span index together.
 
     Returns decode(model, x_tokens [1, x_pad], x_len, y_prefix [1, K, y_pad],
-    prefix_len, mask_emb_idx [1, y_pad], n_spans, generator)
-      -> (gen_buf [gen_max, K] on the device, number of decode steps).
+    prefix_len, mask_emb_idx [1, y_pad], queue_mask_ids [max_n_spans],
+    n_spans, generator) -> DecodeResult.
     """
     K = cfg.n_codebooks
     H, Dh, L = cfg.nhead, cfg.head_dim, cfg.num_decoder_layers
@@ -278,11 +304,12 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
 
     @torch.inference_mode()
     def decode(model: VoiceCraft, x_tokens, x_len: int, y_prefix,
-               prefix_len: int, mask_emb_idx, n_spans: int,
-               generator: Optional[torch.Generator]):
-        if n_spans != 1:
-            raise NotImplementedError("multi-span editing decode is not yet "
-                                      "ported (n_spans must be 1)")
+               prefix_len: int, mask_emb_idx, queue_mask_ids, n_spans: int,
+               generator: Optional[torch.Generator]) -> DecodeResult:
+        if not 1 <= n_spans <= cfg.max_n_spans:
+            raise ValueError(f"n_spans {n_spans} outside [1, max_n_spans "
+                             f"{cfg.max_n_spans}] (the slab holds the feeds "
+                             "of max_n_spans - 1 span transitions)")
         dev, dtype = model.device, model.dtype
         ltype = torch.long
 
@@ -302,37 +329,89 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
         pos = scalar(x_pad + prefix_len)
         y_pos = scalar(prefix_len)
         gen_buf = torch.zeros((gen_max, K), dtype=ltype, device=dev)
+        span_buf = torch.zeros((gen_max,), dtype=ltype, device=dev)
         gen_cnt = scalar(0)
         codebook_eog = torch.zeros((K,), dtype=torch.bool, device=dev)
         cur_num_gen = scalar(0)
         consec = scalar(0)
         prev = scalar(-1)
-        n_steps = 0
+        span_idx = scalar(0)
+        queue = torch.zeros((2, cfg.d_model), dtype=dtype, device=dev)
+        queue_len = scalar(0)
+        queue_mask_ids = queue_mask_ids.to(device=dev, dtype=ltype)
+        empty_emb = column_embedding(
+            model, torch.full((K,), cfg.empty_token, dtype=ltype, device=dev))
+        forwards = 0
+        multi = n_spans > 1
 
-        while n_steps < gen_max:
+        while True:
             samples, new_eog, new_consec, new_prev = _adjust_and_sample(
                 cfg, scfg, is_tts, cap_mult, generator, logits[0],
                 codebook_eog, cur_num_gen, consec, prev, y_pos, x_len_t)
-            done = new_eog.all()             # the one span is complete
             gen_buf.index_copy_(0, gen_cnt.view(1), samples[None])
-            gen_cnt += 1
-            n_steps += 1
-            codebook_eog = new_eog & ~done
-            cur_num_gen = torch.where(done, 0, cur_num_gen + 1)
-            consec = torch.where(done, 0, new_consec)
-            prev = torch.where(done, -1, new_prev)
+            emb = column_embedding(model, samples)
+            if not multi:
+                # one span: its completion ends the loop after this step,
+                # so nothing is reset
+                done = new_eog.all()
+                gen_cnt += 1
+                codebook_eog, cur_num_gen = new_eog, cur_num_gen + 1
+                consec, prev = new_consec, new_prev
+            else:
+                # a feed step records nothing and leaves the sampling state
+                # alone; the row it wrote at gen_cnt lies past the recorded
+                # count, and the next sample overwrites it
+                feeding = queue_len > 0
+                span_complete = new_eog.all() & ~feeding
+                span_buf.index_copy_(0, gen_cnt.view(1), span_idx.view(1))
+                gen_cnt += (~feeding).long()
+                emb = torch.where(feeding, queue[0], emb)
 
-            # feed the sample through the decoder (also after the last one,
-            # as the JAX loop does)
-            feed = embed_step(model, samples, y_pos)
-            h, cache = trm.decode_step_fast(model.decoder, feed, cache, pos,
-                                            x_len=x_len_t, x_pad=x_pad,
-                                            fused_ffn=fused_ffn)
+                # on a span's completion with spans left, queue [mask
+                # embedding of the next span, empty column]; a feed step
+                # pops the queue
+                more = span_idx + 1 < n_spans
+                start_next = span_complete & more
+                next_id = queue_mask_ids.index_select(
+                    0, (span_idx + 1).clamp(max=cfg.max_n_spans - 1).view(1))
+                new_queue = torch.cat(
+                    [model.mask_emb.index_select(0, next_id).to(dtype),
+                     empty_emb[None]])
+                queue = torch.where(start_next, new_queue,
+                                    torch.where(feeding, queue[1].expand(2, -1),
+                                                queue))
+                queue_len = torch.where(start_next, 2,
+                                        torch.where(feeding, queue_len - 1,
+                                                    queue_len))
+                done = span_complete & ~more
+                span_idx = span_idx + start_next.long()
+
+                # per-span resets
+                codebook_eog = torch.where(
+                    span_complete, False,
+                    torch.where(feeding, codebook_eog, new_eog))
+                cur_num_gen = torch.where(
+                    span_complete, 0,
+                    torch.where(feeding, cur_num_gen, cur_num_gen + 1))
+                consec = torch.where(span_complete, 0,
+                                     torch.where(feeding, consec, new_consec))
+                prev = torch.where(span_complete, -1,
+                                   torch.where(feeding, prev, new_prev))
+
+            # feed the step's input through the decoder (also after the last
+            # sample, as the JAX loop does)
+            h, cache = trm.decode_step_fast(model.decoder,
+                                            step_input(model, emb, y_pos),
+                                            cache, pos, x_len=x_len_t,
+                                            x_pad=x_pad, fused_ffn=fused_ffn)
             logits = apply_heads(model.heads, h[:, 0])
             pos += 1
             y_pos += 1
-            if bool(done):
+            forwards += 1
+            is_done, n_gen, n_span = torch.stack(
+                [done.long(), gen_cnt, span_idx]).tolist()
+            if is_done or n_gen >= gen_max:
                 break
-        return gen_buf, n_steps
+        return DecodeResult(gen_buf, span_buf, n_gen, n_span + 1, forwards)
 
     return decode
