@@ -11,9 +11,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               apply_heads on the card against the same functions on CPU
               copies of the inputs; each kernel against its plain PyTorch
               version on the card, at the main path's shapes and at edge
-              shapes: max abs error against a stated tolerance, and both
-              times from CUDA events; the attention kernel's grid, and its
-              time against dense mha over a range of S (the crossover)
+              shapes, against a stated tolerance; the fused FFN's bf16
+              calls repeated and replayed from a CUDA graph bit for bit;
+              kernel, plain and library times from CUDA-graph replays (the
+              FFN over a round robin of weight sets larger than L2) beside
+              the bound computed from the shapes; the attention kernel's
+              grid, and its time against dense mha over a range of S
   4. slice    giga830M in bf16 and the 16 kHz EnCodec, random weights from a
               seed, serving three zero-shot TTS requests through the
               functions tts_torch_cli.py calls: (a) a ~17 s prompt, whose
@@ -71,7 +74,25 @@ EOG_BIAS = 0.3
 # kernel vs plain tolerances (both accumulate in f32; they differ in
 # summation order, and in bf16 by one or two ulps of the rounded output)
 TOL_FLASH_F32 = 1e-4
-TOL_FFN = 2e-2
+TOL_FFN_F32 = 1e-4
+# the bf16 FFN kernel, per element, in bf16 ulps of max(|out|, 1), against
+# its plain version, which rounds at the same points (f32 products, the
+# hidden vector rounded to bf16, one output rounding) and sums in another
+# order.  The f32 sums then differ by ~1e-6 relative, which can flip the
+# output's rounding (1 ulp) and, now and then, a hidden element's rounding:
+# that moves out by ulp(h) * |w2| ~ 2^-8 * 0.01, far below an output ulp,
+# so 1 more ulp bounds any number of such flips.  2 ulps of 1 are 0.0156,
+# under the flat 2e-2 this check replaces.
+FFN_ULPS = 2.0
+# the FFN timings stream weights as decode does, from device memory: a
+# round robin over FFN_SETS weight sets (8 x 67.1 MB bf16, far past the 50
+# MB L2)
+FFN_SETS = 8
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): device
+# memory, bf16 tensor cores, f32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
 # the bf16 attention kernel, per element, in bf16 ulps of max(|out|, 1).
 # Against its plain version, which keeps the probs in f32 where the kernel
 # rounds them to bf16: each prob is off by up to 2^-9 of itself, which
@@ -122,6 +143,60 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fns, replays: int = 10) -> float:
+    """Device time per call of the callables fns, run in turn, from CUDA
+    events around replays of one CUDA graph of all of them: the host's
+    launch overhead, which an eager loop of short kernels measures instead,
+    is left out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up outside the capture
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * len(fns))
+
+
+def replay_matches_eager(fn) -> bool:
+    """fn() captured in a CUDA graph and replayed equals fn() run eagerly,
+    bit for bit."""
+    import torch
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return torch.equal(out, eager)
+
+
+def bound(nbytes: float, flops: float, flop_per_s: float):
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def bf16_ulp(x):
@@ -216,6 +291,7 @@ def repair_phase():
 
 def flash_phase(geom_long):
     import torch
+    import torch.nn.functional as fnn
     from voicecraft_tpu_torch.ops.attention import mha, segment_padding_bias
     from voicecraft_tpu_torch.ops.flash_attention import (
         flash_prefix_attention, flash_prefix_attention_plain)
@@ -267,9 +343,34 @@ def flash_phase(geom_long):
     dense = mha(q, k, v, segment_padding_bias(S, x_pad, xl, yl), 16)
     check_ulps("bf16 main-path shape vs dense bf16 mha", got[rows],
                dense[rows], FLASH_VS_MHA_ULPS)
-    ms = cuda_ms(lambda: flash_prefix_attention(*args))
-    plain_ms = cuda_ms(lambda: flash_prefix_attention_plain(*args))
-    log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call")
+
+    def timings(args, dtype_peak, elt):
+        """Kernel, plain and library (one call of PyTorch's fused attention
+        under the same mask) ms from CUDA-graph replays, and the bound:
+        q/k/v/out read or written once, 4*D flops for each (query, allowed
+        key) pair: the products of every row against the keys its mask
+        allows."""
+        q, k, v, xl, yl, xp, H = args
+        B, S, D = q.shape
+        allowed = segment_padding_bias(S, xp, xl, yl)[:, 0] == 0  # [B, S, S]
+        heads = lambda t: t.view(B, S, H, D // H).transpose(1, 2)
+        t = dict(
+            ms=graph_ms([lambda: flash_prefix_attention(*args)]),
+            plain_ms=graph_ms([lambda: flash_prefix_attention_plain(*args)]),
+            library_ms=graph_ms([lambda: fnn.scaled_dot_product_attention(
+                heads(q), heads(k), heads(v), attn_mask=allowed[:, None])]))
+        t["bound_ms"], t["bound_by"] = bound(
+            4 * B * S * D * elt, 4 * D * allowed.sum().item(), dtype_peak)
+        log(f"  kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"library (PyTorch's fused attention) {t['library_ms']:.4f} ms "
+            f"per call (CUDA-graph replays); bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), the kernel at {t['bound_ms'] / t['ms']:.0%} "
+            f"of it")
+        return t
+
+    main = timings(args, BF16_FLOP_PER_S, 2)
+    log(f"  eager, host launch included: kernel "
+        f"{cuda_ms(lambda: flash_prefix_attention(*args)):.4f} ms per call")
     # edge shapes: B=2 with different lens, S off every tile size, x_pad off
     # the tile grid, every head dim, and a text padding wide enough that
     # whole key tiles in it are skipped (one row with no text at all)
@@ -292,6 +393,10 @@ def flash_phase(geom_long):
                                       (1, 300, 512, 4, 64, [64], [236])):
         case(f"f32 B={B} S={S2} Dh={D // H}", B, S2, D, H, xp, xl2, yl2,
              torch.float32)
+    # the f32 kernel (the checks' path) at the main path's width
+    _, args32, _, _ = case(f"f32 B=1 S={S} D=2048 (main-path width)", 1, S,
+                           2048, 16, x_pad, [x_len], [y_len], torch.float32)
+    f32 = timings(args32, F32_FLOP_PER_S, 4)
 
     log("flash_prefix_attention vs dense bf16 mha, B=1 D=2048 H=16 "
         "(x_len S/5, x_pad x_len+3, the rest audio):")
@@ -311,7 +416,7 @@ def flash_phase(geom_long):
             crossover = S2
     log(f"  crossover: the kernel beats dense mha from S={crossover} on "
         f"(FLASH_PREFILL_MIN_LEN stays 1024)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return dict(max_abs_err=err, **main, f32=f32)
 
 
 def quantize_fp8(w):
@@ -324,36 +429,115 @@ def quantize_fp8(w):
 
 
 def ffn_phase():
+    """The fused FFN kernels against their plain version: bf16 x (the sm90
+    kernel) at the main path's width for B = 1, 4, 8 and at edge widths,
+    f32 x (the check kernel); every bf16 call repeated and replayed from a
+    CUDA graph bit for bit; then kernel, plain and the unfused cuBLAS pair
+    timed over a round robin of FFN_SETS weight sets, against the bound."""
     import torch
-    from voicecraft_tpu_torch.ops.fused_decode import fused_ffn, fused_ffn_plain
+    from voicecraft_tpu_torch.ops.fused_decode import (ffn_sm90_blocks,
+                                                       fused_ffn,
+                                                       fused_ffn_plain)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    D, F = 2048, 8192
     bf = torch.bfloat16
 
-    def uni(shape, bound):
-        return ((torch.rand(shape, generator=gen, device="cuda") * 2 - 1)
-                * bound).to(bf)
-    w1, b1 = uni((D, F), D ** -0.5), uni((F,), D ** -0.5)
-    w2, b2 = uni((F, D), F ** -0.5), uni((D,), F ** -0.5)
-    q1, q2 = quantize_fp8(w1), quantize_fp8(w2)
+    def weights(D, F, dtype=bf):
+        def uni(shape, b):
+            return ((torch.rand(shape, generator=gen, device="cuda") * 2 - 1)
+                    * b).to(dtype)
+        return (uni((D, F), D ** -0.5), uni((F,), D ** -0.5),
+                uni((F, D), F ** -0.5), uni((D,), F ** -0.5))
+
+    def fp8(ws):
+        w1, b1, w2, b2 = ws
+        return quantize_fp8(w1), b1, quantize_fp8(w2), b2
+
+    def rows(B, D, dtype=bf):
+        return torch.randn((B, D), generator=gen, device="cuda").to(dtype)
+
+    def check_case(name, x, ws):
+        got = fused_ffn(x, *ws)
+        want = fused_ffn_plain(x, *ws)
+        torch.cuda.synchronize()
+        if x.dtype == bf:
+            err = check_ulps(name, got, want, FFN_ULPS)
+            if not torch.equal(fused_ffn(x, *ws), got):
+                raise AssertionError(f"{name}: two calls differ")
+            if not replay_matches_eager(lambda: fused_ffn(x, *ws)):
+                raise AssertionError(f"{name}: CUDA-graph replay differs")
+        else:
+            err = (got - want).abs().max().item()
+            check(name, err, TOL_FFN_F32)
+        return err
+
+    log("fused_ffn vs plain; bf16 calls repeated and replayed bit for bit:")
+    for D, F in ((1024, 4096), (512, 2048), (64, 256)):
+        ws = weights(D, F)
+        for B in (1, 8):
+            x = rows(B, D)
+            check_case(f"bf16 B={B} D={D} F={F}, bf16 weights", x, ws)
+            check_case(f"bf16 B={B} D={D} F={F}, fp8 weights", x, fp8(ws))
+    # the host's side of a call (the decode step is host-bound): enqueue
+    # time at tiny_test's width, where the device keeps up with the host
+    ws, x = weights(64, 256), rows(1, 64)
+    for _ in range(50):
+        fused_ffn(x, *ws)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(500):
+        fused_ffn(x, *ws)
+    host_us = (time.perf_counter() - t0) / 500 * 1e6
+    torch.cuda.synchronize()
+    log(f"  host time per call (enqueue, B=1 D=64 F=256, 500 calls): "
+        f"{host_us:.1f} us")
+    D, F = 2048, 8192
+    ws32 = weights(D, F, torch.float32)
+    for B in (1, 8):
+        x = rows(B, D, torch.float32)
+        check_case(f"f32 B={B} D={D} F={F}, f32 weights", x, ws32)
+        check_case(f"f32 B={B} D={D} F={F}, fp8 weights", x, fp8(ws32))
+    del ws32
+
+    sets = [weights(D, F) for _ in range(FFN_SETS)]
+    fp8_sets = [fp8(ws) for ws in sets]
+    log(f"fused_ffn at D={D} F={F}, times over a round robin of {FFN_SETS} "
+        f"weight sets (CUDA-graph replays); the library call is the unfused "
+        f"cuBLAS pair addmm, relu, addmm on the bf16 weights:")
     result = None
-    for B in (1, 4):
-        x = torch.randn((B, D), generator=gen, device="cuda").to(bf)
-        for label, a1, a2 in (("bf16", w1, w2), ("fp8", q1, q2)):
-            args = (x, a1, b1, a2, b2)
-            err = (fused_ffn(*args).float()
-                   - fused_ffn_plain(*args).float()).abs().max().item()
-            log(f"fused_ffn, B={B} D={D} F={F}, {label} weights:")
-            check(f"B={B} {label}", err, TOL_FFN)
-            ms = cuda_ms(lambda: fused_ffn(*args))
-            plain_ms = cuda_ms(lambda: fused_ffn_plain(*args))
-            log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call")
-            if B == 1 and label == "bf16":          # the main path's shape
-                unfused_ms = cuda_ms(
-                    lambda: torch.relu(x @ w1 + b1) @ w2 + b2)
-                log(f"  unfused bf16 torch FFN (the default decode path) "
-                    f"{unfused_ms:.4f} ms per call")
-                result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    for B in (1, 4, 8):
+        x = rows(B, D)
+        library_ms = graph_ms([
+            lambda ws=ws: torch.addmm(ws[3], torch.relu(torch.addmm(ws[1], x, ws[0])),
+                                      ws[2]) for ws in sets])
+        for label, ss, elt in (("bf16", sets, 2), ("fp8", fp8_sets, 1)):
+            err = check_case(f"B={B} {label} weights", x, ss[0])
+            ms = graph_ms([lambda ws=ws: fused_ffn(x, *ws) for ws in ss])
+            plain_ms = graph_ms([lambda ws=ws: fused_ffn_plain(x, *ws)
+                                 for ws in ss])
+            # weights, x, out and the biases once (fp8: the f32 scales too)
+            nbytes = (2 * D * F * elt + 2 * B * D * 2 + (F + D) * 2
+                      + (F + D) * 4 * (elt == 1))
+            bound_ms, bound_by = bound(nbytes, 4 * B * D * F, BF16_FLOP_PER_S)
+            log(f"  B={B} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"cuBLAS pair {library_ms:.4f} ms per call; bound "
+                f"{bound_ms:.4f} ms ({bound_by}), the kernel at "
+                f"{bound_ms / ms:.0%} of it, {nbytes / ms / 1e9:.2f} TB/s")
+            # one call's per-block timeline, after the others' weights
+            # streamed through L2: us from the first block's start
+            for ws in ss[1:]:
+                fused_ffn(x, *ws)
+            trace = torch.zeros((ffn_sm90_blocks(F), 4), dtype=torch.int64,
+                                device="cuda")
+            fused_ffn(x, *ss[0], trace=trace)
+            t = (trace - trace[:, 0].min()).double().cpu() / 1e3
+            log(f"    timeline of {t.shape[0]} blocks (us): weight streams end "
+                f"{t[:, 1].min():.2f} / {t[:, 1].median():.2f} / "
+                f"{t[:, 1].max():.2f} (min / median / max), barrier passed "
+                f"{t[:, 2].max():.2f}, last block done {t[:, 3].max():.2f}")
+            if B == 1 and label == "bf16":            # the main path's shape
+                result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=library_ms)
     return result
 
 
@@ -738,16 +922,18 @@ def main() -> None:
                       "f32": "simt (csrc/flash_prefix_attention.cu)"},
              launches=launches["flash_prefix_attention"], **flash),
         dict(name="fused_ffn", route="cuda",
-             source="voicecraft_tpu_torch/csrc/fused_ffn.cu",
+             source="voicecraft_tpu_torch/csrc/fused_ffn_sm90.cu",
              replaces="voicecraft_tpu/ops/fused_decode.py:58",
+             variant={"bf16": "sm90 tma+mma.sync, one cooperative launch "
+                              "(csrc/fused_ffn_sm90.cu)",
+                      "f32": "simt (csrc/fused_ffn.cu)"},
              launches=launches["fused_ffn"], **ffn),
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))
-    # the run used one card (cuda:0), whatever else the host shows
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -13,13 +13,17 @@ import numpy as np
 import pytest
 import torch
 
+from voicecraft_tpu.ops import fused_decode as jfd
 from voicecraft_tpu.ops.attention import decode_attention_self as jdecode_attn
 from voicecraft_tpu.ops.attention import mha as jmha
 from voicecraft_tpu.ops.attention import segment_padding_bias as jbias
+from voicecraft_tpu.utils.quantize import _quantize_matrix
 from voicecraft_tpu_torch.models.voicecraft import Heads, apply_heads
 from voicecraft_tpu_torch.ops.attention import (decode_attention_self,
                                                 matmul_f32, mha,
                                                 segment_padding_bias)
+from voicecraft_tpu_torch.ops.fused_decode import fused_ffn_plain
+from voicecraft_tpu_torch.utils.convert import to_torch
 
 BF16 = torch.bfloat16
 
@@ -109,3 +113,28 @@ def test_matmul_f32_keeps_the_product_in_f32():
     want = torch.matmul(a.double(), b.double())
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-5)
     assert not torch.equal(got, torch.matmul(a, b).float())
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("fp8", [False, True])
+def test_fused_ffn_plain_rounds_where_jax_does(B, fp8):
+    """fused_ffn_plain in bf16 against the Pallas kernel in bf16 (interpret
+    mode): f32 products, scale and bias in f32, the hidden vector rounded to
+    bf16 before the second product, one output rounding.  The card's kernel
+    is held against fused_ffn_plain, so this pins its rounding points too."""
+    from jax.experimental.pallas import tpu as pltpu
+    D, F = 256, 1024
+    rng = np.random.default_rng(10 + B + 2 * fp8)
+    x = _bf16(rng, (B, D), std=1.0)
+    w1, w2 = _bf16(rng, (D, F), std=D ** -0.5), _bf16(rng, (F, D), std=F ** -0.5)
+    b1, b2 = _bf16(rng, (F,), std=0.1), _bf16(rng, (D,), std=0.1)
+    jw1, jw2 = _jax(w1), _jax(w2)
+    if fp8:
+        jw1, jw2 = _quantize_matrix(jw1), _quantize_matrix(jw2)
+    with pltpu.force_tpu_interpret_mode():
+        want = jfd.fused_ffn(_jax(x), jw1, _jax(b1), jw2, _jax(b2), tile_f=256)
+    conv = lambda w: ({"q": to_torch(w["q"]), "scale": to_torch(w["scale"])}
+                      if isinstance(w, dict) else to_torch(w))
+    got = fused_ffn_plain(x, conv(jw1), b1, conv(jw2), b2)
+    assert got.dtype == BF16 and got.shape == (B, D)
+    _assert_within_one_ulp(got, want)

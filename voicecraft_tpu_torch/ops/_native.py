@@ -89,7 +89,7 @@ def lib() -> ctypes.CDLL:
         L.vc_flash_prefix_attention.argtypes = (
             [vp] * 6 + [ci] * 5 + [ctypes.c_float, ci, vp])
         L.vc_flash_prefix_attention.restype = ci
-        L.vc_fused_ffn.argtypes = [vp] * 9 + [ci] * 6 + [vp]
+        L.vc_fused_ffn.argtypes = [vp] * 10 + [ci] * 6 + [vp, vp]
         L.vc_fused_ffn.restype = ci
         L.vc_error_string.argtypes = [ci]
         L.vc_error_string.restype = ctypes.c_char_p
