@@ -7,16 +7,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. device   the card's name and power limit; TF32 off in matmuls and cuDNN
   2. build    the CUDA kernels from voicecraft_tpu_torch/csrc (nvcc, sm_90a)
-  3. kernels  the bf16 rounding points of mha, decode_attention_self and
-              apply_heads on the card against the same functions on CPU
-              copies of the inputs; each kernel against its plain PyTorch
-              version on the card, at the main path's shapes and at edge
-              shapes, against a stated tolerance; the fused FFN's bf16
-              calls repeated and replayed from a CUDA graph bit for bit;
-              kernel, plain and library times from CUDA-graph replays (the
-              FFN over a round robin of weight sets larger than L2) beside
-              the bound computed from the shapes; the attention kernel's
-              grid, and its time against dense mha over a range of S
+  3. kernels  the bf16 rounding points of mha, decode_attention_self,
+              apply_heads and the fp8 _proj / apply_heads on the card against
+              the same functions on CPU copies of the inputs; each kernel
+              against its plain PyTorch version on the card, at the main
+              paths' shapes (the attention kernel at B=1 and, for best-of-N,
+              B=4; the FFN on the layers of a giga830M-width stack and on
+              quantize_decoder_fp8's output of them) and at edge shapes,
+              against a stated tolerance; the fused FFN's bf16 calls repeated
+              and replayed from a CUDA graph bit for bit; kernel, plain and
+              library times from CUDA-graph replays (the FFN over a round
+              robin of weight sets larger than L2) beside the bound computed
+              from the shapes; the attention kernel's grid, and its time
+              against dense mha over a range of S
   4. slice    giga830M in bf16 and the 16 kHz EnCodec, random weights from a
               seed, serving three zero-shot TTS requests through the
               functions tts_torch_cli.py calls: (a) a ~17 s prompt, whose
@@ -38,12 +41,31 @@ Phases, in order; any failure raises and the script exits non-zero:
               offsets, the result's length, finite wavs and exact launch
               counts; then the logits of the kernel path against the plain
               path at (d)'s geometry across a span transition (prefill, K+4
-              tokens, the two queued feeds, 8 more tokens).
+              tokens, the two queued feeds, 8 more tokens).  The eog bias
+              is restored afterwards.
+  6. paths    the same model and codec: (f) best-of-N, N=4 paths of request
+              (b)'s prompt prefilled through the attention kernel at B=4,
+              sampled through inference_tts_batch, and greedy, whose kept
+              path must equal request (b)'s greedy output under the
+              tie-aware rule; (g) the fp8 decoder, quantize_decoder_fp8(
+              pack_qkv=True) of the same weights, serving requests (a) and
+              (b) with the fused FFN on its fp8 route: launch counts by
+              route, kernel-path vs plain-path logits, fp8 vs bf16 logits,
+              weight bytes, and one decode step's device time and device
+              operations in both precisions; (h) speculative TTS at (b)'s
+              geometry with three random MTP head groups and tau=4: greedy
+              output equal to (b)'s under the tie-aware rule, tau tokens per
+              pass under force_accept, a stochastic-verification run, and
+              the device operations per pass; (i) speculative editing of
+              request (d) with tau=4 and the eog bias raised: every span
+              ends non-empty, kept frames verbatim.  Each path's launch
+              counts are set to 0 just before it and read just after.
 
 The last three lines are the card (as nvidia-smi reports it), one JSON
 object with each kernel's result, and {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import re
 import subprocess
@@ -61,6 +83,10 @@ TARGET = "the river runs past the old mill in the morning light"
 LONG_TILES = 4                       # demo.wav (4.32 s) tiled to 17.28 s
 EDIT_TILES = 5                       # demo.wav tiled to 21.6 s = 1080 frames
 EDIT_GEN_MAX = 384                   # recorded samples per edit request
+# the speculative edit (phase 6 (i)) draws under per-token-index keys, so
+# its spans are other samples than phase 5's: the budget leaves room for
+# spans twice as long (one run on an H100 drew spans of 321, 30 and 21)
+SPEC_EDIT_GEN_MAX = 2 * EDIT_GEN_MAX
 EDIT_TARGET = "the sound of waves over the sea at dawn"
 # Random weights end a span only when codebook 0 draws eog, 1 code of 2051:
 # thousands of steps.  Phase 5 adds EOG_BIAS to that logit's bias
@@ -117,6 +143,16 @@ REPAIR_F32_SLACK = 1e-5
 # and those bf16 ulps (0.4% relative) pass through 16 residual layers and
 # the heads; random-weight logits stay below ~1.5, so 0.05 is a few percent
 TOL_LOGITS = 0.05
+# fp8 weight-only against bf16, logits after prefill, relative in norm: an
+# e4m3 weight carries 3 mantissa bits (a relative rounding error of up to
+# 2^-4, ~1.8% rms), which moves each product by ~2% of its scale; the JAX
+# package holds its fp8 hidden states within 5% of bf16 (tests/
+# test_quantize.py), and the logits, through 16 layers and the heads, within
+# 10% is the bound here
+FP8_REL_TOL = 0.10
+N_BEST = 4                           # best-of-N paths (phase 6 (f))
+N_MTP = 3                            # MTP head groups (phase 6 (h), (i))
+TAU = 4                              # tokens per speculative pass
 
 
 def log(msg: str) -> None:
@@ -232,8 +268,11 @@ def repair_phase():
     against the same functions on CPU copies of the inputs, at giga830M
     width: f32 logits, probs cast to bf16, one rounding after p@v."""
     import copy
+    import types
     import torch
+    from voicecraft_tpu_torch.models.transformer import _proj
     from voicecraft_tpu_torch.models.voicecraft import Heads, apply_heads
+    from voicecraft_tpu_torch.utils.quantize import _quantize_matrix
     from voicecraft_tpu_torch.ops.attention import (decode_attention_self, mha,
                                                     segment_padding_bias)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -242,13 +281,13 @@ def repair_phase():
     def randn(*shape, std=2.0):
         return (torch.randn(shape, generator=gen, device="cuda") * std).to(bf)
 
-    def compare(name, fn, *args):
+    def compare(name, fn, *args, ulps=1):
         got = fn(*args).float()
         cpu = [a.cpu() if isinstance(a, (torch.Tensor, torch.nn.Module)) else a
                for a in args]
         want = fn(*cpu).float()
         scale = want.abs().max().item()
-        tol = bf16_ulp(scale).item() + REPAIR_F32_SLACK * scale
+        tol = ulps * bf16_ulp(scale).item() + REPAIR_F32_SLACK * scale
         check(f"{name} (max |out| {scale:.3f})",
               (got.cpu() - want).abs().max().item(), tol)
 
@@ -287,6 +326,20 @@ def repair_phase():
     heads.init_weights(torch.Generator(device="cuda").manual_seed(SEED + 3))
     compare("apply_heads D=2048 N=4", lambda hd, h: apply_heads(hd, h),
             copy.deepcopy(heads), randn(4, D, std=1.0))
+    # the fp8 forms: _proj rounds its product to bf16 before the scale,
+    # apply_heads scales in f32
+    fp8_heads = types.SimpleNamespace(w1=_quantize_matrix(heads.w1), b1=heads.b1,
+                                      w2=_quantize_matrix(heads.w2), b2=heads.b2)
+    compare("apply_heads fp8 D=2048 N=4",
+            lambda w1, b1, w2, b2, h: apply_heads(types.SimpleNamespace(
+                w1=w1, b1=b1, w2=w2, b2=b2), h),
+            fp8_heads.w1, fp8_heads.b1, fp8_heads.w2, fp8_heads.b2,
+            randn(4, D, std=1.0))
+    # two more bf16 roundings after the product (the scale, the bias), each
+    # of which a flipped product rounding can move by one more ulp
+    w = _quantize_matrix(randn(D, 3 * D, std=D ** -0.5))
+    compare("_proj fp8 [4, 2048] x [2048, 6144]", _proj, randn(4, D, std=1.0),
+            w, randn(3 * D, std=0.02), ulps=2)
 
 
 def flash_phase(geom_long):
@@ -371,6 +424,12 @@ def flash_phase(geom_long):
     main = timings(args, BF16_FLOP_PER_S, 2)
     log(f"  eager, host launch included: kernel "
         f"{cuda_ms(lambda: flash_prefix_attention(*args)):.4f} ms per call")
+    # best-of-N's prefill: N_BEST copies of the main path's prompt
+    name = f"bf16 B={N_BEST} S={S} D=2048 H=16 (best-of-N prefill)"
+    err4, args4, _, _ = case(name, N_BEST, S, 2048, 16, x_pad,
+                             [x_len] * N_BEST, [y_len] * N_BEST, torch.bfloat16)
+    cases = [dict(case=name, max_abs_err=err4,
+                  **timings(args4, BF16_FLOP_PER_S, 2))]
     # edge shapes: B=2 with different lens, S off every tile size, x_pad off
     # the tile grid, every head dim, and a text padding wide enough that
     # whole key tiles in it are skipped (one row with no text at all)
@@ -416,16 +475,7 @@ def flash_phase(geom_long):
             crossover = S2
     log(f"  crossover: the kernel beats dense mha from S={crossover} on "
         f"(FLASH_PREFILL_MIN_LEN stays 1024)")
-    return dict(max_abs_err=err, **main, f32=f32)
-
-
-def quantize_fp8(w):
-    """[in, out] -> {'q': e4m3 [in, out], 'scale': bf16 [1, out]}, the
-    per-output-channel layout of voicecraft_tpu/utils/quantize.py."""
-    import torch
-    scale = (w.float().abs().amax(dim=0, keepdim=True) / 448.0).clamp(min=1e-12)
-    return {"q": (w.float() / scale).to(torch.float8_e4m3fn),
-            "scale": scale.to(torch.bfloat16)}
+    return dict(max_abs_err=err, **main, f32=f32, cases=cases)
 
 
 def ffn_phase():
@@ -434,10 +484,15 @@ def ffn_phase():
     f32 x (the check kernel); every bf16 call repeated and replayed from a
     CUDA graph bit for bit; then kernel, plain and the unfused cuBLAS pair
     timed over a round robin of FFN_SETS weight sets, against the bound."""
+    import dataclasses
     import torch
+    from voicecraft_tpu_torch import PRESETS
+    from voicecraft_tpu_torch.models.voicecraft import VoiceCraft
     from voicecraft_tpu_torch.ops.fused_decode import (ffn_sm90_blocks,
                                                        fused_ffn,
                                                        fused_ffn_plain)
+    from voicecraft_tpu_torch.utils.quantize import (_quantize_matrix,
+                                                     quantize_decoder_fp8)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     bf = torch.bfloat16
 
@@ -450,7 +505,7 @@ def ffn_phase():
 
     def fp8(ws):
         w1, b1, w2, b2 = ws
-        return quantize_fp8(w1), b1, quantize_fp8(w2), b2
+        return _quantize_matrix(w1), b1, _quantize_matrix(w2), b2
 
     def rows(B, D, dtype=bf):
         return torch.randn((B, D), generator=gen, device="cuda").to(dtype)
@@ -498,12 +553,21 @@ def ffn_phase():
         check_case(f"f32 B={B} D={D} F={F}, fp8 weights", x, fp8(ws32))
     del ws32
 
-    sets = [weights(D, F) for _ in range(FFN_SETS)]
-    fp8_sets = [fp8(ws) for ws in sets]
-    log(f"fused_ffn at D={D} F={F}, times over a round robin of {FFN_SETS} "
-        f"weight sets (CUDA-graph replays); the library call is the unfused "
-        f"cuBLAS pair addmm, relu, addmm on the bf16 weights:")
-    result = None
+    # the weight sets: the layers of a giga830M-width stack of FFN_SETS
+    # layers with the model's init, and quantize_decoder_fp8's output of it
+    stack = VoiceCraft(dataclasses.replace(PRESETS["giga830M"](),
+                                           num_decoder_layers=FFN_SETS),
+                       "cuda").init_weights(gen)
+    layer_ffn = lambda layer: (layer.w1, layer.b1, layer.w2, layer.b2)
+    sets = [layer_ffn(layer) for layer in stack.decoder.layers]
+    fp8_sets = [layer_ffn(layer) for layer
+                in quantize_decoder_fp8(stack).decoder.layers]
+    log(f"fused_ffn at D={D} F={F}, times over a round robin of the "
+        f"{FFN_SETS} layers of a giga830M-width stack, bf16 and as "
+        f"quantize_decoder_fp8 leaves them (CUDA-graph replays); the library "
+        f"call is the unfused cuBLAS pair addmm, relu, addmm on the bf16 "
+        f"weights:")
+    result, cases = None, []
     for B in (1, 4, 8):
         x = rows(B, D)
         library_ms = graph_ms([
@@ -534,11 +598,16 @@ def ffn_phase():
                 f"{t[:, 1].min():.2f} / {t[:, 1].median():.2f} / "
                 f"{t[:, 1].max():.2f} (min / median / max), barrier passed "
                 f"{t[:, 2].max():.2f}, last block done {t[:, 3].max():.2f}")
+            numbers = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
             if B == 1 and label == "bf16":            # the main path's shape
-                result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=bound_by,
-                              library_ms=library_ms)
-    return result
+                result = dict(numbers, library_ms=library_ms)
+            elif B == 1:
+                # no library call takes fp8 weights with bf16 x
+                cases.append(dict(case="fp8 weights of quantize_decoder_fp8, "
+                                       "B=1 D=2048 F=8192",
+                                  **numbers, library_ms=None))
+    return dict(result, cases=cases)
 
 
 # ---- phase 4 -----------------------------------------------------------------
@@ -656,30 +725,34 @@ def kept_frames_verbatim(res, codes, intervals, span_frames) -> bool:
     return off == res.shape[1]
 
 
-def edit_phase(model, codec):
-    """Phase 5: two multi-span edits on the main path (launch counts set to
-    0 before and read after), then the kernel path's logits against the
-    plain path's across a span transition.  Returns the launch counts."""
+@contextlib.contextmanager
+def raised_eog_bias(model):
+    """Codebook 0's eog bias raised by EOG_BIAS inside the block, restored
+    bit for bit after it."""
     import torch
+    saved = model.heads.b2.detach().clone()
+    with torch.no_grad():
+        model.heads.b2[0, model.cfg.eog] += EOG_BIAS
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            model.heads.b2.copy_(saved)
+
+
+def edit_requests(model, codec):
+    """Requests (d) and (e), their inputs made as edit_torch_cli.py makes
+    them: text ids of the target transcript, codes of the whole recording,
+    the composed prefix and the queued mask ids."""
     from voicecraft_tpu_torch.data.phonemes import (build_vocab,
                                                     make_text_tokenizer,
                                                     phones_to_ids)
     from voicecraft_tpu_torch.data.spans import compose_edit_prefix
-    from voicecraft_tpu_torch.inference.editing import inference_edit
     from voicecraft_tpu_torch.inference.tts import decode_geometry
     from voicecraft_tpu_torch.models import encodec as ec
-    from voicecraft_tpu_torch.models.voicecraft import (SamplingConfig,
-                                                        column_embedding)
-    from voicecraft_tpu_torch.ops import _native
+    from voicecraft_tpu_torch.models.voicecraft import SamplingConfig
     from voicecraft_tpu_torch.utils import audio as au
     cfg = model.cfg
-    K, L = cfg.n_codebooks, cfg.num_decoder_layers
-    with torch.no_grad():
-        model.heads.b2[0, cfg.eog] += EOG_BIAS
-    log(f"[5 editing] codebook 0's eog bias raised by {EOG_BIAS}")
-
-    # the requests' inputs, as edit_torch_cli.py makes them: text ids of the
-    # target transcript, codes of the whole recording
     tok = make_text_tokenizer("en-us", "grapheme")
     demo = au.load_audio(str(REPO / "demo" / "demo.wav"), 16000)
     requests = [
@@ -703,6 +776,22 @@ def edit_phase(model, codec):
     if d.codes.shape[1] != 1080 or x_pad + y_pad < 1024:
         raise AssertionError(f"request (d): {d.codes.shape[1]} frames, "
                              f"prefill {x_pad} + {y_pad} < 1024")
+    return requests
+
+
+def edit_phase(model, codec, requests):
+    """Phase 5: two multi-span edits on the main path (launch counts set to
+    0 before and read after), then the kernel path's logits against the
+    plain path's across a span transition.  Returns the launch counts."""
+    import torch
+    from voicecraft_tpu_torch.inference.editing import inference_edit
+    from voicecraft_tpu_torch.models import encodec as ec
+    from voicecraft_tpu_torch.models.voicecraft import column_embedding
+    from voicecraft_tpu_torch.ops import _native
+    cfg = model.cfg
+    K, L = cfg.n_codebooks, cfg.num_decoder_layers
+    d = requests[0]
+    log(f"[5 editing] codebook 0's eog bias raised by {EOG_BIAS}")
 
     _native.reset_launch_counts()
     for r in requests:
@@ -776,6 +865,396 @@ def edit_phase(model, codec):
     check("after 8 more tokens", max(errs[K + 7:]), TOL_LOGITS)
     return launches
 
+
+
+# ---- phase 6 -----------------------------------------------------------------
+
+class DrawRecorder:
+    """Inside the block, every draw of the port's decode loops keeps a
+    device copy of the adjusted logits it samples from (no host sync), and
+    every speculative pass notes its first token index, so that each token
+    index maps to the logits it was finally drawn from."""
+
+    def __enter__(self):
+        import voicecraft_tpu_torch.inference.spec_common as sc
+        import voicecraft_tpu_torch.models.voicecraft as vc
+        self.logits, self.passes = [], []
+        self._mods = (vc, sc)
+        self._orig = (vc.sample, sc.spec_verify_pass)
+        sample, spec_pass = self._orig
+
+        def recording_sample(generator, lg, *a, **kw):
+            self.logits.append(lg.detach().clone())
+            return sample(generator, lg, *a, **kw)
+
+        def recording_pass(*a, **kw):
+            self.passes.append((kw["t"], len(self.logits), kw["tau"]))
+            return spec_pass(*a, **kw)
+
+        vc.sample, sc.spec_verify_pass = recording_sample, recording_pass
+        return self
+
+    def __exit__(self, *exc):
+        (vc, sc), (sample, spec_pass) = self._mods, self._orig
+        vc.sample, sc.spec_verify_pass = sample, spec_pass
+
+    def by_index(self):
+        """The logits of each token index: the draws in order for a plain
+        loop; for an exact-verification speculative loop (tau draws a pass,
+        the first at the pass's token index t) the last draw of each index,
+        which is the accepted one."""
+        if not self.passes:
+            return self.logits
+        out = {}
+        for t, first, tau in self.passes:
+            for i in range(tau):
+                out[t + i] = self.logits[first + i]
+        return [out[k] for k in sorted(out)]
+
+
+def same_under_ties(name, got, ref, got_la, ref_la):
+    """Recorded rows got / ref [n, K] (numpy) with the logits each row was
+    drawn from: equal up to their first difference, where both draws (on
+    the same prefix) must agree within TOL_LOGITS and ref's top-2 margin
+    must be under twice their largest difference, a near-tie that the
+    paths' other bf16 summation orders may flip.  Without a difference,
+    equal in length too."""
+    import torch
+    n = min(len(got), len(ref))
+    diff = (torch.stack(got_la[:n]) - torch.stack(ref_la[:n])).abs().amax(
+        dim=(1, 2)).cpu()
+    for j in range(n):
+        if not np.array_equal(got[j], ref[j]):
+            top2 = ref_la[j].float().topk(2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1]).min().item()
+            log(f"  {name}: the first {j} rows equal, then a near-tie: top-2 "
+                f"margin {margin:.4f}, the two draws' logits differ by "
+                f"{diff[j]:.4f} there (at most {diff[:j + 1].max():.4f} "
+                f"along the way)")
+            if not (diff[:j + 1].max() <= TOL_LOGITS and margin <= 2 * diff[j]):
+                raise AssertionError(f"{name}: rows differ at {j} beyond a tie")
+            return j
+    log(f"  {name}: all {n} rows equal; logits within {diff.max():.4f}")
+    if len(got) != len(ref):
+        raise AssertionError(f"{name}: {len(got)} rows against {len(ref)}")
+    return n
+
+
+def device_ops(fn):
+    """(fn(), the CUDA kernels and memory operations the device ran during
+    it, from torch.profiler; None when it saw no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return out, n or None
+
+
+def step_costs(model, x, prefix, fused_ffn):
+    """One decode step (decode_step_fast and the heads) at a request's
+    geometry: device ms from CUDA-graph replays, and device operations per
+    step over 8 eager steps."""
+    import torch
+    from voicecraft_tpu_torch.models import transformer as trm
+    from voicecraft_tpu_torch.models.voicecraft import apply_heads, step_input
+    from voicecraft_tpu_torch.ops.flash_attention import prefill_attention
+    cfg = model.cfg
+    emb, xl, yl, x_pad, y_pad = prefill_inputs(model, x, prefix)
+    cache = trm.init_kv_cache(cfg.num_decoder_layers, 1, x_pad + y_pad + 8,
+                              cfg.nhead, cfg.head_dim, model.dtype, "cuda")
+    col = token_columns(model, 1)[0]
+    with torch.inference_mode():
+        trm.prefill(model.decoder, emb,
+                    prefill_attention(xl, yl, x_pad, cfg.nhead, x_pad + y_pad),
+                    cache)
+        pos = torch.tensor(x_pad + prefix.length, device="cuda")
+        y_pos = torch.tensor(prefix.length, device="cuda")
+        x_len = torch.tensor(len(x), device="cuda")
+        x_t = step_input(model, col, y_pos)
+
+        def step():
+            h, _ = trm.decode_step_fast(model.decoder, x_t, cache, pos,
+                                        x_len=x_len, x_pad=x_pad,
+                                        fused_ffn=fused_ffn)
+            return apply_heads(model.heads, h[:, 0])
+
+        ms = graph_ms([step])
+        _, ops = device_ops(lambda: [step() for _ in range(8)])
+    return ms, None if ops is None else ops / 8
+
+
+def block_vs_step_logits(model, x, prefix, step_embs):
+    """Max |logit difference| at each of the step_embs [D] fed after the
+    prefill, through decode_step_block in blocks of TAU against
+    decode_step_fast one at a time (unfused FFN both)."""
+    import torch
+    from voicecraft_tpu_torch.models import transformer as trm
+    from voicecraft_tpu_torch.models.voicecraft import apply_heads
+    from voicecraft_tpu_torch.ops.flash_attention import prefill_attention
+    cfg = model.cfg
+    emb, xl, yl, x_pad, y_pad = prefill_inputs(model, x, prefix)
+    S = x_pad + y_pad
+    dtype = model.dtype
+    pe = model.pe[prefix.length:prefix.length + len(step_embs)].to(dtype)
+    feed = (torch.stack(step_embs) + model.alpha_audio.to(dtype) * pe)[None]
+    out = []
+    with torch.inference_mode():
+        for block in (1, TAU):
+            cache = trm.init_kv_cache(cfg.num_decoder_layers, 1,
+                                      S + len(step_embs), cfg.nhead,
+                                      cfg.head_dim, dtype, "cuda")
+            trm.prefill(model.decoder, emb,
+                        prefill_attention(xl, yl, x_pad, cfg.nhead, S), cache)
+            x_len = torch.tensor(len(x), device="cuda")
+            hs = []
+            for i in range(0, len(step_embs), block):
+                pos = torch.tensor(x_pad + prefix.length + i, device="cuda")
+                step = trm.decode_step_fast if block == 1 else trm.decode_step_block
+                h, _ = step(model.decoder, feed[:, i:i + block], cache, pos,
+                            x_len=x_len, x_pad=x_pad)
+                hs.append(h[0])
+            out.append(apply_heads(model.heads, torch.cat(hs)))
+    return (out[0] - out[1]).abs().amax(dim=(1, 2)).tolist()
+
+
+def weight_bytes(module) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in module.state_dict().values())
+
+
+def check_launches(name, got, want):
+    """The launch counts of one path (reset just before it) against what it
+    must launch; each kernel of the path launched at least once."""
+    log(f"  ({name}) launches: " + ", ".join(f"{k} {v}" for k, v in got.items()))
+    for k, v in want.items():
+        if got[k] != v:
+            raise AssertionError(f"({name}): {k} launched {got[k]} times, "
+                                 f"want {v}")
+
+
+def paths_phase(model, codec, requests, edits, ccfg):
+    """Phase 6: best-of-N, the fp8 decoder, speculative TTS and speculative
+    editing, each path with its launch counts set to 0 just before it and
+    read just after.  Returns the launch counts of each path."""
+    import dataclasses
+    import torch
+    from voicecraft_tpu_torch.data.spans import compose_tts_prefix
+    from voicecraft_tpu_torch.inference.editing import inference_edit
+    from voicecraft_tpu_torch.inference.tts import (decode_geometry,
+                                                    inference_tts,
+                                                    inference_tts_batch,
+                                                    inference_tts_spec,
+                                                    pad_inputs, run_decode)
+    from voicecraft_tpu_torch.models import encodec as ec
+    from voicecraft_tpu_torch.models.voicecraft import (SamplingConfig,
+                                                        init_mtp_heads,
+                                                        make_batch_tts_loop,
+                                                        make_spec_decode_loop)
+    from voicecraft_tpu_torch.ops import _native
+    from voicecraft_tpu_torch.utils.quantize import quantize_decoder_fp8
+    cfg = model.cfg
+    L = cfg.num_decoder_layers
+    a, b = requests[0], requests[1]
+    prefix = compose_tts_prefix(b.codes, cfg)
+    x_pad, y_pad, gen_max = decode_geometry(cfg, len(b.x), prefix.length,
+                                            gen_max=GEN_MAX)
+    Sp = x_pad + y_pad
+    xt, yt, mi, _ = pad_inputs(cfg, b.x, prefix, x_pad, y_pad, "cuda")
+    sampled = SamplingConfig(top_k=40, top_p=1.0, temperature=1.0)
+    greedy = SamplingConfig(top_k=40, top_p=1.0, temperature=0.0)
+    out = []
+
+    def finite_wav(name, full):
+        wav = ec.decode_bucketed(codec, full[None])[0]
+        if not (wav.shape == (full.shape[1] * ccfg.hop_length,)
+                and np.isfinite(wav).all()):
+            raise AssertionError(f"({name}): wav {wav.shape}, finite "
+                                 f"{np.isfinite(wav).all()}")
+
+    # request (b) greedy, the reference of (f) and (h), with its draws
+    with DrawRecorder() as rec:
+        ref, _ = run_decode(model, is_tts=True, x_tokens=b.x, prefix=prefix,
+                            n_spans=1, scfg=greedy, seed=SEED, gen_max=GEN_MAX,
+                            return_raw=True, fused_ffn=True)
+    ref_la = rec.by_index()
+    log(f"[6 paths] reference: request (b) greedy, {len(ref)} rows")
+
+    # ---- (f) best-of-N ----
+    _native.reset_launch_counts()
+    stats = {}
+    t0 = time.time()
+    full, gen = inference_tts_batch(model, b.x, b.codes, sampled,
+                                    batch_size=N_BEST, seed=SEED,
+                                    gen_max=GEN_MAX, stats=stats)
+    wall = time.time() - t0
+    launches = dict(_native.LAUNCHES)
+    steps = stats["steps"]
+    log(f"  (f) best-of-{N_BEST}, sampled, Sp {stats['prefill_len']}: {steps} "
+        f"forwards at B={N_BEST}, path {stats['keep']} kept, {gen.shape[1]} "
+        f"frames in {wall:.3f} s = {gen.shape[1] / wall:.1f} frames/s "
+        f"({steps / wall:.1f} forwards/s); kernel launches per forward: "
+        f"flash 0 ({launches['flash_prefix_attention']} in the prefill), "
+        f"ffn 0")
+    check_launches("f", launches, {"flash_prefix_attention": L, "fused_ffn": 0})
+    finite_wav("f", full)
+    out.append(launches)
+    loop = make_batch_tts_loop(cfg, batch_size=N_BEST, x_pad=x_pad, y_pad=y_pad,
+                               gen_max=gen_max, scfg=greedy)
+    with DrawRecorder() as rec:
+        res = loop(model, xt, len(b.x), yt, prefix.length, mi, None)
+    got = res.gen_buf[:res.gen_cnt, res.keep].cpu().numpy()
+    same_under_ties(f"(f) greedy best-of-{N_BEST} kept path vs (b)", got, ref,
+                    [la[res.keep] for la in rec.logits], ref_la)
+
+    # ---- (g) the fp8 decoder ----
+    qmodel = quantize_decoder_fp8(model, pack_qkv=True)
+    log(f"  (g) fp8 weight-only, packed qkv: decoder weights "
+        f"{weight_bytes(model.decoder)} bytes in bf16, "
+        f"{weight_bytes(qmodel.decoder)} in fp8; heads "
+        f"{weight_bytes(model.heads)} / {weight_bytes(qmodel.heads)}")
+    _native.reset_launch_counts()
+    for r in (a, b):
+        before = dict(_native.LAUNCHES)
+        stats = {}
+        t0 = time.time()
+        full, gen = inference_tts(qmodel, r.x, r.codes, r.scfg, seed=SEED,
+                                  gen_max=GEN_MAX, fused_ffn=True, stats=stats)
+        wall = time.time() - t0
+        steps = stats["steps"]
+        d_ffn = _native.LAUNCHES["fused_ffn"] - before["fused_ffn"]
+        log(f"  (g) request ({r.name}) fp8, "
+            f"{'sampled' if r.scfg.temperature > 0 else 'greedy'}, fused FFN: "
+            f"{steps} forwards, {gen.shape[1]} frames in {wall:.3f} s = "
+            f"{gen.shape[1] / wall:.1f} frames/s ({steps / wall:.1f} "
+            f"forwards/s); ffn launches per forward {d_ffn / steps:.1f}")
+        if d_ffn != L * steps:
+            raise AssertionError(f"(g) request ({r.name}): {d_ffn} FFN "
+                                 f"launches, want {L * steps}")
+        finite_wav("g", full)
+    launches = dict(_native.LAUNCHES)
+    routes = dict(_native.ROUTE_LAUNCHES)
+    log(f"  (g) launches by route: {routes}")
+    check_launches("g", launches, {"flash_prefix_attention": 2 * L,
+                                   "fused_ffn": launches["fused_ffn"]})
+    if routes.get("fused_ffn:sm90/fp8", 0) != launches["fused_ffn"] or \
+            launches["fused_ffn"] == 0:
+        raise AssertionError(f"(g): FFN launches off the fp8 route: {routes}")
+    out.append(launches)
+    long_prefix = compose_tts_prefix(a.codes, cfg)
+    cols = token_columns(model, 16)
+    k_path = teacher_forced_logits(qmodel, a.x, long_prefix, cols, plain=False)
+    p_path = teacher_forced_logits(qmodel, a.x, long_prefix, cols, plain=True)
+    errs = [(u - v).abs().max().item() for u, v in zip(k_path, p_path)]
+    log(f"  (g) fp8 logits, kernel path vs plain path:")
+    check("after prefill", errs[0], TOL_LOGITS)
+    check("after 16 teacher-forced decode steps", max(errs[1:]), TOL_LOGITS)
+    bf = teacher_forced_logits(model, a.x, long_prefix, [], plain=True)[0]
+    q8 = p_path[0]
+    rel = ((q8 - bf).norm() / bf.norm()).item()
+    agree = (q8.argmax(-1) == bf.argmax(-1)).float().mean().item()
+    log(f"  (g) fp8 vs bf16 logits after prefill: max abs diff "
+        f"{(q8 - bf).abs().max().item():.4f}, relative (norm) {rel:.4f} "
+        f"(tolerance {FP8_REL_TOL}), top-1 agreement over the codebooks "
+        f"{agree:.2f}")
+    if not rel <= FP8_REL_TOL:
+        raise AssertionError(f"(g) fp8 vs bf16 logits: {rel} > {FP8_REL_TOL}")
+    for label, m in (("bf16", model), ("fp8", qmodel)):
+        for fused in (False, True):
+            ms, ops = step_costs(m, a.x, long_prefix, fused)
+            log(f"  (g) decode step at (a)'s geometry, {label} weights, "
+                f"{'fused' if fused else 'unfused'} FFN: {ms:.4f} ms of device "
+                f"time (CUDA-graph replays), "
+                f"{'not measured' if ops is None else f'{ops:.1f}'} device "
+                f"operations per step")
+    del qmodel
+
+    # ---- (h) speculative TTS ----
+    model.mtp_heads = init_mtp_heads(
+        dataclasses.replace(cfg, n_mtp=N_MTP),
+        torch.Generator(device="cuda").manual_seed(SEED + 4), "cuda")
+    log(f"  (h) {N_MTP} random MTP head groups, tau {TAU}")
+    with DrawRecorder() as rec:     # the loop binds the recording pass
+        loop = make_spec_decode_loop(cfg, x_pad=x_pad, y_pad=y_pad,
+                                     gen_max=gen_max, scfg=greedy, n_draft=TAU)
+        res = loop(model, xt, len(b.x), yt, prefix.length, mi, SEED)
+    got = res.gen_buf[:res.gen_cnt].cpu().numpy()
+    same_under_ties("(h) greedy speculative vs (b)", got, ref, rec.by_index(),
+                    ref_la)
+    errs = block_vs_step_logits(model, a.x, compose_tts_prefix(a.codes, cfg),
+                                token_columns(model, 16))
+    log(f"  (h) logits of 16 teacher-forced tokens, blocks of {TAU} "
+        f"(decode_step_block) vs one at a time (decode_step_fast):")
+    check("largest difference", max(errs), TOL_LOGITS)
+    runs = (("greedy", greedy, False), ("greedy, force_accept", greedy, True),
+            ("sampled, stochastic verification",
+             dataclasses.replace(sampled, spec_sampling="stochastic"), False))
+    _native.reset_launch_counts()
+    for label, scfg, force in runs:
+        before = dict(_native.LAUNCHES)
+        t0 = time.time()
+        full, gen, st = inference_tts_spec(model, b.x, b.codes, scfg,
+                                           n_draft=TAU, seed=SEED,
+                                           gen_max=GEN_MAX, return_stats=True,
+                                           force_accept=force)
+        wall = time.time() - t0
+        d_flash = (_native.LAUNCHES["flash_prefix_attention"]
+                   - before["flash_prefix_attention"])
+        log(f"  (h) {label}, Sp {st['prefill_len']}: {st['tokens']} tokens in "
+            f"{st['passes']} passes ({st['tokens_per_pass']:.2f} tokens/pass), "
+            f"{gen.shape[1]} frames in {wall:.3f} s = {gen.shape[1] / wall:.1f} "
+            f"frames/s ({st['passes'] / wall:.1f} passes/s); kernel launches "
+            f"per pass: flash 0 ({d_flash} in the prefill), ffn 0")
+        if force and st["passes"] != -(-st["tokens"] // TAU):
+            raise AssertionError(f"(h) force_accept: {st['tokens']} tokens in "
+                                 f"{st['passes']} passes, not {TAU} a pass")
+        finite_wav("h", full)
+    launches = dict(_native.LAUNCHES)
+    check_launches("h", launches, {"flash_prefix_attention": 3 * L,
+                                   "fused_ffn": 0})
+    out.append(launches)
+    (_, _, st), ops = device_ops(lambda: inference_tts_spec(
+        model, b.x, b.codes, greedy, n_draft=TAU, seed=SEED, gen_max=128,
+        return_stats=True, force_accept=True))
+    per_pass = "not measured" if ops is None else f"{ops / st['passes']:.1f}"
+    log(f"  (h) device operations per pass (force_accept, {st['passes']} "
+        f"passes, the prefill included): {per_pass}")
+
+    # ---- (i) speculative editing ----
+    d = edits[0]
+    with raised_eog_bias(model):
+        _native.reset_launch_counts()
+        stats = {}
+        t0 = time.time()
+        res = inference_edit(model, d.x, d.codes, d.intervals, d.scfg,
+                             seed=SEED, gen_max=SPEC_EDIT_GEN_MAX, stats=stats,
+                             spec=TAU)
+        wall = time.time() - t0
+    launches = dict(_native.LAUNCHES)
+    m, span_frames = len(d.intervals), stats["span_frames"]
+    frames = sum(span_frames)
+    log(f"  (i) speculative edit of ({d.name}), tau {TAU}, eog bias raised by "
+        f"{EOG_BIAS}, Sp {stats['prefill_len']}: {stats['spans_done']} spans "
+        f"done, frames {span_frames}, {stats['steps']} passes ({stats['feeds']} "
+        f"feed passes) in {wall:.3f} s = {frames / wall:.1f} frames/s "
+        f"({stats['steps'] / wall:.1f} passes/s); kernel launches per pass: "
+        f"flash 0 ({launches['flash_prefix_attention']} in the prefill), ffn 0")
+    check_launches("i", launches, {"flash_prefix_attention": L, "fused_ffn": 0})
+    masked = sum(e - s for s, e in d.intervals)
+    if stats["spans_done"] != m or min(span_frames) <= 0:
+        raise AssertionError(f"(i): {stats['spans_done']} of {m} spans done, "
+                             f"frames {span_frames}")
+    if not (kept_frames_verbatim(res, d.codes, d.intervals, span_frames)
+            and res.shape == (cfg.n_codebooks, d.codes.shape[1] - masked + frames)):
+        raise AssertionError(f"(i): bad output {res.shape}")
+    finite_wav("i", res)
+    out.append(launches)
+    del model.mtp_heads
+    return out
 
 def main() -> None:
     import torch
@@ -853,7 +1332,7 @@ def main() -> None:
     for r in requests:
         before = dict(_native.LAUNCHES)
         t0 = time.time()
-        codes = ec.encode_bucketed(codec, r.wav)[0]
+        codes = r.codes = ec.encode_bucketed(codec, r.wav)[0]
         t_enc = time.time() - t0
         stats = {}
         t0 = time.time()
@@ -910,8 +1389,17 @@ def main() -> None:
         f"{pre['dense mha']:.3f} ms through dense mha")
 
     # ---- 5. editing ----
-    edit_launches = edit_phase(model, codec)
+    edits = edit_requests(model, codec)
+    with raised_eog_bias(model):
+        edit_launches = edit_phase(model, codec, edits)
     launches = {name: n + edit_launches[name] for name, n in launches.items()}
+
+    # ---- 6. best-of-N, fp8, speculative TTS and editing ----
+    t0 = time.time()
+    for path_launches in paths_phase(model, codec, requests, edits, ccfg):
+        launches = {name: n + path_launches[name]
+                    for name, n in launches.items()}
+    log(f"[6 paths] done in {time.time() - t0:.1f} s")
 
     kernels = [
         dict(name="flash_prefix_attention", route="cuda",

@@ -26,7 +26,11 @@ The edited word span comes from a diff of the transcripts
 (``inference/editing.py:get_span``), its seconds from the word rows (an MFA
 CSV, or ``align.py``'s energy aligner, whose margins are widened to its p90
 boundary error), widened by --left/right-margin, clamped to [one codec
-frame, the audio's end] and rounded to codec frames.
+frame, the audio's end] and rounded to codec frames.  --spec TAU decodes
+speculatively, TAU tokens per verified pass through the model's MTP heads
+(a checkpoint trained with them, or the tiny_test_mtp preset with
+--random-init); a model without them is refused, as edit_cli.py refuses
+it.
 """
 
 import argparse
@@ -37,7 +41,7 @@ import numpy as np
 
 # flags of edit_cli.py whose machinery the port does not have yet; each is
 # refused, never silently ignored
-NOT_YET_PORTED = ("spec", "spec_sampling", "asr_model")
+NOT_YET_PORTED = ("asr_model",)
 
 
 def read_mfa_csv(path):
@@ -80,11 +84,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (default) or cpu; there is no automatic "
                          "fallback to the CPU")
     ap.add_argument("--fused-ffn", action="store_true",
-                    help="run the decode-step FFN through the fused CUDA kernel")
-    # not yet ported (refused when given)
-    ap.add_argument("--spec", type=int, default=0)
+                    help="run the decode-step FFN through the fused CUDA "
+                         "kernel (plain decoding only)")
+    ap.add_argument("--spec", type=int, default=0, metavar="TAU",
+                    help="speculative decoding with TAU tokens per verified "
+                         "pass (the model needs TAU - 1 MTP head groups); "
+                         "greedy output equals plain decoding's")
     ap.add_argument("--spec-sampling", default="exact",
                     choices=["exact", "stochastic"])
+    # not yet ported (refused when given)
     ap.add_argument("--asr-model", default=None)
     return ap
 
@@ -163,12 +171,15 @@ def main(argv=None):
     scfg = SamplingConfig(top_k=args.top_k if args.top_k > 0 else 0,
                           top_p=args.top_p, temperature=args.temperature,
                           stop_repetition=args.stop_repetition,
-                          silence_tokens=tuple(args.silence_tokens))
+                          silence_tokens=tuple(args.silence_tokens),
+                          spec_sampling=args.spec_sampling)
     stats = {}
     res = inference_edit(model, x, codes, [interval], scfg, seed=args.seed,
-                         fused_ffn=args.fused_ffn, stats=stats)
-    logging.info("regenerated %s frames in %d decoder forwards on %s",
-                 stats["span_frames"], stats["steps"], device)
+                         fused_ffn=args.fused_ffn, stats=stats,
+                         spec=args.spec)
+    logging.info("regenerated %s frames in %d decoder %s on %s",
+                 stats["span_frames"], stats["steps"],
+                 "passes" if args.spec > 1 else "forwards", device)
     out = ec.decode_bucketed(codec, res[None])[0]
     au.write_wav(args.out, out, ccfg.sample_rate)
     logging.info("wrote %s (%.2fs)", args.out, out.shape[-1] / ccfg.sample_rate)

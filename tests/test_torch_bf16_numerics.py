@@ -138,3 +138,44 @@ def test_fused_ffn_plain_rounds_where_jax_does(B, fp8):
     got = fused_ffn_plain(x, conv(jw1), b1, conv(jw2), b2)
     assert got.dtype == BF16 and got.shape == (B, D)
     _assert_within_one_ulp(got, want)
+
+
+def test_fp8_proj_rounds_where_jax_does():
+    """The fp8 form of _proj in bf16 (transformer.py:188-195): the product
+    rounded to bf16, then times the scale cast to bf16, then the bias."""
+    from voicecraft_tpu.models.transformer import _proj as jproj
+    from voicecraft_tpu_torch.models.transformer import _proj
+    from voicecraft_tpu_torch.utils.quantize import _quantize_matrix as quant
+    rng = np.random.default_rng(21)
+    x = _bf16(rng, (3, 256), std=1.0)
+    w, b = _bf16(rng, (256, 192), std=0.06), _bf16(rng, (192,), std=0.1)
+    got = _proj(x, quant(w), b)
+    want = jproj(_jax(x), _quantize_matrix(_jax(w)), _jax(b))
+    assert got.dtype == BF16
+    _assert_within_one_ulp(got, want)
+
+
+def test_fp8_apply_heads_rounds_where_jax_does():
+    """apply_heads on fp8 heads in bf16 (voicecraft.py:183-194): the
+    per-column scale applied in f32 after each product, the hidden layer
+    rounded to bf16 once.  The JAX package's function in f64 (its bf16 x
+    bf16 -> f32 batched product does not run on the CPU), on the JAX
+    quantizer's bytes."""
+    import types
+    from voicecraft_tpu_torch.utils.quantize import _quantize_matrix as quant
+    K, D, card = 4, 256, 130
+    heads = Heads(K, D, 64, card, BF16, "cpu")
+    heads.init_weights(torch.Generator().manual_seed(5))
+    h = _bf16(np.random.default_rng(5), (4, D), std=1.0)
+    fp8 = types.SimpleNamespace(w1=quant(heads.w1), b1=heads.b1,
+                                w2=quant(heads.w2), b2=heads.b2)
+    got = apply_heads(fp8, h)
+    jw1, jw2 = (_quantize_matrix(_jax(w)) for w in (heads.w1, heads.w2))
+    d = lambda a: torch.from_numpy(np.asarray(a.astype(jnp.float32))).double()
+    h1 = (torch.einsum("nd,kdh->knh", h.double(), d(jw1["q"])) * d(jw1["scale"])
+          + heads.b1.double()[:, None])
+    h1 = torch.nn.functional.gelu(h1, approximate="none").float().to(BF16)
+    want = (torch.einsum("knh,khc->knc", h1.double(), d(jw2["q"])) * d(jw2["scale"])
+            + heads.b2.double()[:, None]).transpose(0, 1)
+    assert got.dtype == torch.float32 and got.shape == (4, K, card)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-4)

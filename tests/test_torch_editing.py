@@ -324,9 +324,7 @@ def test_edit_cli_writes_finite_wav(tmp_path, aligner):
     assert ("widening edit margins" in res.stderr) == (aligner == "energy")
 
 
-@pytest.mark.parametrize("flag", [["--spec", "2"],
-                                  ["--spec-sampling", "stochastic"],
-                                  ["--asr-model", "m"]])
+@pytest.mark.parametrize("flag", [["--asr-model", "m"]])
 def test_edit_cli_refuses_flags_not_yet_ported(flag, capsys):
     import edit_torch_cli
     with pytest.raises(SystemExit):

@@ -121,9 +121,7 @@ def test_cli_writes_finite_wav(tmp_path):
     assert np.isfinite(wav).all() and np.abs(wav).max() > 0
 
 
-@pytest.mark.parametrize("flag", [["--spec", "4"],
-                                  ["--sample-batch-size", "2"],
-                                  ["--asr-model", "m"]])
+@pytest.mark.parametrize("flag", [["--asr-model", "m"]])
 def test_cli_refuses_flags_not_yet_ported(flag, capsys):
     import tts_torch_cli
     with pytest.raises(SystemExit):

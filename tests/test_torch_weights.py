@@ -129,14 +129,15 @@ def test_port_imports_without_jax():
         "for n in names + ['tts_torch_cli', 'edit_torch_cli', 'chip_smoke']:\n"
         "    importlib.import_module(n)\n"
         "for n in ('models.voicecraft', 'inference.editing', 'align',\n"
-        "          'utils.convert_encodec', 'utils.transcribe'):\n"
+        "          'utils.convert_encodec', 'utils.transcribe',\n"
+        "          'utils.quantize', 'inference.spec_common'):\n"
         "    assert 'voicecraft_tpu_torch.' + n in names, n\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 19
+    assert int(out.stdout.strip()) >= 21
 
 
 @pytest.mark.parametrize("banned", ["import jax", "from jax",

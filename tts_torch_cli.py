@@ -20,7 +20,10 @@ Smoke mode (no checkpoints, CPU):
 --prompt-end-sec with --mfa-csv (or --snap-cutoff, which aligns the prompt
 with the energy aligner) snaps the cut to a word boundary and cuts the
 prompt transcript there; --long synthesizes the target sentence by
-sentence against the prompt.
+sentence against the prompt.  --sample-batch-size N decodes N sampling
+paths and keeps the first to finish (best-of-N); --spec TAU decodes
+speculatively with TAU tokens per verified pass through the model's MTP
+heads (--random-init gives a preset TAU - 1 random MTP head groups).
 """
 
 import argparse
@@ -31,7 +34,7 @@ import numpy as np
 
 # flags of tts_cli.py whose machinery the port does not have yet; each is
 # refused, never silently ignored
-NOT_YET_PORTED = ("spec", "sample_batch_size", "asr_model")
+NOT_YET_PORTED = ("asr_model",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -74,10 +77,21 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (default) or cpu; there is no automatic "
                          "fallback to the CPU")
     ap.add_argument("--fused-ffn", action="store_true",
-                    help="run the decode-step FFN through the fused CUDA kernel")
+                    help="run the decode-step FFN through the fused CUDA "
+                         "kernel (plain decoding only)")
+    ap.add_argument("--sample-batch-size", type=int, default=1,
+                    help="best-of-N: decode N sampling paths, keep the "
+                         "first to finish")
+    ap.add_argument("--spec", type=int, default=0, metavar="TAU",
+                    help="speculative decoding with TAU tokens per verified "
+                         "pass (the model needs TAU - 1 MTP head groups); "
+                         "greedy output equals plain decoding's")
+    ap.add_argument("--spec-sampling", default="exact",
+                    choices=["exact", "stochastic"],
+                    help="speculative verification: 'exact' (draws keyed "
+                         "per token, greedy speed-up) or 'stochastic' "
+                         "(speculative sampling, exact in distribution)")
     # not yet ported (refused when given)
-    ap.add_argument("--spec", type=int, default=0)
-    ap.add_argument("--sample-batch-size", type=int, default=1)
     ap.add_argument("--asr-model", default=None)
     return ap
 
@@ -119,16 +133,23 @@ def main(argv=None):
     if args.prompt_transcript is None:
         ap.error("--prompt-transcript is required (transcription is not yet "
                  "ported)")
+    if args.fused_ffn and (args.spec > 1 or args.sample_batch_size > 1):
+        ap.error("--fused-ffn applies to plain decoding; best-of-N and "
+                 "speculative decoding run the unfused FFN")
     logging.basicConfig(level=logging.INFO)
 
+    import dataclasses
     import torch
     from voicecraft_tpu_torch.data.phonemes import (build_vocab,
                                                     make_text_tokenizer,
                                                     phones_to_ids)
     from voicecraft_tpu_torch.inference.loader import load_codec, load_model
-    from voicecraft_tpu_torch.inference.tts import inference_tts
+    from voicecraft_tpu_torch.inference.tts import (inference_tts,
+                                                    inference_tts_batch,
+                                                    inference_tts_spec)
     from voicecraft_tpu_torch.models import encodec as ec
-    from voicecraft_tpu_torch.models.voicecraft import SamplingConfig
+    from voicecraft_tpu_torch.models.voicecraft import (SamplingConfig,
+                                                        VoiceCraft)
     from voicecraft_tpu_torch.utils import audio as au
     from voicecraft_tpu_torch.utils.transcribe import split_sentences
 
@@ -139,6 +160,13 @@ def main(argv=None):
 
     cfg, model, phn2num = load_model(args.model, args.random_init, args.seed,
                                      device)
+    if args.spec > 1 and not hasattr(model, "mtp_heads"):
+        if not args.random_init:
+            ap.error("--spec needs a checkpoint with MTP heads")
+        # the same random weights plus TAU - 1 MTP head groups, drawn last
+        cfg = dataclasses.replace(cfg, n_mtp=args.spec - 1)
+        model = VoiceCraft(cfg, device).init_weights(
+            torch.Generator(device=device).manual_seed(args.seed)).eval()
     ccfg, codec = load_codec(args.codec, args.random_init, args.seed, device,
                              codebook_size=cfg.audio_vocab_size)
 
@@ -169,13 +197,29 @@ def main(argv=None):
     scfg = SamplingConfig(top_k=args.top_k, top_p=args.top_p,
                           temperature=args.temperature,
                           stop_repetition=args.stop_repetition,
-                          silence_tokens=tuple(args.silence_tokens))
+                          silence_tokens=tuple(args.silence_tokens),
+                          spec_sampling=args.spec_sampling)
+
+    def synth(x, seed):
+        if args.sample_batch_size > 1:
+            return inference_tts_batch(model, x, codes, scfg,
+                                       batch_size=args.sample_batch_size,
+                                       seed=seed)[1]
+        if args.spec > 1:
+            _, gen, st = inference_tts_spec(model, x, codes, scfg,
+                                            n_draft=args.spec, seed=seed,
+                                            return_stats=True)
+            logging.info("speculative decode: %d tokens in %d passes "
+                         "(%.2f tokens/pass)", st["tokens"], st["passes"],
+                         st["tokens_per_pass"])
+            return gen
+        return inference_tts(model, x, codes, scfg, seed=seed,
+                             fused_ffn=args.fused_ffn)[1]
+
     t0 = time.time()
     # long form: each sentence against the prompt, seeds seed, seed + 1, ...
-    gen = np.concatenate(
-        [inference_tts(model, x, codes, scfg, seed=args.seed + i,
-                       fused_ffn=args.fused_ffn)[1] for i, x in enumerate(xs)],
-        axis=1)
+    gen = np.concatenate([synth(x, args.seed + i) for i, x in enumerate(xs)],
+                         axis=1)
     full = np.concatenate([codes, gen], axis=1)
     dt = time.time() - t0
     gen_sec = gen.shape[1] / cfg.encodec_sr

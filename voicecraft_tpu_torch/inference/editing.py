@@ -1,7 +1,7 @@
 """Multi-span speech editing (PyTorch port of
-voicecraft_tpu/inference/editing.py, without speculative decoding): the
-decode of the masked spans and their splice, the word diff between
-transcripts and the alignment-to-seconds conversion the editing CLI uses.
+voicecraft_tpu/inference/editing.py): the decode of the masked spans (plain
+or speculative) and their splice, the word diff between transcripts and
+the alignment-to-seconds conversion the editing CLI uses.
 """
 
 from __future__ import annotations
@@ -20,12 +20,15 @@ def inference_edit(model: VoiceCraft, x_tokens: np.ndarray,
                    mask_intervals: Sequence[Tuple[int, int]],
                    scfg: SamplingConfig = SamplingConfig(), seed: int = 1,
                    gen_max: Optional[int] = None, fused_ffn: bool = False,
-                   stats: Optional[dict] = None) -> np.ndarray:
+                   stats: Optional[dict] = None, spec: int = 0) -> np.ndarray:
     """Regenerate the masked codec-frame intervals of ``y_codes`` [K, T]
     for the phoneme sequence ``x_tokens`` of the edited transcript.
     ``fused_ffn`` runs the decode-step FFN through the fused kernel.
-    ``stats`` receives run_decode's counts and the frames generated for each
-    span (``span_frames``).
+    ``spec`` = tau >= 2 decodes speculatively (make_spec_edit_loop; the
+    model needs tau - 1 MTP head groups): greedy output equals the plain
+    loop's in f32, sampled output is keyed per token index (the same for
+    every tau).  ``stats`` receives run_decode's counts and the frames
+    generated for each span (``span_frames``).
 
     Returns the kept spans and the generated ones spliced in order [K, T']."""
     cfg = model.cfg
@@ -38,7 +41,7 @@ def inference_edit(model: VoiceCraft, x_tokens: np.ndarray,
     gen = run_decode(model, is_tts=False, x_tokens=x_tokens, prefix=prefix,
                      queue_mask_ids=queue_ids, n_spans=m, scfg=scfg,
                      seed=seed, gen_max=gen_max, fused_ffn=fused_ffn,
-                     stats=stats)
+                     stats=stats, spec=spec)
     if stats is not None:
         stats["span_frames"] = [g.shape[1] for g in gen]
 

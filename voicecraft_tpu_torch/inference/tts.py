@@ -1,5 +1,6 @@
-"""The shared decode entry and zero-shot TTS (PyTorch port of
-voicecraft_tpu/inference/tts.py: ``run_decode``, ``inference_tts`` and
+"""The shared decode entry, zero-shot TTS, best-of-N TTS and speculative TTS
+(PyTorch port of voicecraft_tpu/inference/tts.py: ``run_decode``,
+``inference_tts``, ``inference_tts_batch``, ``inference_tts_spec`` and
 ``find_closest_word_boundary``).
 
 Geometries are rounded up as in the JAX package (x to 32, the y prefix to
@@ -16,7 +17,9 @@ import torch
 from ..config import ModelConfig
 
 from ..data import spans
-from ..models.voicecraft import SamplingConfig, VoiceCraft, make_decode_loop
+from ..models.voicecraft import (SamplingConfig, VoiceCraft, check_mtp_heads,
+                                 make_batch_tts_loop, make_decode_loop,
+                                 make_spec_decode_loop, make_spec_edit_loop)
 from ..ops import patterns
 
 
@@ -91,32 +94,49 @@ def run_decode(model: VoiceCraft, *, is_tts: bool, x_tokens: np.ndarray,
                scfg: SamplingConfig, queue_mask_ids: Sequence[int] = (),
                seed: int = 1, gen_max: Optional[int] = None,
                return_raw: bool = False, fused_ffn: bool = False,
-               stats: Optional[dict] = None):
+               stats: Optional[dict] = None, spec: int = 0):
     """Shared decode entry of TTS (one span) and editing (``n_spans`` spans,
-    ``queue_mask_ids`` from ``spans.compose_edit_prefix``).
+    ``queue_mask_ids`` from ``spans.compose_edit_prefix``).  ``spec`` = tau
+    >= 2 decodes an edit speculatively (make_spec_edit_loop; the model
+    needs tau - 1 MTP head groups); TTS goes through inference_tts_spec.
 
     Returns a list of the generated spans [K, T_j] (unshifted; a span of at
     most K samples gives [K, 0]), or with ``return_raw`` the recorded
     delayed-space samples and their span indices (gen_buf [n, K], span_buf
     [n]).  ``stats``, when given, receives the prefill length
-    (``prefill_len``), the decoder forwards (``steps``), the feed steps
-    among them (``feeds``) and the spans started (``spans_done``)."""
+    (``prefill_len``), the decoder forwards (``steps``; a speculative
+    decode's block passes), the feed steps or feed passes among them
+    (``feeds``) and the spans started (``spans_done``)."""
     cfg = model.cfg
-    K = cfg.n_codebooks
     x_pad, y_pad, gen_max = decode_geometry(
         cfg, len(x_tokens), prefix.length, is_tts=is_tts, n_spans=n_spans,
         gen_max=gen_max)
     dev = model.device
     xt, yt, mi, qm = pad_inputs(cfg, x_tokens, prefix, x_pad, y_pad, dev,
                                 queue_mask_ids)
-    loop = make_decode_loop(cfg, is_tts=is_tts, x_pad=x_pad, y_pad=y_pad,
-                            gen_max=gen_max, scfg=scfg, fused_ffn=fused_ffn)
-    generator = torch.Generator(device=dev).manual_seed(seed)
-    res = loop(model, xt, len(x_tokens), yt, prefix.length, mi, qm, n_spans,
-               generator)
+    if spec > 1:
+        if is_tts:
+            raise ValueError("speculative TTS goes through inference_tts_spec")
+        if fused_ffn:
+            raise ValueError("speculative decoding runs the unfused FFN (the "
+                             "block forward), as the JAX package does; "
+                             "fused_ffn applies to plain decoding")
+        check_mtp_heads(model, spec, scfg)
+        loop = make_spec_edit_loop(cfg, x_pad=x_pad, y_pad=y_pad,
+                                   gen_max=gen_max, scfg=scfg, n_draft=spec)
+        res = loop(model, xt, len(x_tokens), yt, prefix.length, mi, qm,
+                   n_spans, seed)
+        forwards, feeds = res.passes, res.feeds
+    else:
+        loop = make_decode_loop(cfg, is_tts=is_tts, x_pad=x_pad, y_pad=y_pad,
+                                gen_max=gen_max, scfg=scfg,
+                                fused_ffn=fused_ffn)
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        res = loop(model, xt, len(x_tokens), yt, prefix.length, mi, qm,
+                   n_spans, generator)
+        forwards, feeds = res.forwards, res.forwards - res.gen_cnt
     if stats is not None:
-        stats.update(prefill_len=x_pad + y_pad, steps=res.forwards,
-                     feeds=res.forwards - res.gen_cnt,
+        stats.update(prefill_len=x_pad + y_pad, steps=forwards, feeds=feeds,
                      spans_done=res.spans_done)
 
     n = res.gen_cnt
@@ -124,14 +144,39 @@ def run_decode(model: VoiceCraft, *, is_tts: bool, x_tokens: np.ndarray,
     span_buf = res.span_buf[:n].cpu().numpy().astype(np.int32)     # [n]
     if return_raw:
         return gen_buf, span_buf
-    out_spans = []
-    for j in range(n_spans):
-        rows = gen_buf[span_buf == j]                              # [n_j, K]
-        if rows.shape[0] <= K:
-            out_spans.append(np.zeros((K, 0), np.int32))
-            continue
-        out_spans.append(patterns.unshift_span(rows.T).astype(np.int32))
-    return out_spans
+    return [_unshift(cfg, gen_buf[span_buf == j]) for j in range(n_spans)]
+
+
+def _unshift(cfg: ModelConfig, rows: np.ndarray) -> np.ndarray:
+    """One span's recorded delayed-space rows [n, K] -> codes [K, T]."""
+    if rows.shape[0] <= cfg.n_codebooks:
+        return np.zeros((cfg.n_codebooks, 0), np.int32)
+    return patterns.unshift_span(rows.T).astype(np.int32)
+
+
+def _tts_prompt(model: VoiceCraft, x_tokens: np.ndarray, y_codes: np.ndarray,
+                gen_max: Optional[int]):
+    """The padded device inputs of a TTS request and its geometry:
+    (y_codes shifted for special_first, prefix length, x_pad, y_pad,
+    gen_max, (xt, yt, mi))."""
+    cfg = model.cfg
+    check_codes(cfg, y_codes)
+    if cfg.special_first:
+        y_codes = y_codes + cfg.n_special
+    prefix = spans.compose_tts_prefix(y_codes, cfg)
+    x_pad, y_pad, gen_max = decode_geometry(cfg, len(x_tokens), prefix.length,
+                                            gen_max=gen_max)
+    xt, yt, mi, _ = pad_inputs(cfg, x_tokens, prefix, x_pad, y_pad,
+                               model.device)
+    return y_codes, prefix.length, x_pad, y_pad, gen_max, (xt, yt, mi)
+
+
+def _tts_output(cfg: ModelConfig, y_codes: np.ndarray, gen: np.ndarray):
+    full = np.concatenate([y_codes, gen], axis=1)
+    if cfg.special_first:
+        full = full - cfg.n_special
+        gen = gen - cfg.n_special
+    return full, gen
 
 
 def check_codes(cfg: ModelConfig, y_codes: np.ndarray) -> None:
@@ -159,8 +204,62 @@ def inference_tts(model: VoiceCraft, x_tokens: np.ndarray, y_codes: np.ndarray,
     gen = run_decode(model, is_tts=True, x_tokens=x_tokens, prefix=prefix,
                      n_spans=1, scfg=scfg, seed=seed, gen_max=gen_max,
                      fused_ffn=fused_ffn, stats=stats)[0]
-    full = np.concatenate([y_codes, gen], axis=1)
-    if cfg.special_first:
-        full = full - cfg.n_special
-        gen = gen - cfg.n_special
+    return _tts_output(cfg, y_codes, gen)
+
+
+def inference_tts_batch(model: VoiceCraft, x_tokens: np.ndarray,
+                        y_codes: np.ndarray,
+                        scfg: SamplingConfig = SamplingConfig(),
+                        batch_size: int = 4, seed: int = 1,
+                        gen_max: Optional[int] = None,
+                        stats: Optional[dict] = None):
+    """Best-of-N TTS: ``batch_size`` independent sampling paths over one
+    prompt; the path that stops first is returned (make_batch_tts_loop).
+    ``stats`` receives the prefill length (``prefill_len``), the decoder
+    forwards (``steps``) and the returned path (``keep``).
+
+    Returns (full_codes [K, T+Tg], generated [K, Tg]) as inference_tts."""
+    cfg = model.cfg
+    y_codes, plen, x_pad, y_pad, gen_max, (xt, yt, mi) = _tts_prompt(
+        model, x_tokens, y_codes, gen_max)
+    loop = make_batch_tts_loop(cfg, batch_size=batch_size, x_pad=x_pad,
+                               y_pad=y_pad, gen_max=gen_max, scfg=scfg)
+    generator = torch.Generator(device=model.device).manual_seed(seed)
+    res = loop(model, xt, len(x_tokens), yt, plen, mi, generator)
+    if stats is not None:
+        stats.update(prefill_len=x_pad + y_pad, steps=res.forwards,
+                     keep=res.keep)
+    rows = res.gen_buf[:res.gen_cnt, res.keep].cpu().numpy()
+    return _tts_output(cfg, y_codes, _unshift(cfg, rows))
+
+
+def inference_tts_spec(model: VoiceCraft, x_tokens: np.ndarray,
+                       y_codes: np.ndarray,
+                       scfg: SamplingConfig = SamplingConfig(),
+                       n_draft: int = 4, seed: int = 1,
+                       gen_max: Optional[int] = None,
+                       return_stats: bool = False,
+                       force_accept: bool = False):
+    """Speculative zero-shot TTS through the model's MTP heads
+    (make_spec_decode_loop).  Greedy output equals inference_tts's; sampled
+    output is an equally valid draw under per-token-index keys.  ``n_draft``
+    - 1 must not exceed the model's MTP head groups.  ``force_accept``
+    (measurement) accepts every draft: the 100%-acceptance ceiling.
+
+    Returns (full, gen) as inference_tts, plus with ``return_stats`` a dict
+    of passes, tokens, tokens_per_pass and prefill_len."""
+    cfg = model.cfg
+    check_mtp_heads(model, n_draft, scfg)
+    y_codes, plen, x_pad, y_pad, gen_max, (xt, yt, mi) = _tts_prompt(
+        model, x_tokens, y_codes, gen_max)
+    loop = make_spec_decode_loop(cfg, x_pad=x_pad, y_pad=y_pad,
+                                 gen_max=gen_max, scfg=scfg, n_draft=n_draft,
+                                 force_accept=force_accept)
+    res = loop(model, xt, len(x_tokens), yt, plen, mi, seed)
+    rows = res.gen_buf[:res.gen_cnt].cpu().numpy()
+    full, gen = _tts_output(cfg, y_codes, _unshift(cfg, rows))
+    if return_stats:
+        return full, gen, {"passes": res.passes, "tokens": res.gen_cnt,
+                           "tokens_per_pass": res.gen_cnt / max(res.passes, 1),
+                           "prefill_len": x_pad + y_pad}
     return full, gen

@@ -3,10 +3,11 @@ inference path of voicecraft_tpu/models/transformer.py).
 
 Pre-norm LayerNorm (eps 1e-5, computed in f32), separate q/k/v
 projections, ReLU FFN of width 4*d_model, final LayerNorm.  Weight matrices
-are stored once in the compute dtype in the [in, out] layout (x @ w);
-LayerNorm parameters stay f32.  The KV cache is a preallocated slab
+are stored once in the compute dtype in the [in, out] layout (x @ w), or
+weight-only fp8 after utils/quantize.py:quantize_decoder_fp8; LayerNorm
+parameters stay f32.  The KV cache is a preallocated slab
 [L, 2, B, S_max, H, Dh] (k at 0, v at 1) that prefill fills and each decode
-step updates once, in place, at ``pos``.
+step (or speculative block) updates once, in place, at ``pos``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import decode_attention_self
+from ..ops.attention import decode_attention_self, decode_attention_self_block
 from ..ops import fused_decode
 
 
@@ -100,11 +101,22 @@ def layer_norm(g: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     return F.layer_norm(x.float(), (x.shape[-1],), g, b, eps).to(x.dtype)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return x @ w.to(x.dtype) + b.to(x.dtype)
+def _proj(x: torch.Tensor, w, b: torch.Tensor) -> torch.Tensor:
+    """x @ w + b in x's dtype.  A weight-only fp8 ``w``
+    (utils/quantize.py:FP8Weight) rounds as the JAX package's does: the
+    product to x's dtype, then times the scale cast to x's dtype, plus the
+    bias."""
+    if isinstance(w, torch.Tensor):
+        return x @ w.to(x.dtype) + b.to(x.dtype)
+    y = x @ w.q.to(x.dtype)
+    return y * w.scale.reshape(1, -1).to(x.dtype) + b.to(x.dtype)
 
 
 def qkv_proj(layer: DecoderLayer, h: torch.Tensor):
+    """q, k, v; one product split along its last axis for the packed
+    ``wqkv`` of ``quantize_decoder_fp8(pack_qkv=True)``."""
+    if hasattr(layer, "wqkv"):
+        return _proj(h, layer.wqkv, layer.bqkv).chunk(3, dim=-1)
     return (_proj(h, layer.wq, layer.bq), _proj(h, layer.wk, layer.bk),
             _proj(h, layer.wv, layer.bv))
 
@@ -187,4 +199,41 @@ def decode_step_fast(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
         x = x + h2
         kv.append(torch.stack([k_new, v_new]))                  # [2,B,1,H,Dh]
     cache.index_copy_(3, pos.view(1), torch.stack(kv).to(cache.dtype))
+    return layer_norm(decoder.final_ln_g, decoder.final_ln_b, x), cache
+
+
+def decode_step_block(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
+                      pos: torch.Tensor, x_len: Optional[torch.Tensor] = None,
+                      x_pad: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Feed T tokens through ONE forward against the slab (speculative
+    decoding).
+
+    The write-once structure of :func:`decode_step_fast`, with the block
+    attending causally within itself (ops.attention.
+    decode_attention_self_block); one index_copy_ writes all T tokens' k/v
+    at [pos, pos + T).  Rewinding is moving ``pos`` back: entries at or
+    beyond the next pass's ``pos`` are masked, never read.
+
+    x_t: [B, T, D]; pos / x_len: 0-d integer tensors on the slab's device.
+    Returns (final-normed hidden [B, T, D], cache).
+    """
+    L, _, B, S_max, H, Dh = cache.shape
+    T = x_t.shape[1]
+    x = x_t
+    kv = []
+    for li, layer in enumerate(decoder.layers):
+        h = layer_norm(layer.ln1_g, layer.ln1_b, x)
+        q, k, v = qkv_proj(layer, h)
+        k_new = k.reshape(B, T, H, Dh)
+        v_new = v.reshape(B, T, H, Dh)
+        a = decode_attention_self_block(q, cache[li, 0], cache[li, 1], pos,
+                                        k_new, v_new, H, x_len=x_len,
+                                        x_pad=x_pad)
+        x = x + _proj(a, layer.wo, layer.bo)
+        x = x + ffn_block(layer, layer_norm(layer.ln2_g, layer.ln2_b, x),
+                          decoder.activation)
+        kv.append(torch.stack([k_new, v_new]))                  # [2,B,T,H,Dh]
+    idx = pos + torch.arange(T, device=pos.device)
+    cache.index_copy_(3, idx, torch.stack(kv).to(cache.dtype))
     return layer_norm(decoder.final_ln_g, decoder.final_ln_b, x), cache

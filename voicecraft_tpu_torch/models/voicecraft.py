@@ -1,22 +1,26 @@
-"""VoiceCraft model and its decode loop for zero-shot TTS and multi-span
-editing (PyTorch port of voicecraft_tpu/models/voicecraft.py).
+"""VoiceCraft model and its decode loops for zero-shot TTS, multi-span
+editing, best-of-N TTS and verified speculative decoding (PyTorch port of
+voicecraft_tpu/models/voicecraft.py).
 
 ``VoiceCraft`` holds the parameters: per-codebook audio embeddings (summed),
 text and mask embeddings, sine positional embeddings scaled by learnable
-alphas, the pre-norm decoder, and per-codebook 2-layer GELU heads.
+alphas, the pre-norm decoder, per-codebook 2-layer GELU heads and, for
+speculative decoding, ``n_mtp`` groups of multi-token-prediction heads.
 Embedding tables, alphas, LayerNorm parameters and head biases are f32, as
 the JAX code reads them; every weight matrix is stored once in the compute
-dtype.
+dtype (or weight-only fp8, utils/quantize.py).
 
-The decode loop keeps its state in device tensors of static shape (the
+Each decode loop keeps its state in device tensors of static shape (the
 write pointer, the sampling state, the token and span buffers, the span
-feed queue) and syncs with the host once per step.
+feed queue) and syncs with the host once per step (speculative loops: once
+per verified pass).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -25,9 +29,9 @@ from torch import nn
 
 from ..config import ModelConfig
 
-from ..ops.attention import matmul_f32
 from ..ops.flash_attention import prefill_attention
 from ..ops.sampling import sample
+from ..utils.quantize import dequant_dot
 from . import transformer as trm
 from .embedding import sine_table
 
@@ -77,6 +81,8 @@ class VoiceCraft(nn.Module):
                                    norm=cfg.norm, activation=cfg.ffn_activation)
         self.heads = Heads(K, D, cfg.audio_vocab_size // 2, cfg.card,
                            self.dtype, device)
+        if cfg.n_mtp > 0:
+            self.mtp_heads = _mtp_heads(cfg, self.dtype, device)
         self.register_buffer("pe", torch.from_numpy(sine_table(MAX_POS, D)).to(device),
                              persistent=False)
 
@@ -94,7 +100,58 @@ class VoiceCraft(nn.Module):
         self.alpha_audio.fill_(1.0)
         self.decoder.init_weights(generator)
         self.heads.init_weights(generator)
+        # last, so that the other weights equal an n_mtp = 0 model's
+        for heads in getattr(self, "mtp_heads", None) or ():
+            heads.init_weights(generator)
         return self
+
+
+def _mtp_heads(cfg: ModelConfig, dtype: torch.dtype, device) -> nn.ModuleList:
+    return nn.ModuleList(
+        Heads(cfg.n_codebooks, cfg.d_model, cfg.audio_vocab_size // 2,
+              cfg.card, dtype, device) for _ in range(cfg.n_mtp))
+
+
+def init_mtp_heads(cfg: ModelConfig, generator: torch.Generator,
+                   device) -> nn.ModuleList:
+    """``cfg.n_mtp`` groups of multi-token-prediction heads, each the
+    2-layer GELU structure of the main heads with their init distribution;
+    group j predicts the token at offset j + 2 in the delayed space (the
+    main heads predict offset + 1).  Assign to ``model.mtp_heads``: they
+    change none of the model's other weights."""
+    heads = _mtp_heads(cfg, compute_dtype(cfg), device)
+    for h in heads:
+        h.init_weights(generator)
+    return heads
+
+
+def check_mtp_heads(model: "VoiceCraft", n_draft: int,
+                    scfg: Optional["SamplingConfig"] = None) -> None:
+    """Whether ``model`` can drive ``n_draft``-token speculative decoding:
+    raises without MTP heads or with fewer than n_draft - 1 groups.  With
+    ``scfg``, warns when exact verification meets temperature sampling,
+    where a greedy draft almost never equals the sampled token."""
+    if n_draft <= 1:
+        return
+    mtp = getattr(model, "mtp_heads", None)
+    if mtp is None:
+        raise ValueError("speculative decoding needs the model's mtp_heads "
+                         "(a checkpoint trained with n_mtp > 0)")
+    if n_draft - 1 > len(mtp):
+        raise ValueError(
+            f"n_draft={n_draft} needs {n_draft - 1} MTP head groups, but "
+            f"the checkpoint has n_mtp={len(mtp)}")
+    if (scfg is not None and scfg.temperature > 0
+            and scfg.spec_sampling == "exact"):
+        warnings.warn(
+            f"speculative decoding (n_draft={n_draft}) with "
+            f"temperature={scfg.temperature} > 0: exact-match verification "
+            "of greedy drafts against sampled tokens rejects almost "
+            "everything, so --spec will only add per-pass overhead.  Use "
+            "temperature <= 0 (greedy), or spec_sampling='stochastic' "
+            "(--spec-sampling stochastic) for distribution-exact "
+            "speculative SAMPLING with real acceptance.",
+            stacklevel=2)
 
 
 def embed_audio_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -108,11 +165,12 @@ def embed_audio_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tenso
 
 def apply_heads(heads: Heads, h: torch.Tensor) -> torch.Tensor:
     """h [N, D] -> logits [N, K, card] in f32 (exact-erf GELU).  Both
-    products come out in f32; the hidden layer is rounded to h's dtype once,
+    products come out in f32 (a weight-only fp8 head's scale applied in f32
+    after its product); the hidden layer is rounded to h's dtype once,
     after its bias and the GELU, as in the JAX package."""
-    h1 = matmul_f32(h.unsqueeze(0), heads.w1.to(h.dtype))            # [K,N,half]
+    h1 = dequant_dot(h.unsqueeze(0), heads.w1)                       # [K,N,half]
     h1 = F.gelu(h1 + heads.b1[:, None].float(), approximate="none")
-    logits = matmul_f32(h1.to(h.dtype), heads.w2.to(h.dtype))        # [K,N,card]
+    logits = dequant_dot(h1.to(h.dtype), heads.w2)                   # [K,N,card]
     return (logits + heads.b2[:, None].float()).transpose(0, 1)
 
 
@@ -164,6 +222,19 @@ class SamplingConfig:
     temperature: float = 1.0        # <=0 -> greedy
     stop_repetition: int = 3
     silence_tokens: Tuple[int, ...] = (1388, 1898, 131)
+    # speculative verification (the plain loops ignore both):
+    #   "exact"      accept a draft only if it equals the token the plain
+    #                loop samples there; greedy output equals the plain
+    #                loop's, sampled output is keyed per token index (the
+    #                same for every tau)
+    #   "stochastic" drafts sampled from the MTP distributions q, verified
+    #                per codebook row by rejection sampling (accept with
+    #                probability min(1, p/q), else draw the residual): the
+    #                emitted law is exactly the plain loop's
+    spec_sampling: str = "exact"
+    # the draft proposal's temperature in stochastic mode (< 0: the
+    # sampling temperature); any q keeps the output law exact
+    spec_draft_temperature: float = -1.0
 
 
 @functools.lru_cache(maxsize=16)
@@ -248,20 +319,51 @@ def _finalize_sample(cfg: ModelConfig, scfg: SamplingConfig, is_tts: bool,
 
 def _adjust_and_sample(cfg: ModelConfig, scfg: SamplingConfig, is_tts: bool,
                        cap_mult: int, generator, logits_k, codebook_eog,
-                       cur_num_gen, consec_silence, prev_token, y_pos, x_len):
+                       cur_num_gen, consec_silence, prev_token, y_pos, x_len,
+                       raw_override=None):
     """One sampling decision for a single sample (logits_k [K, card] f32):
-    logit adjustments, a draw, then the deterministic finalisation."""
+    logit adjustments, a draw, then the deterministic finalisation.
+
+    ``raw_override=(use, tokens [K])`` substitutes a predetermined raw
+    sample for the draw where ``use`` (the stochastic verifier's pending
+    corrected token); the finalisation is the same either way."""
     la = _adjust_logits(cfg, scfg, is_tts, logits_k, codebook_eog,
                         cur_num_gen, consec_silence, prev_token)
     samples = sample(generator, la, scfg.top_k, scfg.top_p, scfg.temperature)
+    if raw_override is not None:
+        use, tokens = raw_override
+        samples = torch.where(use, tokens, samples)
     return _finalize_sample(cfg, scfg, is_tts, cap_mult, la, samples,
                             codebook_eog, cur_num_gen, consec_silence,
                             prev_token, y_pos, x_len)
 
 
 # ==============================================================================
-# decode loop
+# decode loops
 # ==============================================================================
+
+def prefill_prompt(model: VoiceCraft, x_tokens, x_len: int, y_prefix,
+                   prefix_len: int, mask_emb_idx, s_max: int, batch: int = 1):
+    """The prefill of one prompt for ``batch`` decode paths: the embedded
+    prefix broadcast to [batch, Sp, D], one forward that fills a new slab of
+    ``s_max`` slots (attention through ops.flash_attention.
+    prefill_attention), and the heads at the prefix's last column.
+    Returns (h_last [batch, D], logits [batch, K, card] f32, cache)."""
+    cfg = model.cfg
+    dev = model.device
+    x_pad, y_pad = x_tokens.shape[1], y_prefix.shape[2]
+    xy = embed_prefix(model, x_tokens, y_prefix, mask_emb_idx)
+    if batch > 1:
+        xy = xy.expand(batch, -1, -1)
+    x_lens = torch.tensor([x_len] * batch, dtype=torch.int32, device=dev)
+    y_lens = torch.tensor([prefix_len] * batch, dtype=torch.int32, device=dev)
+    attn = prefill_attention(x_lens, y_lens, x_pad, cfg.nhead, x_pad + y_pad)
+    cache = trm.init_kv_cache(cfg.num_decoder_layers, batch, s_max, cfg.nhead,
+                              cfg.head_dim, model.dtype, dev)
+    h, cache = trm.prefill(model.decoder, xy, attn, cache)
+    h_last = h[:, x_pad + prefix_len - 1]                   # [batch, D]
+    return h_last, apply_heads(model.heads, h_last), cache
+
 
 @dataclasses.dataclass
 class DecodeResult:
@@ -298,7 +400,6 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
     n_spans, generator) -> DecodeResult.
     """
     K = cfg.n_codebooks
-    H, Dh, L = cfg.nhead, cfg.head_dim, cfg.num_decoder_layers
     cap_mult = (cfg.encodec_sr // 5) if is_tts else 10
     s_max = x_pad + y_pad + gen_max + 2 * (cfg.max_n_spans - 1)
 
@@ -313,16 +414,8 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
         dev, dtype = model.device, model.dtype
         ltype = torch.long
 
-        # ---- prefill ----
-        xy = embed_prefix(model, x_tokens, y_prefix, mask_emb_idx)
-        Sp = x_pad + y_pad
-        x_lens = torch.tensor([x_len], dtype=torch.int32, device=dev)
-        y_lens = torch.tensor([prefix_len], dtype=torch.int32, device=dev)
-        attn = prefill_attention(x_lens, y_lens, x_pad, H, Sp)
-        cache = trm.init_kv_cache(L, 1, s_max, H, Dh, dtype, dev)
-        h, cache = trm.prefill(model.decoder, xy, attn, cache)
-        h_last = h[:, x_pad + prefix_len - 1]               # [1, D]
-        logits = apply_heads(model.heads, h_last)           # [1, K, card]
+        _, logits, cache = prefill_prompt(model, x_tokens, x_len, y_prefix,
+                                          prefix_len, mask_emb_idx, s_max)
 
         scalar = lambda v, t=ltype: torch.tensor(v, dtype=t, device=dev)
         x_len_t = scalar(x_len)
@@ -413,5 +506,391 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
             if is_done or n_gen >= gen_max:
                 break
         return DecodeResult(gen_buf, span_buf, n_gen, n_span + 1, forwards)
+
+    return decode
+
+
+# ==============================================================================
+# verified speculative decoding with multi-token-prediction drafts
+# ==============================================================================
+
+@dataclasses.dataclass
+class SpecResult:
+    """What one speculative decode leaves (counts from the last host
+    sync)."""
+    gen_buf: torch.Tensor     # [gen_max + tau, K] delayed-space samples
+    span_buf: Optional[torch.Tensor]  # [gen_max + tau] span indices (edits)
+    gen_cnt: int              # recorded samples
+    spans_done: int           # spans started
+    passes: int               # block forwards, feed passes included
+    feeds: int                # feed passes (editing)
+
+
+def _refuse_bench_options(bench_mode: bool, kv_dtype) -> None:
+    if bench_mode or kv_dtype is not None:
+        raise NotImplementedError("bench_mode and kv_dtype are not yet "
+                                  "ported to voicecraft_tpu_torch")
+
+
+def make_spec_decode_loop(cfg: ModelConfig, *, x_pad: int, y_pad: int,
+                          gen_max: int, scfg: SamplingConfig, n_draft: int,
+                          bench_mode: bool = False, force_accept: bool = False,
+                          kv_dtype: Optional[str] = None):
+    """Verified speculative TTS decode.
+
+    Each pass feeds ``n_draft`` = tau tokens through ONE forward
+    (trm.decode_step_block): the true next token, sampled from the main
+    heads as the plain loop samples it, plus tau - 1 drafts of the MTP
+    heads.  The pass's own logits then re-derive what the plain loop would
+    have emitted at each drafted slot, and a draft is accepted only where
+    it matches (inference/spec_common.spec_verify_pass).  Greedy output
+    equals the plain loop's (exactly in f32; in bf16 the block's other
+    summation order can flip an argmax at a near-tie).  Sampled draws are
+    keyed per token index, so sampled output is the same for every tau,
+    though not the plain loop's (whose generator runs sequentially).
+
+    ``force_accept`` (measurement): every draft is accepted, so each pass
+    retires tau tokens (the drafts are emitted): the ceiling of the
+    machinery at 100% acceptance.  The slab has s_max = x_pad + y_pad +
+    gen_max + tau slots; one host sync per pass.
+
+    Returns decode(model, x_tokens [1, x_pad], x_len, y_prefix [1, K,
+    y_pad], prefix_len, mask_emb_idx [1, y_pad], seed) -> SpecResult.
+    """
+    from ..inference.spec_common import (make_lane_sampler, spec_verify_pass,
+                                         token_generators)
+    _refuse_bench_options(bench_mode, kv_dtype)
+    if n_draft < 1:
+        raise ValueError(f"n_draft must be >= 1, got {n_draft}")
+    K = cfg.n_codebooks
+    cap_mult = cfg.encodec_sr // 5
+    tau = n_draft
+    s_max = x_pad + y_pad + gen_max + tau
+    sample_lanes = make_lane_sampler(cfg, scfg, cap_mult)
+
+    @torch.inference_mode()
+    def decode(model: VoiceCraft, x_tokens, x_len: int, y_prefix,
+               prefix_len: int, mask_emb_idx, seed: int) -> SpecResult:
+        check_mtp_heads(model, tau)
+        dev = model.device
+        ltype = torch.long
+        h, logits, cache = prefill_prompt(model, x_tokens, x_len, y_prefix,
+                                          prefix_len, mask_emb_idx, s_max)
+        h = h.float()
+        vec = lambda v, t=ltype: torch.tensor([v], dtype=t, device=dev)
+        x_lens = vec(x_len)
+        pos = torch.tensor(x_pad + prefix_len, device=dev)
+        y_pos = vec(prefix_len)
+        gen_buf = torch.zeros((gen_max + tau, K), dtype=ltype, device=dev)
+        eog = torch.zeros((1, K), dtype=torch.bool, device=dev)
+        cng, consec, prev = vec(0), vec(0), vec(-1)
+        pending = torch.zeros((1, K), dtype=ltype, device=dev)
+        has_pending = vec(False, torch.bool)
+        gate = vec(True, torch.bool)
+        gens = token_generators(scfg, seed, dev)
+        t = passes = 0
+
+        def forward(feed):
+            return trm.decode_step_block(model.decoder, feed, cache, pos,
+                                         x_len=x_lens[0], x_pad=x_pad)[0]
+
+        while True:
+            out = spec_verify_pass(
+                model, cfg, sample_lanes, tau=tau, gate=gate,
+                tok_gen=lambda i, salt, t=t: gens(t + i, salt), y_pos0=y_pos,
+                x_lens=x_lens, logits=logits, h=h, eog=eog, cng=cng,
+                consec=consec, prev=prev, t=t, accept_cap=gen_max,
+                forward=forward, force_accept=force_accept, scfg=scfg,
+                is_tts=True, cap_mult=cap_mult, pending=pending,
+                has_pending=has_pending)
+            n_acc = out["n_acc"]
+            gen_buf[t:t + tau] = out["blk"][0]
+            pos += n_acc[0]
+            y_pos = y_pos + n_acc
+            eog, cng, consec, prev = (out["eog"], out["cng"], out["consec"],
+                                      out["prev"])
+            logits, h = out["logits_next"], out["h_next"]
+            pending, has_pending = out["pending"], out["has_pending"]
+            passes += 1
+            n, done = torch.stack([n_acc[0], eog.all().long()]).tolist()
+            t += n
+            if done or t >= gen_max:
+                break
+        return SpecResult(gen_buf, None, t, 1, passes, 0)
+
+    return decode
+
+
+def make_spec_edit_loop(cfg: ModelConfig, *, x_pad: int, y_pad: int,
+                        gen_max: int, scfg: SamplingConfig, n_draft: int):
+    """Verified speculative multi-span editing decode.
+
+    make_spec_decode_loop's verification (greedy output equal to the plain
+    editing loop's in f32, sampled output keyed per token index) with the
+    span machinery: when the eog cascade completes a span mid-block, the
+    rest of the block is rejected (the verify core's ``alive``), and the
+    NEXT pass is a FEED pass.  The two queued embeddings (the next span's
+    mask embedding, the empty column) ride a tau-wide block with the verify
+    core gated off; the write pointer advances 2, the tau - 2 tail slots
+    are masked garbage, and the next pass starts from the block's RAW
+    outputs at slot 1 (the empty column's logits, as in the plain loop).
+    ``n_draft`` must be >= 2 for a feed pass to fit in one block.  The slab
+    has s_max = x_pad + y_pad + gen_max + tau + 2 (max_n_spans - 1) slots;
+    one host sync per pass.
+
+    Returns decode(model, x_tokens [1, x_pad], x_len, y_prefix [1, K,
+    y_pad], prefix_len, mask_emb_idx [1, y_pad], queue_mask_ids
+    [max_n_spans], n_spans, seed) -> SpecResult.
+    """
+    from ..inference.spec_common import (make_lane_sampler, spec_verify_pass,
+                                         token_generators)
+    if n_draft < 2:
+        raise ValueError("speculative editing needs n_draft >= 2 (a feed "
+                         "pass carries two embeddings)")
+    K, D = cfg.n_codebooks, cfg.d_model
+    cap_mult = 10
+    tau = n_draft
+    s_max = x_pad + y_pad + gen_max + tau + 2 * (cfg.max_n_spans - 1)
+    sample_lanes = make_lane_sampler(cfg, scfg, cap_mult, is_tts=False)
+
+    @torch.inference_mode()
+    def decode(model: VoiceCraft, x_tokens, x_len: int, y_prefix,
+               prefix_len: int, mask_emb_idx, queue_mask_ids, n_spans: int,
+               seed: int) -> SpecResult:
+        if not 1 <= n_spans <= cfg.max_n_spans:
+            raise ValueError(f"n_spans {n_spans} outside [1, max_n_spans "
+                             f"{cfg.max_n_spans}]")
+        check_mtp_heads(model, tau)
+        dev, dtype = model.device, model.dtype
+        ltype = torch.long
+        h, logits, cache = prefill_prompt(model, x_tokens, x_len, y_prefix,
+                                          prefix_len, mask_emb_idx, s_max)
+        h = h.float()
+        vec = lambda v, t=ltype: torch.tensor([v], dtype=t, device=dev)
+        x_lens = vec(x_len)
+        pos = torch.tensor(x_pad + prefix_len, device=dev)
+        y_pos = vec(prefix_len)
+        gen_buf = torch.zeros((gen_max + tau, K), dtype=ltype, device=dev)
+        span_buf = torch.zeros((gen_max + tau,), dtype=ltype, device=dev)
+        eog = torch.zeros((1, K), dtype=torch.bool, device=dev)
+        cng, consec, prev = vec(0), vec(0), vec(-1)
+        pending = torch.zeros((1, K), dtype=ltype, device=dev)
+        has_pending = vec(False, torch.bool)
+        span_idx = torch.tensor(0, device=dev)
+        queue = torch.zeros((2, D), dtype=dtype, device=dev)
+        queue_mask_ids = queue_mask_ids.to(device=dev, dtype=ltype)
+        empty_emb = column_embedding(
+            model, torch.full((K,), cfg.empty_token, dtype=ltype, device=dev))
+        tail = torch.zeros((tau - 2, D), dtype=dtype, device=dev)
+        gens = token_generators(scfg, seed, dev)
+        t = passes = feeds = 0
+        feeding = False
+
+        def forward(feed):
+            return trm.decode_step_block(model.decoder, feed, cache, pos,
+                                         x_len=x_lens[0], x_pad=x_pad)[0]
+
+        while True:
+            # a feed pass: [mask embedding of the next span, empty column,
+            # masked garbage] in place of the token embeddings, the verify
+            # core gated off
+            feed_emb = torch.cat([queue, tail])
+            mix = (lambda e: feed_emb[None].expand_as(e)) if feeding else None
+            out = spec_verify_pass(
+                model, cfg, sample_lanes, tau=tau,
+                gate=vec(not feeding, torch.bool),
+                tok_gen=lambda i, salt, t=t: gens(t + i, salt), y_pos0=y_pos,
+                x_lens=x_lens, logits=logits, h=h, eog=eog, cng=cng,
+                consec=consec, prev=prev, t=t, accept_cap=gen_max,
+                forward=forward, mix_emb=mix, scfg=scfg, is_tts=False,
+                cap_mult=cap_mult, pending=pending, has_pending=has_pending)
+            n_acc = out["n_acc"][0]             # 0 on a feed pass
+            eog_f = out["eog"]
+            if not feeding:
+                gen_buf[t:t + tau] = out["blk"][0]
+                span_buf[t:t + tau] = span_idx
+
+            # span transitions
+            span_complete = eog_f.all() & (not feeding)
+            more = span_idx + 1 < n_spans
+            start_next = span_complete & more
+            next_id = queue_mask_ids.index_select(
+                0, (span_idx + 1).clamp(max=cfg.max_n_spans - 1))
+            new_queue = torch.cat(
+                [model.mask_emb.index_select(0, next_id).to(dtype),
+                 empty_emb[None]])
+            queue = torch.where(start_next, new_queue, queue)
+            done = span_complete & ~more
+            span_idx = span_idx + start_next.long()
+            # per-span resets (a feed pass's verify core left the state as
+            # it was)
+            eog = torch.where(span_complete, False, eog_f)
+            cng = torch.where(span_complete, 0, out["cng"])
+            consec = torch.where(span_complete, 0, out["consec"])
+            prev = torch.where(span_complete, -1, out["prev"])
+            pending, has_pending = out["pending"], out["has_pending"]
+
+            # the next pass starts from the RAW block outputs: after a feed
+            # pass, the second feed's (the empty column's)
+            n_adv = torch.tensor(2, device=dev) if feeding else n_acc
+            last = (n_adv - 1).view(1)
+            logits = out["logits_blk"][0].index_select(0, last)
+            h = out["h_blk"][0].index_select(0, last).float()
+            pos += n_adv
+            y_pos = y_pos + n_adv
+            passes += 1
+            feeds += feeding
+            n, is_done, queued = torch.stack(
+                [n_acc, done.long(), start_next.long()]).tolist()
+            t += n
+            feeding = bool(queued)
+            if is_done or t >= gen_max:
+                break
+        return SpecResult(gen_buf, span_buf, t, int(span_idx) + 1, passes,
+                          feeds)
+
+    return decode
+
+
+# ==============================================================================
+# best-of-N TTS
+# ==============================================================================
+
+def _batch_adjust_and_sample(cfg: ModelConfig, scfg: SamplingConfig,
+                             cap_mult: int, generator, logits, codebook_eog,
+                             cur_num_gen, consec, prev, y_pos, x_len, keep):
+    """The sampling decision of N paths over one prompt (logits [N, K,
+    card] f32; consec / prev [N]; the rest 0-d, codebook_eog [K] shared by
+    all paths).  As the JAX package's (and the reference's) batch sampler:
+    the eos ban; the min-length guard bans eog on ALL codebooks; one global
+    codebook_eog; ``keep`` becomes the HIGHEST path index that stops in the
+    step (the reference loops over paths and the last hit wins); and the
+    eog cascade then runs on the keep path only.  Returns (samples [N, K],
+    codebook_eog, consec, prev, keep)."""
+    B, K, card = logits.shape
+    dev = logits.device
+    eog_stop = cfg.eog_inference
+    rows = torch.arange(K, device=dev)[None, :, None]
+    cols = torch.arange(card, device=dev)[None, None, :]
+    n_eog = codebook_eog.sum()
+    first = n_eog == 0
+
+    la = logits
+    if cfg.eos > 0:
+        la = la.masked_fill(cols == cfg.eog, BAN)
+    la = la.masked_fill((rows > n_eog) & ((cols == eog_stop)
+                                          | (cols == cfg.empty_token)), BAN)
+    min_guard = first & (cur_num_gen <= cfg.encodec_sr // 5)
+    la = la.masked_fill(min_guard & (cols == eog_stop), BAN)
+    if scfg.stop_repetition > 0 and len(scfg.silence_tokens) > 0:
+        sil = _silence_tokens(scfg.silence_tokens, dev)
+        hit = ((sil[None, :] == prev[:, None]).any(dim=1)
+               & (consec > scfg.stop_repetition) & first)            # [N]
+        denom = (consec - (scfg.stop_repetition - 1)).float()[:, None, None]
+        cell = (rows == 0) & (cols == prev[:, None, None])
+        pen = torch.where(la < 0, la * denom, la / denom.clamp(min=1.0))
+        la = torch.where(hit[:, None, None] & cell, pen, la)
+
+    samples = sample(generator, la, scfg.top_k, scfg.top_p, scfg.temperature)
+    r = torch.arange(K, device=dev)
+
+    # ---- n_eog == 0 ----
+    s0 = torch.where(r[None, :] > cur_num_gen, cfg.empty_token, samples)
+    stop_b = ((s0[:, 0] == eog_stop) | (la[:, 0].argmax(dim=-1) == eog_stop)
+              | (y_pos > x_len * cap_mult))                          # [N]
+    s0 = torch.where(r[None, :] == 0,
+                     torch.where(stop_b, eog_stop, s0[:, 0])[:, None], s0)
+    any_stop = stop_b.any()
+    last_hit = torch.where(stop_b, torch.arange(B, device=dev), -1).max()
+    keep0 = torch.where(any_stop, last_hit, keep)
+    eog0 = torch.where(r == 0, any_stop, codebook_eog)
+    if len(scfg.silence_tokens) > 0:
+        sil = _silence_tokens(scfg.silence_tokens, dev)
+        is_sil = ((sil[None, :] == s0[:, :1]).any(dim=1)
+                  & (s0[:, 0] == prev))
+    else:
+        is_sil = torch.zeros((B,), dtype=torch.bool, device=dev)
+    consec0 = torch.where(is_sil, consec + 1, 0)
+    prev0 = s0[:, 0]
+
+    # ---- n_eog > 0: the cascade, on the keep path only ----
+    kk = keep.clamp(min=0).view(1)
+    keep_row = torch.where(r < n_eog, cfg.empty_token,
+                           samples.index_select(0, kk)[0])
+    keep_row = torch.where(r == n_eog, eog_stop, keep_row)
+    s1 = samples.index_copy(0, kk, keep_row[None])
+    eog1 = codebook_eog | (r == n_eog)
+
+    return (torch.where(first, s0, s1), torch.where(first, eog0, eog1),
+            torch.where(first, consec0, consec),
+            torch.where(first, prev0, prev), torch.where(first, keep0, keep))
+
+
+@dataclasses.dataclass
+class BatchResult:
+    """What one best-of-N decode leaves (counts from the last host sync)."""
+    gen_buf: torch.Tensor     # [gen_max, N, K] delayed-space samples
+    gen_cnt: int              # decode steps taken (rows of gen_buf in use)
+    keep: int                 # the path returned
+    forwards: int             # decoder forwards
+
+
+def make_batch_tts_loop(cfg: ModelConfig, *, batch_size: int, x_pad: int,
+                        y_pad: int, gen_max: int, scfg: SamplingConfig):
+    """Best-of-N TTS: N sampling paths over one prompt, the one that stops
+    first returned.  The prompt is prefilled once for all N paths ([N, Sp,
+    D] through prefill_attention: the attention kernel at B = N from Sp >=
+    1024); each step runs decode_step_fast at B = N with the unfused FFN,
+    as the JAX loop does.  The state lives on the device, with one host
+    sync per step.
+
+    Returns decode(model, x_tokens [1, x_pad], x_len, y_prefix [1, K,
+    y_pad], prefix_len, mask_emb_idx [1, y_pad], generator) ->
+    BatchResult.
+    """
+    K = cfg.n_codebooks
+    B = batch_size
+    cap_mult = cfg.encodec_sr // 5
+    s_max = x_pad + y_pad + gen_max
+
+    @torch.inference_mode()
+    def decode(model: VoiceCraft, x_tokens, x_len: int, y_prefix,
+               prefix_len: int, mask_emb_idx,
+               generator: Optional[torch.Generator]) -> BatchResult:
+        dev, dtype = model.device, model.dtype
+        ltype = torch.long
+        _, logits, cache = prefill_prompt(model, x_tokens, x_len, y_prefix,
+                                          prefix_len, mask_emb_idx, s_max,
+                                          batch=B)
+        scalar = lambda v: torch.tensor(v, dtype=ltype, device=dev)
+        x_len_t = scalar(x_len)
+        pos = scalar(x_pad + prefix_len)
+        y_pos = scalar(prefix_len)
+        gen_buf = torch.zeros((gen_max, B, K), dtype=ltype, device=dev)
+        codebook_eog = torch.zeros((K,), dtype=torch.bool, device=dev)
+        cur_num_gen = scalar(0)
+        consec = torch.zeros((B,), dtype=ltype, device=dev)
+        prev = torch.full((B,), -1, dtype=ltype, device=dev)
+        keep = scalar(-1)
+        alpha = model.alpha_audio.to(dtype)
+        n = 0
+        while True:
+            samples, codebook_eog, consec, prev, keep = _batch_adjust_and_sample(
+                cfg, scfg, cap_mult, generator, logits, codebook_eog,
+                cur_num_gen, consec, prev, y_pos, x_len_t, keep)
+            gen_buf[n] = samples
+            emb = embed_audio_tokens(model.audio_emb, samples[:, :, None])
+            pe = model.pe.index_select(0, y_pos.view(1)).to(dtype)
+            x_t = (emb[:, 0].to(dtype) + alpha * pe)[:, None]       # [N,1,D]
+            h, cache = trm.decode_step_fast(model.decoder, x_t, cache, pos,
+                                            x_len=x_len_t, x_pad=x_pad)
+            logits = apply_heads(model.heads, h[:, 0])
+            pos += 1
+            y_pos += 1
+            cur_num_gen += 1
+            n += 1
+            if codebook_eog.all().item() or n >= gen_max:
+                break
+        return BatchResult(gen_buf, n, int(keep.clamp(min=0)), n)
 
     return decode

@@ -8,12 +8,14 @@ ctypes.  The build happens at first use, into
 an unchanged one reuses its library.  Nothing here runs at import time.
 
 Each wrapper that launches a kernel adds one to its entry of ``LAUNCHES``
-right after the launch succeeds, and nowhere else, so a run can show which
-kernels its main path went through.
+(and, for a kernel with several routes, of ``ROUTE_LAUNCHES``) right after
+the launch succeeds, and nowhere else, so a run can show which kernels its
+main path went through.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -32,7 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # dtype codes of the C interface (csrc/common.cuh vc::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 
+DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float8_e4m3fn: "fp8"}
+
 LAUNCHES = {"flash_prefix_attention": 0, "fused_ffn": 0}
+# the same launches by route, "<kernel>/<weight dtype>" ("sm90/fp8", ...)
+ROUTE_LAUNCHES = collections.Counter()
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -40,6 +47,15 @@ _lib: Optional[ctypes.CDLL] = None
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ROUTE_LAUNCHES.clear()
+
+
+def count_launch(name: str, route: Optional[str] = None) -> None:
+    """One launch of kernel ``name`` (and of ``route``, when the kernel has
+    several), counted right after it succeeded."""
+    LAUNCHES[name] += 1
+    if route is not None:
+        ROUTE_LAUNCHES[f"{name}:{route}"] += 1
 
 
 def _nvcc() -> str:

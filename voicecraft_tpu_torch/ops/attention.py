@@ -102,3 +102,37 @@ def decode_attention_self(q: torch.Tensor, k_cache: torch.Tensor,
     out = (matmul_f32(probs[..., :-1], v_cache.permute(0, 2, 1, 3))
            + probs[..., -1:].float() * v_new.transpose(1, 2).float())
     return out.to(v_cache.dtype).transpose(1, 2).reshape(B, 1, H * Dh)
+
+
+def decode_attention_self_block(q: torch.Tensor, k_cache: torch.Tensor,
+                                v_cache: torch.Tensor, kv_len: torch.Tensor,
+                                k_new: torch.Tensor, v_new: torch.Tensor,
+                                nhead: int, x_len: Optional[torch.Tensor] = None,
+                                x_pad: Optional[int] = None) -> torch.Tensor:
+    """The block form of :func:`decode_attention_self` for speculative
+    decoding: T queries attend the read-only slab [0, kv_len) (minus text
+    padding [x_len, x_pad)) plus the block itself, causally.  Slab entries
+    at kv_len or beyond (a rejected draft's, from an earlier pass) are
+    masked, which is what makes rewinding the write pointer sound.
+
+    q: [B, T, D]; k_cache/v_cache: [B, S_max, H, Dh]; k_new/v_new:
+    [B, T, H, Dh]; kv_len / x_len: 0-d integer tensors.
+    """
+    B, S_max, H, Dh = k_cache.shape
+    T = k_new.shape[1]
+    scale = 1.0 / math.sqrt(Dh)
+    qh = q.reshape(B, T, H, Dh).transpose(1, 2)                     # [B,H,T,Dh]
+    logits = matmul_f32(qh, k_cache.permute(0, 2, 3, 1)) * scale    # [B,H,T,S]
+    j = torch.arange(S_max, device=q.device)
+    mask = j < kv_len
+    if x_pad is not None:
+        mask = mask & ((j < x_len) | (j >= x_pad))
+    logits = logits.masked_fill(~mask, NEG_INF)
+    logit_blk = matmul_f32(qh, k_new.permute(0, 2, 3, 1)) * scale   # [B,H,T,T]
+    t = torch.arange(T, device=q.device)
+    logit_blk = logit_blk.masked_fill(t[None, :] > t[:, None], NEG_INF)
+    probs = torch.softmax(torch.cat([logits, logit_blk], dim=-1),
+                          dim=-1).to(v_cache.dtype)
+    out = (matmul_f32(probs[..., :S_max], v_cache.permute(0, 2, 1, 3))
+           + matmul_f32(probs[..., S_max:], v_new.transpose(1, 2)))
+    return out.to(v_cache.dtype).transpose(1, 2).reshape(B, T, H * Dh)

@@ -83,7 +83,7 @@ def flash_prefix_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         y_lens.data_ptr(), out.data_ptr(), B, S, nhead, Dh, x_pad,
         1.0 / math.sqrt(Dh), _native.DTYPE_CODES[q.dtype], _native.stream(q))
     _native.check(err, name)
-    _native.LAUNCHES[name] += 1
+    _native.count_launch(name)
     return out
 
 
@@ -96,7 +96,10 @@ def prefill_attention(x_lens: torch.Tensor, y_lens: torch.Tensor, x_pad: int,
     the lengths live on CUDA and seq_len >= FLASH_PREFILL_MIN_LEN; dense
     ``mha`` under the segment bias otherwise."""
     if x_lens.device.type == "cuda" and seq_len >= FLASH_PREFILL_MIN_LEN:
-        return lambda q, k, v: flash_prefix_attention(q, k, v, x_lens, y_lens,
-                                                      x_pad, nhead)
+        # q/k/v split from a packed qkv product are strided views; the
+        # kernel reads contiguous tensors
+        return lambda q, k, v: flash_prefix_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), x_lens, y_lens,
+            x_pad, nhead)
     bias = segment_padding_bias(seq_len, x_pad, x_lens, y_lens)
     return lambda q, k, v: mha(q, k, v, bias, nhead)

@@ -8,8 +8,8 @@ launches one kernel, chosen by ``ffn_route``: bf16 x (the card's path) the
 Hopper kernel of csrc/fused_ffn_sm90.cu, f32 x (the checks) the simple
 kernel of csrc/fused_ffn.cu; anything else raises.  There is no fallback
 between any of them.  Weights are [in, out] matrices in x's dtype, or
-``{'q': float8_e4m3fn [in, out], 'scale': [out] or [1, out]}`` dicts with
-per-output-channel scales (the layout of voicecraft_tpu/utils/quantize.py).
+``{'q': float8_e4m3fn [in, out], 'scale': [out] or [1, out]}`` dicts or
+utils/quantize.py:FP8Weight modules with per-output-channel scales.
 """
 
 from __future__ import annotations
@@ -66,9 +66,11 @@ def ffn_sm90_tiles(F: int) -> list:
 
 
 def _split(w: Weight) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    if isinstance(w, torch.Tensor):
+        return w, None
     if isinstance(w, dict):
         return w["q"], w["scale"].reshape(-1)
-    return w, None
+    return w.q, w.scale.reshape(-1)       # utils/quantize.py:FP8Weight
 
 
 def fused_ffn_plain(x: torch.Tensor, w1: Weight, b1: torch.Tensor,
@@ -152,5 +154,5 @@ def fused_ffn(x: torch.Tensor, w1: Weight, b1: torch.Tensor, w2: Weight,
         grid, _native.DTYPE_CODES[x.dtype], _native.DTYPE_CODES[w1q.dtype],
         None if trace is None else trace.data_ptr(), _native.stream(x))
     _native.check(err, name)
-    _native.LAUNCHES[name] += 1
+    _native.count_launch(name, f"{route}/{_native.DTYPE_NAMES[w1q.dtype]}")
     return out

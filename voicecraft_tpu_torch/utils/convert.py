@@ -42,16 +42,42 @@ def _ffn_lin1(ffn: dict) -> dict:
     return next(v for k, v in ffn.items() if k.startswith("lin1"))
 
 
+def _matrix(st: State, key: str, w) -> None:
+    """A weight matrix into the state: plain, or a weight-only fp8 dict
+    (utils/quantize.py) as ``key.q`` / ``key.scale``, bit for bit."""
+    if isinstance(w, dict):
+        st[key + ".q"] = to_torch(w["q"])
+        st[key + ".scale"] = to_torch(w["scale"])
+    else:
+        st[key] = to_torch(w)
+
+
+def _heads(st: State, prefix: str, heads: dict) -> None:
+    for name in ("w1", "w2"):
+        _matrix(st, f"{prefix}.{name}", heads[name])
+    for name in ("b1", "b2"):
+        st[f"{prefix}.{name}"] = to_torch(heads[name])
+
+
+def _unstack(st: State, n: int, sub: State) -> State:
+    """Entries stacked along a leading axis of n -> one entry per index,
+    ``{prefix}.{i}.{rest}``; sub maps (prefix, rest) keys."""
+    for (prefix, rest), v in sub.items():
+        for i in range(n):
+            st[f"{prefix}.{i}.{rest}"] = v[i]
+    return st
+
+
 def from_jax_params(tree: dict, cfg: ModelConfig) -> State:
     """The JAX package's ``init_params``-style pytree (arrays or numpy) ->
-    the port's VoiceCraft state."""
+    the port's VoiceCraft state.  Weight-only fp8 trees of
+    ``quantize_decoder_fp8`` (packed qkv or not) carry across bit for bit:
+    load them into a model of the same layout
+    (``utils.quantize.quantize_decoder_fp8(model, pack_qkv)``).  The MTP
+    heads [n_mtp, K, ...] become ``mtp_heads.{j}``."""
     t = to_torch
     lay = tree["decoder"]["layers"]
     attn, ffn = lay["attn"], lay["ffn"]
-    if any(isinstance(w, dict) for w in (attn["wq"], attn["out"]["w"],
-                                         ffn["lin2"]["w"])):
-        raise NotImplementedError("fp8-quantized parameter trees are not yet "
-                                  "ported")
     lin1 = _ffn_lin1(ffn)
     st: State = {
         "text_emb": t(tree["text_emb"]["weight"]),
@@ -62,21 +88,27 @@ def from_jax_params(tree: dict, cfg: ModelConfig) -> State:
         "decoder.final_ln_g": t(tree["decoder"]["final_ln"]["g"]),
         "decoder.final_ln_b": t(tree["decoder"]["final_ln"]["b"]),
     }
-    for name in ("w1", "b1", "w2", "b2"):
-        st[f"heads.{name}"] = t(tree["heads"][name])
+    _heads(st, "heads", tree["heads"])
+    stacked: State = {}
     per_layer = {
         "ln1_g": lay["ln1"]["g"], "ln1_b": lay["ln1"]["b"],
-        "wq": attn["wq"], "wk": attn["wk"], "wv": attn["wv"],
-        "bq": attn["bq"], "bk": attn["bk"], "bv": attn["bv"],
         "wo": attn["out"]["w"], "bo": attn["out"]["b"],
         "ln2_g": lay["ln2"]["g"], "ln2_b": lay["ln2"]["b"],
         "w1": lin1["w"], "b1": lin1["b"],
         "w2": ffn["lin2"]["w"], "b2": ffn["lin2"]["b"],
     }
-    for name, stacked in per_layer.items():
-        stacked = t(stacked)
-        for i in range(cfg.num_decoder_layers):
-            st[f"decoder.layers.{i}.{name}"] = stacked[i]
+    qkv = ("wqkv", "bqkv") if "wqkv" in attn else ("wq", "wk", "wv",
+                                                   "bq", "bk", "bv")
+    per_layer.update({name: attn[name] for name in qkv})
+    for name, w in per_layer.items():
+        _matrix(stacked, name, w)
+    _unstack(st, cfg.num_decoder_layers,
+             {("decoder.layers", k): v for k, v in stacked.items()})
+    if "mtp_heads" in tree:
+        mtp: State = {}
+        _heads(mtp, "h", tree["mtp_heads"])
+        n = next(iter(mtp.values())).shape[0]
+        _unstack(st, n, {("mtp_heads", k[2:]): v for k, v in mtp.items()})
     return st
 
 
