@@ -9,10 +9,14 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build    the CUDA kernels from voicecraft_tpu_torch/csrc (nvcc, sm_90a)
   3. kernels  the bf16 rounding points of mha, decode_attention_self,
               apply_heads and the fp8 _proj / apply_heads on the card against
-              the same functions on CPU copies of the inputs; each kernel
+              the same functions on CPU copies of the inputs; the codec on
+              the card under PyTorch's default TF32 flags (the CLIs') against
+              the CPU, codes exactly; the bf16 _proj per element against the
+              f32 product rounded once, at the decode step's and serving's
+              shapes; each kernel
               against its plain PyTorch version on the card, at the main
-              paths' shapes (the attention kernel at B=1 and, for best-of-N,
-              B=4; the FFN on the layers of a giga830M-width stack and on
+              paths' shapes (the attention kernel at B=1, for best-of-N B=4,
+              and for serving B=8 with distinct per-lane lengths; the FFN on the layers of a giga830M-width stack and on
               quantize_decoder_fp8's output of them) and at edge shapes,
               against a stated tolerance; the fused FFN's bf16 calls repeated
               and replayed from a CUDA graph bit for bit; kernel, plain and
@@ -60,6 +64,31 @@ Phases, in order; any failure raises and the script exits non-zero:
               request (d) with tau=4 and the eog bias raised: every span
               ends non-empty, kept frames verbatim.  Each path's launch
               counts are set to 0 just before it and read just after.
+  7. serving  the same model and codec through inference/serving.py, each
+              wave's launch counts set to 0 just before it and read just
+              after (the attention kernel L times per prefill from 1024
+              columns, never in a step; no FFN kernel): (j) 8 distinct TTS
+              requests (prompts of 2-17 s cut from demo.wav, per-lane seeds),
+              prefilled through the attention kernel at B=8, sampled and
+              greedy, three greedy lanes against their own single-stream
+              decode under the tie-aware rule, device operations and device
+              ms per step at B=1 and B=8 (torch.profiler over 16 steps of a
+              short wave, the prefill outside the window); (k) bench.py's serving geometry, 32
+              lanes of the fp8 decoder with the fp8 KV slab and with a bf16
+              slab: slab bytes, frames/s, device ms per step, peak
+              allocation, the fp8 slab's logits against the bf16 slab's over
+              16 teacher-forced steps; (l) 4 distinct edit requests of 1-3
+              spans with the eog bias raised, greedy and sampled: greedy
+              lanes end every span non-empty, sampled lanes end or reach the
+              budget, kept frames verbatim everywhere, and the greedy wave's
+              own rows, two lanes against their single-stream edit under
+              ties; (m) speculative serving
+              with 3 random MTP head groups, tau 4: the 8 TTS lanes greedy
+              against (j)'s under ties, force_accept at 4 tokens a pass a
+              lane, and the 4 edit lanes; (n) bench_mode at bench.py's
+              single-stream geometry, bf16 and fp8 with the fp8 slab (frames/s
+              best of 3), and the speculative loop (one run): exactly gen_max
+              rows each.
 
 The last three lines are the card (as nvidia-smi reports it), one JSON
 object with each kernel's result, and {"ok": true, "device": {...}}.
@@ -71,6 +100,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -150,9 +180,37 @@ TOL_LOGITS = 0.05
 # test_quantize.py), and the logits, through 16 layers and the heads, within
 # 10% is the bound here
 FP8_REL_TOL = 0.10
+# the codec's wav from one set of codes, card vs CPU: both decode in f32
+# (no TF32), so the difference is summation order through ~30 conv layers
+# and an LSTM, far under 1e-3 of a signal of amplitude ~1
+CODEC_WAV_TOL = 1e-3
 N_BEST = 4                           # best-of-N paths (phase 6 (f))
 N_MTP = 3                            # MTP head groups (phase 6 (h), (i))
 TAU = 4                              # tokens per speculative pass
+# phase 7 (j): 8 lanes, prompts cut from demo.wav tiled to 17.28 s, each
+# lane's text (words of PROMPT and TARGET) ~10 phones a second of prompt,
+# so that its length cap lies past the prompt; the wave's pads: Sp 1024,
+# through the attention kernel at B=8
+SERVE_SECONDS = (2.0, 3.2, 4.32, 6.0, 8.5, 11.0, 14.0, 17.28)
+SERVE_PADS = (128, 896, GEN_MAX)     # x_pad, y_pad, gen_max
+SERVE_SEEDS = tuple(range(11, 19))
+SERVE_COMPARED = (0, 4, 7)           # greedy lanes held against one stream
+PROFILE_STEPS = 16                   # serving steps in a profiled window
+# phase 7 (k): bench.py's serving geometry (bench.py:663-688) and (n) its
+# single-stream one (bench.py:190-209)
+BENCH_LANES, BENCH_X_PAD, BENCH_Y_PAD, BENCH_PROMPT = 32, 128, 192, 150
+BENCH_PHONES, BENCH_FRAMES = 120, 500
+# the fp8 KV slab against a bf16 slab, logits relative in norm, 16 teacher-
+# forced steps of the fp8 decoder: e4m3 keeps 3 mantissa bits, so each k/v
+# is off by up to 2^-4 of itself (~1.8% rms), as each fp8 weight is; the
+# attention averages those errors over hundreds of keys and the logits carry
+# them through 16 layers, so the fp8 weights' bound (FP8_REL_TOL) holds here
+KV_FP8_REL_TOL = 0.10
+# phase 7 (l): 4 edit lanes, the recordings of (d) and (e) and two more
+EDIT_SERVE = (("d", [(200, 240), (520, 570), (860, 900)]),
+              ("e", [(40, 70), (130, 160)]),
+              ("d", [(300, 360)]),
+              ("dd", [(60, 100), (300, 330)]))
 
 
 def log(msg: str) -> None:
@@ -263,18 +321,21 @@ def check_ulps(name: str, got, want, limit: float) -> float:
 
 # ---- phase 3 -----------------------------------------------------------------
 
-def repair_phase():
+def repair_phase(tf32_defaults):
     """The port's bf16 rounding points on the card (cuBLAS with f32 output)
     against the same functions on CPU copies of the inputs, at giga830M
-    width: f32 logits, probs cast to bf16, one rounding after p@v."""
+    width: f32 logits, probs cast to bf16, one rounding after p@v; then the
+    codec under the CLIs' TF32 flags and the bf16 _proj (codec_check,
+    proj_check)."""
     import copy
     import types
     import torch
     from voicecraft_tpu_torch.models.transformer import _proj
     from voicecraft_tpu_torch.models.voicecraft import Heads, apply_heads
     from voicecraft_tpu_torch.utils.quantize import _quantize_matrix
-    from voicecraft_tpu_torch.ops.attention import (decode_attention_self, mha,
-                                                    segment_padding_bias)
+    from voicecraft_tpu_torch.ops.attention import (
+        decode_attention_multi, decode_attention_multi_block,
+        decode_attention_self, mha, segment_padding_bias)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     bf = torch.bfloat16
 
@@ -322,6 +383,40 @@ def repair_phase():
             f"a {slab}-byte K slab")
         if extra >= slab:
             raise AssertionError("decode_attention_self copied the KV slab")
+    # lockstep serving's slab products at B > 1 (ops/attention.py:
+    # slab_scores / slab_pv, one product over the lanes with block-diagonal
+    # queries), per-lane lengths at phase 7 (j)'s geometry
+    B8, (sx, sy, sg) = 8, SERVE_PADS
+    S_max, y_start = sx + sy + sg, sx + sy
+    xls = torch.tensor([18, 28, 37, 47, 66, 82, 103, 128], device="cuda")
+    pls = torch.tensor([101, 161, 217, 301, 426, 551, 701, 896], device="cuda")
+    gls = torch.tensor([0, 3, 17, 40, 77, 101, 150, 252], device="cuda")
+    for T in (1, TAU):
+        args = (randn(B8, T, D), randn(B8, S_max, H, D // H),
+                randn(B8, S_max, H, D // H), randn(B8, T, H, D // H),
+                randn(B8, T, H, D // H))
+        if T == 1:
+            name = "decode_attention_multi"
+            attn = lambda q, kc, vc, kn, vn: decode_attention_multi(
+                q, kc, vc, torch.tensor(y_start + 100, device=q.device), kn,
+                vn, H, xls.to(q.device), sx, pls.to(q.device), y_start)
+        else:
+            name = "decode_attention_multi_block"
+            attn = lambda q, kc, vc, kn, vn: decode_attention_multi_block(
+                q, kc, vc, gls.to(q.device), kn, vn, H, xls.to(q.device), sx,
+                pls.to(q.device), y_start)
+        compare(f"{name} B={B8} T={T} slab {S_max}", attn, *args)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        attn(*args)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        slab = args[1].numel() * args[1].element_size()
+        log(f"  {name} allocates {extra} bytes at peak beside a {slab}-byte "
+            f"K slab")
+        if extra >= slab:
+            raise AssertionError(f"{name} copied the KV slab")
     heads = Heads(4, D, 1024, 2052, bf, "cuda")
     heads.init_weights(torch.Generator(device="cuda").manual_seed(SEED + 3))
     compare("apply_heads D=2048 N=4", lambda hd, h: apply_heads(hd, h),
@@ -340,9 +435,88 @@ def repair_phase():
     w = _quantize_matrix(randn(D, 3 * D, std=D ** -0.5))
     compare("_proj fp8 [4, 2048] x [2048, 6144]", _proj, randn(4, D, std=1.0),
             w, randn(3 * D, std=0.02), ulps=2)
+    codec_check(tf32_defaults)
+    proj_check()
 
 
-def flash_phase(geom_long):
+@contextlib.contextmanager
+def tf32_flags(cudnn: bool, matmul: bool):
+    """torch.backends' TF32 flags set inside the block, restored after."""
+    import torch
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def codec_check(tf32_defaults):
+    """The 16 kHz codec (random weights from SEED) on the card under the
+    TF32 flags the CLIs run with (PyTorch's defaults, tf32_defaults), and on
+    the CPU: demo.wav's codes compared exactly, and the wav decoded from the
+    CPU's codes within CODEC_WAV_TOL on both."""
+    from voicecraft_tpu_torch import PRESETS
+    from voicecraft_tpu_torch.inference.loader import load_codec
+    from voicecraft_tpu_torch.models import encodec as ec
+    from voicecraft_tpu_torch.utils import audio as au
+    card = PRESETS["giga830M"]().audio_vocab_size
+    ccfg, codec = load_codec(None, random_init=True, seed=SEED, device="cuda",
+                             codebook_size=card)
+    cpu = ec.Encodec(ccfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in codec.state_dict().items()})
+    demo = au.load_audio(str(REPO / "demo" / "demo.wav"), 16000)
+    want = ec.encode_bucketed(cpu, demo)
+    with tf32_flags(*tf32_defaults):
+        got = ec.encode_bucketed(codec, demo)
+        wav = ec.decode_bucketed(codec, want)
+    n_diff = int((got != want).sum())
+    err = float(np.abs(wav - ec.decode_bucketed(cpu, want)).max())
+    log(f"codec on the card under the CLIs' TF32 flags (cudnn "
+        f"{tf32_defaults[0]}, matmul {tf32_defaults[1]}) vs the CPU, "
+        f"demo.wav ({want.shape[-1]} frames x {want.shape[1]} codebooks): "
+        f"{n_diff} of {want.size} codes differ (must be 0); decoded wav max "
+        f"abs err {err:.3e} (tolerance {CODEC_WAV_TOL:g})")
+    if n_diff or not err <= CODEC_WAV_TOL:
+        raise AssertionError(f"codec card vs CPU: {n_diff} codes differ, wav "
+                             f"err {err}")
+
+
+def proj_check():
+    """The bf16 _proj on the card per element against the f32 product
+    rounded once to bf16 (JAX's _proj), at the decode step's and serving's
+    shapes, zero bias: at most 1 bf16 ulp of the output's largest
+    magnitude (one flipped rounding)."""
+    import torch
+    from voicecraft_tpu_torch.models.transformer import _proj
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    bf = torch.bfloat16
+    log("bf16 _proj on the card vs the f32 product rounded once "
+        f"(allow_bf16_reduced_precision_reduction "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}):")
+    for m, k, n in ((1, 2048, 2048), (1, 2048, 8192), (1, 8192, 2048),
+                    (32, 2048, 2048), (32, 2048, 8192), (32, 8192, 2048)):
+        x = torch.randn((m, k), generator=gen, device="cuda").to(bf)
+        w = ((torch.rand((k, n), generator=gen, device="cuda") * 2 - 1)
+             * k ** -0.5).to(bf)
+        b = torch.zeros((n,), dtype=bf, device="cuda")
+        got = _proj(x, w, b).float()
+        want = (x.float() @ w.float()).to(bf).float()
+        ulp = bf16_ulp(want.abs().max()).item()
+        diff = (got - want).abs()
+        log(f"  x [{m}, {k}] @ [{k}, {n}]: max abs err {diff.max().item():.3e}"
+            f" = {diff.max().item() / ulp:.2f} ulps of max |out| "
+            f"{want.abs().max().item():.3f}; elements off: "
+            f"{int((diff > 0).sum())} of {diff.numel()} (tolerance 1 ulp)")
+        if not diff.max().item() <= ulp:
+            raise AssertionError(f"_proj [{m}, {k}] x [{k}, {n}]: "
+                                 f"{diff.max().item() / ulp} ulps")
+
+
+def flash_phase(geom_long, geom_serve):
     import torch
     import torch.nn.functional as fnn
     from voicecraft_tpu_torch.ops.attention import mha, segment_padding_bias
@@ -430,6 +604,23 @@ def flash_phase(geom_long):
                              [x_len] * N_BEST, [y_len] * N_BEST, torch.bfloat16)
     cases = [dict(case=name, max_abs_err=err4,
                   **timings(args4, BF16_FLOP_PER_S, 2))]
+    # serving's prefill (phase 7 (j)): 8 lanes, each with its own text and
+    # prompt lengths; the longest prompt set to fill y_pad, the shortest
+    # ending inside the first key tile of the prompt segment
+    sx_pad, sy_pad, sx_lens, sy_lens = geom_serve
+    sy_lens = list(sy_lens)
+    sy_lens[sy_lens.index(max(sy_lens))] = sy_pad
+    first_tile_end = (sx_pad // bq + 1) * bq
+    if not sx_pad + min(sy_lens) < first_tile_end:
+        raise AssertionError(f"the shortest lane's prompt ends at "
+                             f"{sx_pad + min(sy_lens)}, past the first key "
+                             f"tile of the prompt (ends {first_tile_end})")
+    name = (f"bf16 B={len(sx_lens)} S={sx_pad + sy_pad} D=2048 H=16 (serving "
+            f"prefill, x_lens {sx_lens}, y_lens {sy_lens})")
+    err8, args8, _, _ = case(name, len(sx_lens), sx_pad + sy_pad, 2048, 16,
+                             sx_pad, sx_lens, sy_lens, torch.bfloat16)
+    cases.append(dict(case=name, max_abs_err=err8,
+                      **timings(args8, BF16_FLOP_PER_S, 2)))
     # edge shapes: B=2 with different lens, S off every tile size, x_pad off
     # the tile grid, every head dim, and a text padding wide enough that
     # whole key tiles in it are skipped (one row with no text at all)
@@ -876,10 +1067,11 @@ class DrawRecorder:
     index maps to the logits it was finally drawn from."""
 
     def __enter__(self):
+        import voicecraft_tpu_torch.inference.serving as sv
         import voicecraft_tpu_torch.inference.spec_common as sc
         import voicecraft_tpu_torch.models.voicecraft as vc
         self.logits, self.passes = [], []
-        self._mods = (vc, sc)
+        self._mods = (vc, sc, sv)
         self._orig = (vc.sample, sc.spec_verify_pass)
         sample, spec_pass = self._orig
 
@@ -891,25 +1083,33 @@ class DrawRecorder:
             self.passes.append((kw["t"], len(self.logits), kw["tau"]))
             return spec_pass(*a, **kw)
 
-        vc.sample, sc.spec_verify_pass = recording_sample, recording_pass
+        vc.sample = recording_sample
+        sc.spec_verify_pass = sv.spec_verify_pass = recording_pass
         return self
 
     def __exit__(self, *exc):
-        (vc, sc), (sample, spec_pass) = self._mods, self._orig
-        vc.sample, sc.spec_verify_pass = sample, spec_pass
+        (vc, sc, sv), (sample, spec_pass) = self._mods, self._orig
+        vc.sample = sample
+        sc.spec_verify_pass = sv.spec_verify_pass = spec_pass
+
+    def lane(self, b):
+        """by_index of lane b (each draw [B, K, card]; a serving pass's t is
+        the lanes' token counts [B], a single stream's one int)."""
+        if not self.passes:
+            return [la[b] for la in self.logits]
+        out = {}
+        for t, first, tau in self.passes:
+            tb = t if isinstance(t, int) else int(t[b])
+            for i in range(tau):
+                out[tb + i] = self.logits[first + i][b]
+        return [out[k] for k in sorted(out)]
 
     def by_index(self):
         """The logits of each token index: the draws in order for a plain
         loop; for an exact-verification speculative loop (tau draws a pass,
-        the first at the pass's token index t) the last draw of each index,
-        which is the accepted one."""
-        if not self.passes:
-            return self.logits
-        out = {}
-        for t, first, tau in self.passes:
-            for i in range(tau):
-                out[t + i] = self.logits[first + i]
-        return [out[k] for k in sorted(out)]
+        the first at the pass's token index t, each draw [1, K, card]) the
+        last draw of each index, which is the accepted one."""
+        return self.lane(0) if self.passes else self.logits
 
 
 def same_under_ties(name, got, ref, got_la, ref_la):
@@ -921,8 +1121,11 @@ def same_under_ties(name, got, ref, got_la, ref_la):
     equal in length too."""
     import torch
     n = min(len(got), len(ref))
-    diff = (torch.stack(got_la[:n]) - torch.stack(ref_la[:n])).abs().amax(
-        dim=(1, 2)).cpu()
+    g, r = torch.stack(got_la[:n]), torch.stack(ref_la[:n])
+    if g.shape != r.shape:
+        raise AssertionError(f"{name}: draws {tuple(g.shape)} against "
+                             f"{tuple(r.shape)}")
+    diff = (g - r).abs().reshape(n, -1).amax(dim=1).cpu()
     for j in range(n):
         if not np.array_equal(got[j], ref[j]):
             top2 = ref_la[j].float().topk(2, dim=-1).values
@@ -953,6 +1156,53 @@ def device_ops(fn):
     n = sum(1 for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA)
     return out, n or None
+
+
+def step_profile(run, n):
+    """(device operations, device ms) per step of the serving wave that
+    run() decodes, from torch.profiler over n whole steps: the profiler
+    starts at the wave's second decode_step_multi and stops at its
+    (n + 2)-th, so the window holds n forwards, n sampler calls and their
+    bookkeeping, and not the prefill.  The wave must run n + 2 steps or
+    more.  Each step ends in a host sync, so the window's device time must
+    fit in its wall time.  (None, None) when the profiler saw no device
+    activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from voicecraft_tpu_torch.models import transformer as trm
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    step, calls, marks = trm.decode_step_multi, [0], []
+
+    def marked(*a, **kw):
+        calls[0] += 1
+        if calls[0] in (2, n + 2):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if len(marks) == 1:
+                prof.start()
+            else:
+                prof.stop()
+        return step(*a, **kw)
+
+    trm.decode_step_multi = marked
+    try:
+        run()
+    finally:
+        trm.decode_step_multi = step
+        if len(marks) == 1:
+            prof.stop()
+    if len(marks) < 2:
+        raise AssertionError(f"the profiled wave ended before {n + 2} steps")
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ev:
+        return None, None
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    window = (marks[1] - marks[0]) * 1e3
+    if busy > window:
+        raise AssertionError(f"the profiler's device ms {busy:.3f} exceed "
+                             f"the window's wall ms {window:.3f}")
+    return len(ev) / n, busy / n
 
 
 def step_costs(model, x, prefix, fused_ffn):
@@ -1256,6 +1506,419 @@ def paths_phase(model, codec, requests, edits, ccfg):
     del model.mtp_heads
     return out
 
+# ---- phase 7 -----------------------------------------------------------------
+
+def serving_texts():
+    """(j)'s lane texts: words of PROMPT and TARGET, lane b from word 3b on,
+    up to 22 phones for the 2 s prompt and 128 for the 17.28 s one (the
+    lanes' length caps, 10 frames a phone, lie past their prompts)."""
+    from voicecraft_tpu_torch.data.phonemes import make_text_tokenizer
+    tok = make_text_tokenizer("en-us", "grapheme")
+    words = (PROMPT + " " + TARGET).split()
+    lo, hi = SERVE_SECONDS[0], SERVE_SECONDS[-1]
+    texts = []
+    for b, sec in enumerate(SERVE_SECONDS):
+        want = round(22 + 106 * (sec - lo) / (hi - lo))
+        text, n = "", 0
+        while True:
+            cand = (text + " " + words[(3 * b + n) % len(words)]).strip()
+            if len(tok.phonemize(cand)) > want:
+                break
+            text, n = cand, n + 1
+        texts.append(text)
+    return texts
+
+
+def check_wav(name, codec, ccfg, codes):
+    """The codec's wav of codes [K, T]: finite, T hops long."""
+    from voicecraft_tpu_torch.models import encodec as ec
+    wav = ec.decode_bucketed(codec, codes[None])[0]
+    if not (wav.shape == (codes.shape[1] * ccfg.hop_length,)
+            and np.isfinite(wav).all()):
+        raise AssertionError(f"({name}): wav {wav.shape}, finite "
+                             f"{np.isfinite(wav).all()}")
+
+
+@contextlib.contextmanager
+def serving_results():
+    """Inside the block, the plain serving edit loops that serve_edit_batch
+    makes append each ServingResult (rows, span of each row) to the list
+    the block gets."""
+    from voicecraft_tpu_torch.inference import serving as sv
+    make, results = sv.make_serving_edit_loop, []
+
+    def keeping(*a, **kw):
+        loop = make(*a, **kw)
+
+        def run(*args):
+            results.append(loop(*args))
+            return results[-1]
+        return run
+
+    sv.make_serving_edit_loop = keeping
+    try:
+        yield results
+    finally:
+        sv.make_serving_edit_loop = make
+
+
+def edit_row_logits(draws, span_of, lane=None):
+    """The draw each recorded edit row came from: every step draws (a feed
+    step too, its draw thrown away), and each span transition feeds 2
+    steps, so row r of span j is step r + 2j's draw."""
+    pick = (lambda d: d) if lane is None else (lambda d: d[lane])
+    return [pick(draws[r + 2 * int(j)]) for r, j in enumerate(span_of)]
+
+
+def serving_phase(model, codec, ccfg, serve, edits):
+    """Phase 7: lockstep serving (inference/serving.py) at giga830M, each
+    wave with its launch counts set to 0 just before it and read just
+    after.  Returns the launch counts of each wave."""
+    import dataclasses
+    import torch
+    from voicecraft_tpu_torch.data.spans import (compose_edit_prefix,
+                                                 compose_tts_prefix)
+    from voicecraft_tpu_torch.inference import serving as sv
+    from voicecraft_tpu_torch.inference.tts import (decode_geometry, pad_inputs,
+                                                    run_decode)
+    from voicecraft_tpu_torch.models import encodec as ec
+    from voicecraft_tpu_torch.models import transformer as trm
+    from voicecraft_tpu_torch.models.voicecraft import (
+        SamplingConfig, apply_heads, init_mtp_heads, make_decode_loop,
+        make_spec_decode_loop, prefill_lanes)
+    from voicecraft_tpu_torch.ops import _native
+    from voicecraft_tpu_torch.utils.quantize import quantize_decoder_fp8
+    cfg = model.cfg
+    K, L, H, Dh = (cfg.n_codebooks, cfg.num_decoder_layers, cfg.nhead,
+                   cfg.head_dim)
+    f8 = "float8_e4m3fn"
+    sampled = SamplingConfig(top_k=40, top_p=1.0, temperature=1.0)
+    greedy = SamplingConfig(top_k=40, top_p=1.0, temperature=0.0)
+    bench_scfg = SamplingConfig(top_k=40, top_p=1.0, temperature=1.0,
+                                stop_repetition=3)
+    out = []
+
+    def counted(label, fn, sp):
+        """fn(), its wall s; the launch counts set to 0 just before and read
+        just after: the attention kernel L times when the prefill has 1024
+        columns or more, else never, and no FFN kernel."""
+        _native.reset_launch_counts()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(_native.LAUNCHES)
+        check_launches(label, launches, {
+            "flash_prefix_attention": L if sp >= 1024 else 0, "fused_ffn": 0})
+        out.append(launches)
+        return res, wall
+
+    def per_step(label, m, reqs, pads, seeds, scfg, kv=None):
+        """Device operations and device ms per step of the serving loop,
+        over PROFILE_STEPS steps of one short wave (step_profile)."""
+        g = PROFILE_STEPS + 2
+        _, a = sv.tts_wave_inputs(m, reqs, pads[:2] + (g,))
+        loop = sv.make_serving_tts_loop(
+            cfg, batch_size=len(reqs), x_pad=pads[0], y_pad=pads[1],
+            gen_max=g, scfg=scfg, kv_dtype=kv)
+        costs, _ = counted(f"{label} profile", lambda: step_profile(
+            lambda: loop(m, *a, seeds), PROFILE_STEPS), pads[0] + pads[1])
+        return costs
+
+    # ---- (j) TTS serving, 8 lanes ----
+    for r in serve:
+        r.codes = ec.encode_bucketed(codec, r.wav)[0]
+    reqs = [(r.x, r.codes) for r in serve]
+    B = len(reqs)
+    pads, args = sv.tts_wave_inputs(model, reqs, SERVE_PADS)
+    x_pad, y_pad, gen_max = pads
+    Sp = x_pad + y_pad
+    p_lens = [int(p) for p in args[3]]
+    log(f"[7 serving] (j) {B} lanes, prompts {list(SERVE_SECONDS)} s: prefix "
+        f"lengths {p_lens}, x_lens {[int(x) for x in args[1]]}, Sp {Sp}, "
+        f"gen_max {gen_max}, seeds {list(SERVE_SEEDS)}")
+    if p_lens != [r.prefix_len for r in serve]:
+        raise AssertionError(f"(j): prefix lengths {p_lens}, phase 3's B={B} "
+                             f"case took {[r.prefix_len for r in serve]}")
+    stats = {}
+    outs, wall = counted("j sampled", lambda: sv.serve_tts_batch(
+        model, reqs, sampled, pads=SERVE_PADS, seeds=SERVE_SEEDS,
+        stats=stats), Sp)
+    frames = sum(g.shape[1] for _, g in outs)
+    log(f"  (j) sampled: {stats['steps']} steps, lanes finished "
+        f"{stats['done']}, frames {[g.shape[1] for _, g in outs]}: "
+        f"{frames} frames in {wall:.3f} s = {frames / wall:.1f} frames/s "
+        f"aggregate ({stats['steps'] / wall:.1f} steps/s)")
+    if not (all(stats["done"]) or stats["steps"] == gen_max):
+        raise AssertionError("(j) sampled: a lane neither ended nor reached "
+                             "gen_max")
+    for b, (full, _) in enumerate(outs):
+        if not np.array_equal(full[:, :reqs[b][1].shape[1]], reqs[b][1]):
+            raise AssertionError(f"(j) lane {b}: prompt not kept")
+        check_wav(f"j lane {b}", codec, ccfg, full)
+    # greedy: the serving loop itself, its draws recorded for the tie rule
+    loop = sv.make_serving_tts_loop(cfg, batch_size=B, x_pad=x_pad,
+                                    y_pad=y_pad, gen_max=gen_max, scfg=greedy)
+    with DrawRecorder() as rec:
+        res_j, wall = counted("j greedy", lambda: loop(model, *args,
+                                                        SERVE_SEEDS), Sp)
+    log(f"  (j) greedy: {res_j.steps} steps, lanes finished {res_j.done}, "
+        f"rows {res_j.n_rows}: {sum(res_j.n_rows)} rows in {wall:.3f} s = "
+        f"{sum(res_j.n_rows) / wall:.1f} rows/s aggregate "
+        f"({res_j.steps / wall:.1f} steps/s)")
+    j_rows = [res_j.gen_buf[:n, b].cpu().numpy()
+              for b, n in enumerate(res_j.n_rows)]
+    j_la = [rec.lane(b) for b in range(B)]
+    for b in SERVE_COMPARED:
+        x, codes = reqs[b]
+        prefix = compose_tts_prefix(codes, cfg)
+        gx, gy, _ = decode_geometry(cfg, len(x), prefix.length, gen_max=gen_max)
+        with DrawRecorder() as rec1:
+            (ref, _), _ = counted(f"j lane {b} single stream", lambda: run_decode(
+                model, is_tts=True, x_tokens=x, prefix=prefix, n_spans=1,
+                scfg=greedy, seed=SEED, gen_max=gen_max, return_raw=True),
+                gx + gy)
+        same_under_ties(f"(j) lane {b} ({SERVE_SECONDS[b]} s) vs its own "
+                        f"single-stream decode", j_rows[b], ref, j_la[b],
+                        rec1.by_index())
+    for lanes in ([0], list(range(B))):
+        ops, ms = per_step(f"j B={len(lanes)}", model,
+                           [reqs[b] for b in lanes], SERVE_PADS,
+                           [SERVE_SEEDS[b] for b in lanes], sampled)
+        log(f"  (j) serving step at B={len(lanes)}, sampled: "
+            f"{'not measured' if ops is None else f'{ops:.1f}'} device "
+            f"operations and {'not measured' if ms is None else f'{ms:.4f}'} "
+            f"device ms per step (torch.profiler, {PROFILE_STEPS} steps)")
+
+    # ---- (k) bench.py's serving geometry: 32 lanes, fp8 weights ----
+    qmodel = quantize_decoder_fp8(model, pack_qkv=True)
+    rng = np.random.default_rng(SEED)
+    bench = [(rng.integers(0, cfg.text_vocab_size, BENCH_X_PAD),
+              rng.integers(0, cfg.audio_vocab_size, (K, BENCH_PROMPT)))
+             for _ in range(BENCH_LANES)]
+    kpads = (BENCH_X_PAD, BENCH_Y_PAD, GEN_MAX)
+    _, kargs = sv.tts_wave_inputs(qmodel, bench, kpads)
+    ksp = BENCH_X_PAD + BENCH_Y_PAD
+    zeros = [0] * BENCH_LANES
+    log(f"  (k) bench.py's serving geometry: {BENCH_LANES} lanes, x_pad "
+        f"{BENCH_X_PAD}, y_pad {BENCH_Y_PAD}, {BENCH_PROMPT}-frame random "
+        f"prompts, top-k 40, stop_repetition 3, gen_max {GEN_MAX}, "
+        f"quantize_decoder_fp8(pack_qkv=True)")
+    for kv in (f8, None):
+        elt = 1 if kv else 2
+        slab = L * 2 * BENCH_LANES * (ksp + GEN_MAX) * H * Dh * elt
+        loop = sv.make_serving_tts_loop(cfg, batch_size=BENCH_LANES,
+                                        x_pad=BENCH_X_PAD, y_pad=BENCH_Y_PAD,
+                                        gen_max=GEN_MAX, scfg=bench_scfg,
+                                        kv_dtype=kv)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res, wall = counted(f"k {kv or 'bf16'} slab", lambda: loop(
+            qmodel, *kargs, zeros), ksp)
+        peak = torch.cuda.max_memory_allocated() - base
+        frames = sum(res.n_rows)
+        ops, ms = per_step(f"k {kv or 'bf16'}", qmodel, bench, kpads, zeros,
+                           bench_scfg, kv)
+        log(f"  (k) {kv or 'bf16'} slab ({slab} bytes): {res.steps} steps, "
+            f"{frames} frames in {wall:.3f} s = {frames / wall:.1f} frames/s "
+            f"aggregate ({res.steps / wall:.1f} steps/s); "
+            f"{'not measured' if ms is None else f'{ms:.4f}'} device ms and "
+            f"{'not measured' if ops is None else f'{ops:.1f}'} device "
+            f"operations per step; peak allocation over the weights "
+            f"{peak} bytes")
+    log(f"  (k) the fp8 slab is upcast to bf16 per layer and step: "
+        f"{L * 2 * BENCH_LANES * (ksp + GEN_MAX) * H * Dh * 5} bytes of "
+        f"device traffic a step at full length (1 read + 2 written + 2 read "
+        f"per element) against the bf16 slab's "
+        f"{L * 2 * BENCH_LANES * (ksp + GEN_MAX) * H * Dh * 2}")
+    cols = token_columns(model, 16)
+    x_t, x_l, y_t, p_l = kargs
+    xl32 = torch.as_tensor(x_l, device="cuda").to(torch.int32)
+    pl32 = torch.as_tensor(p_l, device="cuda").to(torch.int32)
+    no_mask = torch.full((1, BENCH_Y_PAD), -1, device="cuda")
+    tf = {}
+    with torch.inference_mode():
+        for kv in (None, f8):
+            _, lg, cache = prefill_lanes(qmodel, x_t, xl32, y_t, pl32, no_mask,
+                                         ksp + len(cols), kv)
+            logits = [lg]
+            pos = torch.tensor(ksp, device="cuda")
+            for i, e in enumerate(cols):
+                y_pos = pl32.long() + i
+                feed = (e[None] + qmodel.alpha_audio.to(e.dtype)
+                        * qmodel.pe[y_pos].to(e.dtype))[:, None]
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                h, cache = trm.decode_step_multi(
+                    qmodel.decoder, feed, cache, pos, xl32, BENCH_X_PAD, pl32,
+                    ksp)
+                torch.cuda.synchronize()
+                extra = torch.cuda.max_memory_allocated() - base
+                logits.append(apply_heads(qmodel.heads, h[:, 0]))
+                pos += 1
+            layer = cache[0, 0].numel() * cache.element_size()
+            log(f"  (k) {kv or 'bf16'} slab: one decode_step_multi allocates "
+                f"{extra} bytes at peak beside a {layer}-byte K slab of one "
+                f"layer")
+            if kv is None and extra >= layer:
+                raise AssertionError("(k): the bf16 slab was copied")
+            tf[kv] = logits
+    rel = max(((a - b).norm() / b.norm()).item()
+              for a, b in zip(tf[f8], tf[None]))
+    log(f"  (k) fp8 slab vs bf16 slab, logits after prefill and 16 "
+        f"teacher-forced steps: relative (norm) at most {rel:.4f} "
+        f"(tolerance {KV_FP8_REL_TOL})")
+    if not rel <= KV_FP8_REL_TOL:
+        raise AssertionError(f"(k) fp8 slab vs bf16: {rel}")
+
+    # ---- (l) edit serving, 4 lanes ----
+    d, e = edits
+    dd_codes = ec.encode_bucketed(codec, np.tile(e.wav, (1, 2)))[0]
+    src = {"d": (d.x, d.codes), "e": (e.x, e.codes),
+           "dd": (d.x[:2 * len(e.x) + 1], dd_codes)}
+    lanes = [(*src[k], iv) for k, iv in EDIT_SERVE]
+    lpads0, _ = sv.edit_wave_inputs(model, lanes)
+    lpads = lpads0[:2] + (EDIT_GEN_MAX,)
+    lsp = lpads[0] + lpads[1]
+
+    def edit_wave(label, scfg, spec=0, gen_max=EDIT_GEN_MAX):
+        stats = {}
+        res, wall = counted(label, lambda: sv.serve_edit_batch(
+            model, lanes, scfg, seed=SEED, pads=lpads[:2] + (gen_max,),
+            spec=spec, stats=stats), lsp)
+        frames = stats["frames"]
+        log(f"  ({label}) {len(lanes)} edit lanes {[len(iv) for *_, iv in lanes]}"
+            f" spans, Sp {lsp}: {stats['steps']} "
+            f"{'passes' if spec else 'steps'}, lanes done {stats['done']}, "
+            f"span frames {stats['span_frames']}, {frames} rows in "
+            f"{wall:.3f} s = "
+            f"{frames / wall:.1f} rows/s aggregate")
+        for b, ((_, codes, iv), r, sf) in enumerate(zip(lanes, res,
+                                                         stats["span_frames"])):
+            masked = sum(hi - lo for lo, hi in iv)
+            # a greedy lane ends every span (plain: non-empty, as phase 5's;
+            # speculative lanes part from them at near-ties); a sampled lane
+            # may draw eog (biased up) at a span's first row, or stop at its
+            # budget (the wave runs until every lane is done or there)
+            if scfg.temperature <= 0 and not (stats["done"][b]
+                                              and (spec or min(sf) > 0)):
+                raise AssertionError(f"({label}) lane {b}: done "
+                                     f"{stats['done'][b]}, span frames {sf}")
+            if not (kept_frames_verbatim(r, codes, iv, sf) and r.shape == (
+                    K, codes.shape[1] - masked + sum(sf))):
+                raise AssertionError(f"({label}) lane {b}: bad result {r.shape}")
+            check_wav(f"{label} lane {b}", codec, ccfg, r)
+
+    with raised_eog_bias(model):
+        log(f"  (l) codebook 0's eog bias raised by {EOG_BIAS}")
+        with DrawRecorder() as rec, serving_results() as kept:
+            edit_wave("l greedy", greedy)
+        res_l, = kept
+        edit_wave("l sampled", sampled)
+        for b in (0, 1):
+            x, codes, iv = lanes[b]
+            n = res_l.n_rows[b]
+            rows = res_l.gen_buf[:n, b].cpu().numpy()
+            span_of = res_l.span_buf[:n, b].cpu().numpy()
+            prefix, qids = compose_edit_prefix(codes, iv, cfg)
+            gx, gy, _ = decode_geometry(cfg, len(x), prefix.length,
+                                        is_tts=False, n_spans=len(iv),
+                                        gen_max=EDIT_GEN_MAX)
+            with DrawRecorder() as rec1:
+                (ref, ref_span), _ = counted(
+                    f"l lane {b} single stream", lambda: run_decode(
+                        model, is_tts=False, x_tokens=x, prefix=prefix,
+                        n_spans=len(iv), scfg=greedy, queue_mask_ids=qids,
+                        seed=SEED, gen_max=EDIT_GEN_MAX, return_raw=True),
+                    gx + gy)
+            same_under_ties(f"(l) greedy lane {b} vs its own single-stream "
+                            f"edit", rows, ref,
+                            edit_row_logits(rec.logits, span_of, b),
+                            edit_row_logits(rec1.logits, ref_span))
+
+    # ---- (m) speculative serving ----
+    model.mtp_heads = init_mtp_heads(
+        dataclasses.replace(cfg, n_mtp=N_MTP),
+        torch.Generator(device="cuda").manual_seed(SEED + 4), "cuda")
+    log(f"  (m) {N_MTP} random MTP head groups, tau {TAU}")
+    loop = sv.make_spec_serving_loop(cfg, batch_size=B, n_draft=TAU,
+                                     x_pad=x_pad, y_pad=y_pad, gen_max=gen_max,
+                                     scfg=greedy)
+    with DrawRecorder() as rec:
+        res_m, wall = counted("m greedy", lambda: loop(model, *args,
+                                                        SERVE_SEEDS), Sp)
+    frames = sum(res_m.n_rows)
+    log(f"  (m) greedy: {res_m.steps} passes, rows {res_m.n_rows}, "
+        f"{frames / res_m.steps / B:.2f} tokens per pass per lane, {frames} "
+        f"rows in {wall:.3f} s = {frames / wall:.1f} rows/s aggregate")
+    for b in range(B):
+        same_under_ties(f"(m) speculative lane {b} vs (j) greedy lane {b}",
+                        res_m.gen_buf[:res_m.n_rows[b], b].cpu().numpy(),
+                        j_rows[b], rec.lane(b), j_la[b])
+    loop = sv.make_spec_serving_loop(cfg, batch_size=B, n_draft=TAU,
+                                     x_pad=x_pad, y_pad=y_pad, gen_max=gen_max,
+                                     scfg=greedy, bench_mode=True,
+                                     force_accept=True)
+    res, wall = counted("m force_accept", lambda: loop(model, *args,
+                                                        SERVE_SEEDS), Sp)
+    per = sum(res.n_rows) / res.steps / B
+    log(f"  (m) force_accept, bench_mode: {res.steps} passes, {per:.2f} "
+        f"tokens per pass per lane, {sum(res.n_rows)} rows in {wall:.3f} s = "
+        f"{sum(res.n_rows) / wall:.1f} rows/s aggregate")
+    if res.n_rows != [gen_max] * B or res.steps * TAU != gen_max:
+        raise AssertionError(f"(m) force_accept: rows {res.n_rows} in "
+                             f"{res.steps} passes, not {TAU} a pass a lane")
+    with raised_eog_bias(model):
+        edit_wave("m edit", greedy, spec=TAU, gen_max=SPEC_EDIT_GEN_MAX)
+
+    # ---- (n) bench_mode, bench.py's single-stream geometry ----
+    rng = np.random.default_rng(SEED + 1)
+    x = rng.integers(0, cfg.text_vocab_size, BENCH_PHONES)
+    prefix = compose_tts_prefix(
+        rng.integers(0, cfg.audio_vocab_size, (K, BENCH_PROMPT)), cfg)
+    nx, ny, _ = decode_geometry(cfg, len(x), prefix.length, gen_max=16)
+    xt, yt, mi, qm = pad_inputs(cfg, x, prefix, nx, ny, "cuda")
+    log(f"  (n) bench_mode at bench.py's geometry: {BENCH_PHONES} phones, "
+        f"{BENCH_PROMPT} prompt frames, {BENCH_FRAMES} frames, Sp {nx + ny}, "
+        f"fused FFN")
+    for label, m, kv in (("bf16", model, None), ("fp8, fp8 slab", qmodel, f8)):
+        loop = make_decode_loop(cfg, is_tts=True, x_pad=nx, y_pad=ny,
+                                gen_max=BENCH_FRAMES, scfg=bench_scfg,
+                                bench_mode=True, fused_ffn=True, kv_dtype=kv)
+        _native.reset_launch_counts()
+        times, forwards = [], 0
+        for i in range(3):
+            t0 = time.time()
+            res = loop(m, xt, len(x), yt, prefix.length, mi, qm, 1,
+                       torch.Generator(device="cuda").manual_seed(i))
+            times.append(time.time() - t0)
+            forwards += res.forwards
+            if res.gen_cnt != BENCH_FRAMES:
+                raise AssertionError(f"(n) {label}: {res.gen_cnt} rows, not "
+                                     f"{BENCH_FRAMES}")
+        launches = dict(_native.LAUNCHES)
+        check_launches(f"n {label}", launches, {
+            "flash_prefix_attention": 0, "fused_ffn": L * forwards})
+        out.append(launches)
+        log(f"  (n) {label}: {BENCH_FRAMES} rows each of 3 runs, best "
+            f"{min(times):.3f} s = {BENCH_FRAMES / min(times):.1f} frames/s")
+    # one run: with random MTP heads nearly every sampled draft is rejected,
+    # so it takes ~1 pass a row
+    loop = make_spec_decode_loop(cfg, x_pad=nx, y_pad=ny, gen_max=BENCH_FRAMES,
+                                 scfg=bench_scfg, n_draft=TAU, bench_mode=True)
+    res, wall = counted("n speculative", lambda: loop(
+        model, xt, len(x), yt, prefix.length, mi, SEED), nx + ny)
+    log(f"  (n) speculative, tau {TAU}, bench_mode: {res.gen_cnt} rows in "
+        f"{res.passes} passes, {wall:.3f} s = {res.gen_cnt / wall:.1f} "
+        f"frames/s (one run)")
+    if res.gen_cnt != BENCH_FRAMES:
+        raise AssertionError(f"(n) speculative: {res.gen_cnt} rows")
+    del model.mtp_heads, qmodel
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1278,6 +1941,9 @@ def main() -> None:
     card = card_line()
     log(f"[1 device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    # the CLIs run under PyTorch's defaults (phase 3 checks the codec there)
+    tf32_defaults = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1310,11 +1976,24 @@ def main() -> None:
                                       long_frames + 1, gen_max=GEN_MAX)
     if x_pad + y_pad < 1024:
         raise AssertionError(f"long prompt prefill {x_pad + y_pad} < 1024")
+    # phase 7 (j)'s lanes: prompts cut from demo.wav tiled, their texts
+    cfg0 = PRESETS["giga830M"]()
+    serve = []
+    for sec, text in zip(SERVE_SECONDS, serving_texts()):
+        wav = long_wav[:, :round(sec * 16000)]
+        serve.append(types.SimpleNamespace(
+            wav=wav, x=np.asarray(phones_to_ids(tok.phonemize(text), vocab),
+                                  np.int32),
+            prefix_len=compose_tts_prefix(np.zeros(
+                (cfg0.n_codebooks, -(-wav.shape[1] // 320)), np.int64),
+                cfg0).length))
 
     # ---- 3. kernels vs plain ----
     log("[3 kernels]")
-    repair_phase()
-    flash = flash_phase((len(requests[0].x), x_pad, long_frames + 1, y_pad))
+    repair_phase(tf32_defaults)
+    flash = flash_phase((len(requests[0].x), x_pad, long_frames + 1, y_pad),
+                        (SERVE_PADS[0], SERVE_PADS[1], [len(r.x) for r in serve],
+                         [r.prefix_len for r in serve]))
     ffn = ffn_phase()
 
     # ---- 4. the slice ----
@@ -1400,6 +2079,13 @@ def main() -> None:
         launches = {name: n + path_launches[name]
                     for name, n in launches.items()}
     log(f"[6 paths] done in {time.time() - t0:.1f} s")
+
+    # ---- 7. lockstep serving ----
+    t0 = time.time()
+    for wave_launches in serving_phase(model, codec, ccfg, serve, edits):
+        launches = {name: n + wave_launches[name]
+                    for name, n in launches.items()}
+    log(f"[7 serving] done in {time.time() - t0:.1f} s")
 
     kernels = [
         dict(name="flash_prefix_attention", route="cuda",

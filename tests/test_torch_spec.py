@@ -240,14 +240,119 @@ def test_check_mtp_heads_errors_and_warning(setup):
 
 
 def test_spec_loop_refuses_options_of_later_slices():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """The speculative loops take the options of their JAX counterparts and
+    no more: make_spec_decode_loop takes bench_mode and kv_dtype (refused
+    before they were ported); make_spec_edit_loop, like JAX's, takes
+    neither."""
+    for kw in (dict(bench_mode=True), dict(kv_dtype="float8_e4m3fn")):
         vc.make_spec_decode_loop(_cfg(), x_pad=32, y_pad=64, gen_max=128,
-                                 scfg=vc.SamplingConfig(), n_draft=4,
-                                 bench_mode=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        vc.make_spec_decode_loop(_cfg(), x_pad=32, y_pad=64, gen_max=128,
-                                 scfg=vc.SamplingConfig(), n_draft=4,
-                                 kv_dtype="float8_e4m3fn")
+                                 scfg=vc.SamplingConfig(), n_draft=4, **kw)
+        jvc.make_spec_decode_loop(_cfg(), x_pad=32, y_pad=64, gen_max=128,
+                                  scfg=jvc.SamplingConfig(), n_draft=4, **kw)
+        for make in (vc.make_spec_edit_loop, jvc.make_spec_edit_loop):
+            with pytest.raises(TypeError):
+                make(_cfg(), x_pad=32, y_pad=64, gen_max=128,
+                     scfg=vc.SamplingConfig(), n_draft=4, **kw)
+    for kv in ("int8", "float8_e5m2"):
+        with pytest.raises(ValueError, match="kv_dtype"):
+            vc.make_spec_decode_loop(_cfg(), x_pad=32, y_pad=64, gen_max=128,
+                                     scfg=vc.SamplingConfig(), n_draft=4,
+                                     kv_dtype=kv)(
+                vc.VoiceCraft(_cfg(), "cpu"), *_padded_prompt(), 0)
+
+
+def _padded_prompt():
+    """A tiny prompt padded to x_pad 32, y_pad 64: (xt, x_len, yt,
+    prefix_len, mi)."""
+    cfg = _cfg()
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, cfg.text_vocab_size, 10)
+    y = rng.integers(0, cfg.audio_vocab_size, (cfg.n_codebooks, 20))
+    prefix = spans.compose_tts_prefix(y, cfg)
+    xt, yt, mi, _ = tts.pad_inputs(cfg, x, prefix, 32, 64, "cpu")
+    return xt, len(x), yt, prefix.length, mi
+
+
+@pytest.mark.parametrize("spec", [0, 3])
+def test_bench_mode_records_exactly_gen_max_rows(setup, spec):
+    """bench_mode never stops: the plain and the speculative loop record
+    exactly gen_max rows, special codes mapped to 0 (bench.py asserts
+    the same count)."""
+    cfg, _, model, x, y = setup
+    gen_max = 40
+    scfg = vc.SamplingConfig(**SAMPLED)
+    _, plen, x_pad, y_pad, _, (xt, yt, mi) = tts._tts_prompt(model, x, y, None)
+    if spec:
+        loop = vc.make_spec_decode_loop(cfg, x_pad=x_pad, y_pad=y_pad,
+                                        gen_max=gen_max, scfg=scfg,
+                                        n_draft=spec, bench_mode=True)
+        res = loop(model, xt, len(x), yt, plen, mi, 0)
+    else:
+        loop = vc.make_decode_loop(cfg, is_tts=True, x_pad=x_pad, y_pad=y_pad,
+                                   gen_max=gen_max, scfg=scfg, bench_mode=True)
+        res = loop(model, xt, len(x), yt, plen, mi, torch.zeros(3), 1,
+                   torch.Generator().manual_seed(0))
+    assert res.gen_cnt == gen_max
+    rows = res.gen_buf[:gen_max]
+    assert (rows >= 0).all() and (rows < cfg.audio_vocab_size).all()
+
+
+def _jax_decode(params, cfg, x, y, jscfg, gen_max, **kw):
+    """The JAX package's plain TTS decode of (x, y): recorded rows."""
+    prefix = spans.compose_tts_prefix(y, cfg)
+    x_pad, y_pad, _ = tts.decode_geometry(cfg, len(x), prefix.length)
+    loop = jvc.make_decode_loop(cfg, is_tts=True, x_pad=x_pad, y_pad=y_pad,
+                                gen_max=gen_max, scfg=jscfg, **kw)
+    xt = np.full((1, x_pad), cfg.text_pad_token, np.int32)
+    xt[0, :len(x)] = x
+    yt = np.full((1, cfg.n_codebooks, y_pad), cfg.empty_token, np.int32)
+    yt[0, :, :prefix.length] = prefix.tokens
+    mi = np.full((1, y_pad), -1, np.int32)
+    gen_buf, _, gen_cnt, _ = loop(
+        params, jnp.asarray(xt), jnp.asarray(len(x), jnp.int32),
+        jnp.asarray(yt), jnp.asarray(prefix.length, jnp.int32),
+        jnp.asarray(mi), jnp.zeros((cfg.max_n_spans,), jnp.int32),
+        jnp.asarray(1, jnp.int32), jax.random.PRNGKey(0))
+    return np.asarray(gen_buf)[:int(gen_cnt)]
+
+
+def _port_decode(model, cfg, x, y, scfg, gen_max, **kw):
+    prefix = spans.compose_tts_prefix(y, cfg)
+    x_pad, y_pad, _ = tts.decode_geometry(cfg, len(x), prefix.length)
+    xt, yt, mi, qm = tts.pad_inputs(cfg, x, prefix, x_pad, y_pad, "cpu")
+    loop = vc.make_decode_loop(cfg, is_tts=True, x_pad=x_pad, y_pad=y_pad,
+                               gen_max=gen_max, scfg=scfg, **kw)
+    res = loop(model, xt, len(x), yt, prefix.length, mi, qm, 1, None)
+    return res.gen_buf[:res.gen_cnt].numpy()
+
+
+def test_bench_mode_matches_jax_special_code_mapping(setup, monkeypatch):
+    """Greedy bench_mode rows equal the JAX loop's (its special codes
+    mapped to 0, no stop), up to a near-tie of the recorded logits."""
+    cfg, params, model, x, y = setup
+    logits = recording_sample(monkeypatch)
+    got = _port_decode(model, cfg, x, y, vc.SamplingConfig(**GREEDY), 128,
+                       bench_mode=True)
+    monkeypatch.undo()
+    want = _jax_decode(params, cfg, x, y, jvc.SamplingConfig(**GREEDY), 128,
+                       bench_mode=True)
+    assert len(got) == len(want) == 128
+    assert_rows_tie_aware(got, want, logits)
+
+
+def test_plain_loop_fp8_slab_matches_jax_greedy(setup, monkeypatch):
+    """The single-stream loop with kv_dtype float8_e4m3fn against JAX's
+    with the same slab dtype, greedy, tie-aware; the prompt rows' slab is
+    quantised the same way (tests/test_torch_serving.py holds the bytes)."""
+    cfg, params, model, x, y = setup
+    logits = recording_sample(monkeypatch)
+    got = _port_decode(model, cfg, x, y, vc.SamplingConfig(**GREEDY), 128,
+                       kv_dtype="float8_e4m3fn")
+    monkeypatch.undo()
+    want = _jax_decode(params, cfg, x, y, jvc.SamplingConfig(**GREEDY), 128,
+                       kv_dtype="float8_e4m3fn")
+    assert len(got) > cfg.n_codebooks
+    assert_rows_tie_aware(got, want, logits)
 
 
 # ---- the verify core -----------------------------------------------------------

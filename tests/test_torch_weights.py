@@ -126,18 +126,20 @@ def test_port_imports_without_jax():
         "import voicecraft_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
-        "for n in names + ['tts_torch_cli', 'edit_torch_cli', 'chip_smoke']:\n"
+        "for n in names + ['tts_torch_cli', 'edit_torch_cli', 'chip_smoke',\n"
+        "                  'tts_batch_torch_cli', 'realedit_torch_cli']:\n"
         "    importlib.import_module(n)\n"
         "for n in ('models.voicecraft', 'inference.editing', 'align',\n"
         "          'utils.convert_encodec', 'utils.transcribe',\n"
-        "          'utils.quantize', 'inference.spec_common'):\n"
+        "          'utils.quantize', 'inference.spec_common',\n"
+        "          'inference.serving'):\n"
         "    assert 'voicecraft_tpu_torch.' + n in names, n\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 21
+    assert int(out.stdout.strip()) >= 22
 
 
 @pytest.mark.parametrize("banned", ["import jax", "from jax",
@@ -152,7 +154,8 @@ def test_port_source_has_no(banned):
     names the library attention once, as the yardstick it times
     (library_ms) beside the attention kernel."""
     files = [*PORT.rglob("*.py"), REPO / "tts_torch_cli.py",
-             REPO / "edit_torch_cli.py", REPO / "chip_smoke.py"]
+             REPO / "edit_torch_cli.py", REPO / "tts_batch_torch_cli.py",
+             REPO / "realedit_torch_cli.py", REPO / "chip_smoke.py"]
     hits = []
     for p in files:
         lines = [ln for ln in p.read_text().splitlines() if banned in ln]

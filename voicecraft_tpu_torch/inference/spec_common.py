@@ -3,80 +3,97 @@
 
 Every speculative decoder of the port (single-stream TTS,
 models.voicecraft.make_spec_decode_loop; multi-span editing,
-models.voicecraft.make_spec_edit_loop) runs the same pass: sample the true
+models.voicecraft.make_spec_edit_loop; lockstep serving,
+inference/serving.py) runs the same pass: sample the true
 next token per lane exactly as the plain loop would, draft tau - 1 more
 from the MTP heads, run ONE block forward, then accept per lane the prefix
 the plain loop would have emitted.  The loops own the plumbing (gating,
 caps, the slab, the span queue); this module owns the verify semantics.
 
-Randomness is keyed per token index: token index i's draws come from
-generators seeded from (seed, i, salt) alone (``token_generators``), never
-from tau or from what was accepted.  So exact-mode sampled output is the
-same for every tau, and a token rejected in one pass is redrawn with the
-same noise as the next pass's first token.
+Randomness is keyed per lane and token index: lane b's draws for token
+index i come from a generator seeded from (seed_b, b, i, salt) alone
+(``token_generators``), never from tau or from what was accepted.  So
+exact-mode sampled output is the same for every tau, a token rejected in
+one pass is redrawn with the same noise as the next pass's first token, a
+wave can mix seeds, and same-seed requests in different lanes draw
+independently (the JAX package keys lane b on fold_in(PRNGKey(seed_b), b)).
+Every other operation of the pass serves all lanes at once.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..config import ModelConfig
 from ..models.voicecraft import (SamplingConfig, _adjust_and_sample,
-                                 _adjust_logits, _finalize_sample,
+                                 _adjust_logits, _bench, _finalize_sample,
                                  apply_heads, embed_audio_tokens)
-from ..ops.sampling import sample, top_k_top_p_filter
+from ..ops.sampling import sample, top_k_top_p_filter, uniform
 
 # salts separating the stochastic verifier's draws at one token index
 SALT_DRAFT = 101
 SALT_VERIFY = 103
 
-TokenGenerators = Callable[[int, int], Optional[List[torch.Generator]]]
+TokenGenerators = Callable[[Union[int, Sequence[int]], int],
+                           Optional[List[torch.Generator]]]
 
 
-def index_generator(seed: int, index: int, salt: int,
-                    device) -> torch.Generator:
-    """A generator whose draws depend on (seed, token index, salt) only."""
-    hi, lo = np.random.SeedSequence([seed, index, salt]).generate_state(
-        2, np.uint32)
+def seeded_generator(entropy: Sequence[int], device) -> torch.Generator:
+    """A generator whose draws depend on the integers ``entropy`` only."""
+    hi, lo = np.random.SeedSequence(list(entropy)).generate_state(2, np.uint32)
     return torch.Generator(device=device).manual_seed(int(hi) << 32 | int(lo))
 
 
-def token_generators(scfg: SamplingConfig, seed: int, device,
-                     lanes: int = 1) -> TokenGenerators:
+def lane_seeds(seed: Union[int, Sequence[int]], lanes: int) -> List[int]:
+    """Per-lane seeds: one seed for every lane, or one per lane."""
+    if isinstance(seed, (int, np.integer)):
+        return [int(seed)] * lanes
+    seeds = [int(s) for s in seed]
+    if len(seeds) != lanes:
+        raise ValueError(f"{len(seeds)} seeds for {lanes} lanes")
+    return seeds
+
+
+def lane_generators(seed: Union[int, Sequence[int]], device,
+                    lanes: int) -> List[torch.Generator]:
+    """One sequential generator per lane, lane b keyed on (seed_b, b)."""
+    return [seeded_generator((s, b), device)
+            for b, s in enumerate(lane_seeds(seed, lanes))]
+
+
+def token_generators(scfg: SamplingConfig, seed: Union[int, Sequence[int]],
+                     device, lanes: int = 1) -> TokenGenerators:
     """gens(index, salt=0) -> one generator per lane for the draws of token
-    ``index`` (lane b of ``lanes`` keys on seed + b), or None when sampling
-    is greedy and draws nothing."""
+    ``index`` (an int, or one index per lane), lane b keyed on (seed_b, b,
+    index_b, salt); None when sampling is greedy and draws nothing.
+    ``seed``: one seed for every lane, or one per lane."""
     if scfg.temperature <= 0:
         return lambda index, salt=0: None
-    return lambda index, salt=0: [index_generator(seed + b, index, salt,
-                                                  device)
-                                  for b in range(lanes)]
+    seeds = lane_seeds(seed, lanes)
 
-
-def _lanes(ts):
-    """Stack per-lane results (one lane: a view, no copy)."""
-    return ts[0].unsqueeze(0) if len(ts) == 1 else torch.stack(ts)
+    def gens(index, salt=0):
+        idx = ([int(index)] * lanes if isinstance(index, (int, np.integer))
+               else [int(i) for i in index])
+        return [seeded_generator((s, b, i, salt), device)
+                for b, (s, i) in enumerate(zip(seeds, idx))]
+    return gens
 
 
 def make_lane_sampler(cfg: ModelConfig, scfg: SamplingConfig, cap_mult: int,
                       is_tts: bool = True):
-    """_adjust_and_sample over lanes: fn(gens, logits [B, K, card], eog
-    [B, K], cng, consec, prev, y_pos, x_len [B], raw_override=None) ->
-    (samples [B, K], eog [B, K], consec [B], prev [B])."""
+    """_adjust_and_sample over lanes, one set of tensor operations for all
+    of them (each lane's noise from its own generator): fn(gens, logits
+    [B, K, card], eog [B, K], cng, consec, prev, y_pos, x_len [B],
+    raw_override=None) -> (samples [B, K], eog [B, K], consec [B], prev
+    [B])."""
     def sample_lanes(gens, logits, eog, cng, consec, prev, y_pos, x_len,
                      raw_override=None):
-        outs = []
-        for b in range(logits.shape[0]):
-            ov = None if raw_override is None else (raw_override[0][b],
-                                                    raw_override[1][b])
-            outs.append(_adjust_and_sample(
-                cfg, scfg, is_tts, cap_mult, None if gens is None else gens[b],
-                logits[b], eog[b], cng[b], consec[b], prev[b], y_pos[b],
-                x_len[b], raw_override=ov))
-        return tuple(_lanes(t) for t in zip(*outs))
+        return _adjust_and_sample(cfg, scfg, is_tts, cap_mult, gens, logits,
+                                  eog, cng, consec, prev, y_pos, x_len,
+                                  raw_override=raw_override)
     return sample_lanes
 
 
@@ -105,11 +122,11 @@ def _filtered_draft(scfg: SamplingConfig, logits: torch.Tensor) -> torch.Tensor:
     return top_k_top_p_filter(lg, scfg.top_k, scfg.top_p)
 
 
-def stochastic_row_verify(generator: Optional[torch.Generator],
-                          la: torch.Tensor, dlg: torch.Tensor,
+def stochastic_row_verify(generator, la: torch.Tensor, dlg: torch.Tensor,
                           d_tok: torch.Tensor, overridden: torch.Tensor,
                           scfg: SamplingConfig):
-    """Per-codebook-row speculative-sampling verification.
+    """Per-codebook-row speculative-sampling verification (``generator``:
+    one, or one per lane of the leading axis, ops.sampling.uniform).
 
     la [..., K, card]: the plain loop's ADJUSTED logits at the slot (the
     target p = softmax(filter(la / T))); dlg [..., K, card]: the raw MTP
@@ -128,8 +145,7 @@ def stochastic_row_verify(generator: Optional[torch.Generator],
     logq = torch.log_softmax(_filtered_draft(scfg, dlg), dim=-1)
     lp_d = logp.gather(-1, d_tok[..., None])[..., 0]
     lq_d = logq.gather(-1, d_tok[..., None])[..., 0]
-    u = torch.rand(lp_d.shape, generator=generator,
-                   device=la.device).clamp(min=1e-20)
+    u = uniform(generator, lp_d.shape, la.device).clamp(min=1e-20)
     accept = torch.log(u) < (lp_d - lq_d)
     resid = torch.log(torch.clamp(logp.exp() - logq.exp(), min=1e-30))
     r_tok = sample(generator, resid)
@@ -143,8 +159,9 @@ def spec_verify_pass(model, cfg: ModelConfig, sample_lanes, *, tau: int,
                      y_pos0: torch.Tensor, x_lens: torch.Tensor,
                      logits: torch.Tensor, h: torch.Tensor, eog: torch.Tensor,
                      cng: torch.Tensor, consec: torch.Tensor,
-                     prev: torch.Tensor, t: int, accept_cap: int, forward,
-                     force_accept: bool = False, mix_emb=None,
+                     prev: torch.Tensor, t, accept_cap: int, forward,
+                     bench_mode: bool = False, force_accept: bool = False,
+                     mix_emb=None,
                      scfg: Optional[SamplingConfig] = None,
                      is_tts: bool = True, cap_mult: Optional[int] = None,
                      pending: Optional[torch.Tensor] = None,
@@ -153,8 +170,9 @@ def spec_verify_pass(model, cfg: ModelConfig, sample_lanes, *, tau: int,
 
     gate [B] bool: the lanes that take part (the others emit empty rows and
     keep their state).  tok_gen(i, salt) -> the lanes' generators for token
-    index t + i (None when greedy).  t and accept_cap are host ints: token
-    i is accepted only while t + i < accept_cap.  forward(feed [B, tau, D])
+    index t + i (None when greedy).  t: the lanes' token counts, one host
+    int for all or a [B] tensor; token i of lane b is accepted only while
+    t_b + i < accept_cap.  forward(feed [B, tau, D])
     -> h_blk [B, tau, D] runs the block through the decoder (the caller
     owns the slab).  mix_emb(emb [B, tau, D]) -> [B, tau, D], optional,
     replaces the token embeddings before the positional term (the edit
@@ -166,6 +184,8 @@ def spec_verify_pass(model, cfg: ModelConfig, sample_lanes, *, tau: int,
     stochastic_row_verify; a rejected slot's corrected raw token becomes
     ``pending`` [B, K] / ``has_pending`` [B] and is the next pass's first
     token (fed, finalised and emitted there through raw_override).
+    ``bench_mode`` (measurement): no codebook finishes and special codes
+    become 0 (models.voicecraft._bench), so a decode runs to its budget.
 
     Returns a dict: blk [B, tau, K] emitted rows (rows at n_acc or beyond
     are 0 or stale), n_acc [B], eog / cng / consec / prev (the carried
@@ -194,6 +214,8 @@ def spec_verify_pass(model, cfg: ModelConfig, sample_lanes, *, tau: int,
     t0, eog0, consec0, prev0 = sample_lanes(
         tok_gen(0, 0), logits.float(), eog, cng, consec, prev, y_pos0,
         x_lens, raw_override=ov)
+    if bench_mode:
+        t0, eog0, consec0, prev0 = _bench(cfg, t0, eog0, consec0, prev0)
     t0 = torch.where(gate[:, None], t0, empty_row)
     eog0 = torch.where(gate[:, None], eog0, eog)
 
@@ -204,13 +226,10 @@ def spec_verify_pass(model, cfg: ModelConfig, sample_lanes, *, tau: int,
         d_logits = [apply_heads(model.mtp_heads[j], h_c) for j in range(tau - 1)]
         if stochastic:
             # proposals drawn from q, each lane from its own generator
-            drafts = []
-            for j in range(tau - 1):
-                gens = tok_gen(j + 1, SALT_DRAFT)
-                lg = _filtered_draft(scfg, d_logits[j])        # [B, K, card]
-                drafts.append(_lanes([sample(gens[b], lg[b])
-                                      for b in range(B)]))
-            drafts = torch.stack(drafts)
+            drafts = torch.stack([
+                sample(tok_gen(j + 1, SALT_DRAFT),
+                       _filtered_draft(scfg, d_logits[j]))    # [B, K]
+                for j in range(tau - 1)])
         else:
             drafts = torch.stack(d_logits).argmax(dim=-1)      # [tau-1, B, K]
         # rows beyond cur_num_gen are forced empty by the verifier: draft
@@ -243,27 +262,23 @@ def spec_verify_pass(model, cfg: ModelConfig, sample_lanes, *, tau: int,
     n_acc = gate.long()
     pend_out = pending
     has_pend_out = torch.zeros((B,), dtype=torch.bool, device=dev)
-    no = torch.zeros((B,), dtype=torch.bool, device=dev)
     for i in range(1, tau):
         eog_c, cng_c, consec_c, prev_c = st
         in_cap = t + i < accept_cap
+        if isinstance(in_cap, bool):
+            in_cap = torch.full((B,), in_cap, dtype=torch.bool, device=dev)
         if stochastic:
-            la_i = _lanes([_adjust_logits(cfg, scfg, is_tts,
-                                          logits_blk[b, i - 1].float(),
-                                          eog_c[b], cng_c[b], consec_c[b],
-                                          prev_c[b]) for b in range(B)])
+            la_i = _adjust_logits(cfg, scfg, is_tts,
+                                  logits_blk[:, i - 1].float(), eog_c, cng_c,
+                                  consec_c, prev_c)
             overridden = ((eog_c.sum(dim=1) > 0)[:, None]
                           | (kidx[None, :] > cng_c[:, None]))
-            gens = tok_gen(i, SALT_VERIFY)
-            raw_i, ok_i = (_lanes(r) for r in zip(*[
-                stochastic_row_verify(gens[b], la_i[b], d_logits[i - 1][b],
-                                      tokens_b[b, i], overridden[b], scfg)
-                for b in range(B)]))
-            ti, eog_i, consec_i, prev_i = (_lanes(r) for r in zip(*[
-                _finalize_sample(cfg, scfg, is_tts, cap_mult, la_i[b],
-                                 raw_i[b], eog_c[b], cng_c[b], consec_c[b],
-                                 prev_c[b], y_pos0[b] + i, x_lens[b])
-                for b in range(B)]))
+            raw_i, ok_i = stochastic_row_verify(
+                tok_gen(i, SALT_VERIFY), la_i, d_logits[i - 1],
+                tokens_b[:, i], overridden, scfg)
+            ti, eog_i, consec_i, prev_i = _finalize_sample(
+                cfg, scfg, is_tts, cap_mult, la_i, raw_i, eog_c, cng_c,
+                consec_c, prev_c, y_pos0 + i, x_lens)
             # accept a slot only when the FINALISED row equals the FED
             # draft: the finaliser can rewrite a raw draw (the row-0 stop
             # check, the cascade), and a slot emitted unlike its fed
@@ -276,15 +291,18 @@ def spec_verify_pass(model, cfg: ModelConfig, sample_lanes, *, tau: int,
                 tok_gen(i, 0), logits_blk[:, i - 1], eog_c, cng_c, consec_c,
                 prev_c, y_pos0 + i, x_lens)
             match = (ti == tokens_b[:, i]).all(dim=1)
+        if bench_mode:
+            ti, eog_i, consec_i, prev_i = _bench(cfg, ti, eog_i, consec_i,
+                                                 prev_i)
         if force_accept:          # measurement: 100% acceptance
             match = torch.ones_like(match)
             ti = tokens_b[:, i]
-        accept = alive & match if in_cap else no
-        if stochastic and in_cap:
+        accept = alive & match & in_cap
+        if stochastic:
             # the first rejected slot's corrected raw token was drawn from
             # logits whose prefix was all accepted: a valid draw for this
             # position, fed and emitted as the next pass's first token
-            capture = alive & ~match
+            capture = alive & ~match & in_cap
             pend_out = torch.where(capture[:, None], raw_i, pend_out)
             has_pend_out = has_pend_out | capture
         emitted.append(torch.where(accept[:, None], ti, 0))

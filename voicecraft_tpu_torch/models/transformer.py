@@ -7,7 +7,11 @@ are stored once in the compute dtype in the [in, out] layout (x @ w), or
 weight-only fp8 after utils/quantize.py:quantize_decoder_fp8; LayerNorm
 parameters stay f32.  The KV cache is a preallocated slab
 [L, 2, B, S_max, H, Dh] (k at 0, v at 1) that prefill fills and each decode
-step (or speculative block) updates once, in place, at ``pos``.
+step (or speculative block) updates once, in place, at ``pos`` (lockstep
+serving: at each lane's own offset).  The slab is in the compute dtype or,
+for serving, in float8_e4m3fn: k/v are cast to the slab's dtype where they
+are written and upcast to q's dtype where each layer reads them, as the
+JAX package does (``.astype``); a slab in q's dtype is read in place.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import decode_attention_self, decode_attention_self_block
+from ..ops.attention import (decode_attention_multi,
+                             decode_attention_multi_block,
+                             decode_attention_self, decode_attention_self_block)
 from ..ops import fused_decode
 
 
@@ -133,9 +139,37 @@ def ffn_block(layer: DecoderLayer, h: torch.Tensor,
 
 def init_kv_cache(num_layers: int, batch: int, s_max: int, nhead: int,
                   head_dim: int, dtype: torch.dtype, device) -> torch.Tensor:
-    """Slab cache [L, 2, B, S_max, H, Dh] (k at index 0, v at index 1)."""
+    """Slab cache [L, 2, B, S_max, H, Dh] (k at index 0, v at index 1) in
+    ``dtype`` (the compute dtype, or torch.float8_e4m3fn)."""
     return torch.zeros((num_layers, 2, batch, s_max, nhead, head_dim),
                        dtype=dtype, device=device)
+
+
+def _layer_slab(cache: torch.Tensor, li: int, dtype: torch.dtype):
+    """Layer li's k and v slabs [B, S_max, H, Dh] in ``dtype``: views of the
+    slab when it is in that dtype, else its upcast (an fp8 slab: exact in
+    bf16 or f32, one [B, S_max, H, Dh] copy per layer and step)."""
+    k, v = cache[li, 0], cache[li, 1]
+    if cache.dtype == dtype:
+        return k, v
+    return k.to(dtype), v.to(dtype)
+
+
+def _stored(cache: torch.Tensor, kv: torch.Tensor):
+    """(slab, kv) to write kv into the slab in place: kv cast to the slab's
+    dtype (torch's round-to-nearest-even ``.to``), and an fp8 slab and its
+    kv seen as bytes (index_copy_ has no fp8 kernel)."""
+    kv = kv.to(cache.dtype)
+    if cache.dtype == torch.float8_e4m3fn:
+        return cache.view(torch.uint8), kv.view(torch.uint8)
+    return cache, kv
+
+
+def _store_kv(cache: torch.Tensor, dim: int, index: torch.Tensor,
+              kv: torch.Tensor) -> None:
+    """cache.index_copy_(dim, index, kv), in place, through _stored."""
+    slab, kv = _stored(cache, kv)
+    slab.index_copy_(dim, index, kv)
 
 
 def prefill(decoder: Decoder, x: torch.Tensor,
@@ -160,6 +194,35 @@ def prefill(decoder: Decoder, x: torch.Tensor,
     return layer_norm(decoder.final_ln_g, decoder.final_ln_b, x), cache
 
 
+def _layer_stack(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
+                 attend, ffn=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer stack of every decode forward against a READ-ONLY slab:
+    attend(q, k_slab, v_slab, k_new, v_new) is the forward's decode
+    attention (the T new tokens' k/v enter it as extra terms), and
+    ffn(layer, h) the feed-forward block (default: the unfused
+    :func:`ffn_block`).  The caller writes the returned k/v into the slab
+    once.  Returns (final-normed hidden [B, T, D], the new k/v
+    [L, 2, B, T, H, Dh])."""
+    L, _, B, S_max, H, Dh = cache.shape
+    T = x_t.shape[1]
+    x = x_t
+    kv = []
+    for li, layer in enumerate(decoder.layers):
+        h = layer_norm(layer.ln1_g, layer.ln1_b, x)
+        q, k, v = qkv_proj(layer, h)
+        k_new = k.reshape(B, T, H, Dh)
+        v_new = v.reshape(B, T, H, Dh)
+        k_slab, v_slab = _layer_slab(cache, li, q.dtype)
+        a = attend(q, k_slab, v_slab, k_new, v_new)
+        x = x + _proj(a, layer.wo, layer.bo)
+        h2 = layer_norm(layer.ln2_g, layer.ln2_b, x)
+        x = x + (ffn_block(layer, h2, decoder.activation) if ffn is None
+                 else ffn(layer, h2))
+        kv.append(torch.stack([k_new, v_new]))                  # [2,B,T,H,Dh]
+    return (layer_norm(decoder.final_ln_g, decoder.final_ln_b, x),
+            torch.stack(kv))
+
+
 def decode_step_fast(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
                      pos: torch.Tensor, x_len: Optional[torch.Tensor] = None,
                      x_pad: Optional[int] = None, fused_ffn: bool = False
@@ -179,27 +242,18 @@ def decode_step_fast(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
             "fused_ffn supports the relu FFN only (the kernel hard-codes "
             f"relu); this model was built with ffn_activation "
             f"{decoder.activation!r}")
-    L, _, B, S_max, H, Dh = cache.shape
-    x = x_t
-    kv = []
-    for li, layer in enumerate(decoder.layers):
-        h = layer_norm(layer.ln1_g, layer.ln1_b, x)
-        q, k, v = qkv_proj(layer, h)
-        k_new = k.view(B, 1, H, Dh)
-        v_new = v.view(B, 1, H, Dh)
-        a = decode_attention_self(q, cache[li, 0], cache[li, 1], pos, k_new,
-                                  v_new, H, x_len=x_len, x_pad=x_pad)
-        x = x + _proj(a, layer.wo, layer.bo)
-        h2 = layer_norm(layer.ln2_g, layer.ln2_b, x)
-        if fused_ffn:
-            h2 = fused_decode.fused_ffn(h2.view(B, H * Dh), layer.w1, layer.b1,
-                                        layer.w2, layer.b2).view(B, 1, H * Dh)
-        else:
-            h2 = ffn_block(layer, h2, decoder.activation)
-        x = x + h2
-        kv.append(torch.stack([k_new, v_new]))                  # [2,B,1,H,Dh]
-    cache.index_copy_(3, pos.view(1), torch.stack(kv).to(cache.dtype))
-    return layer_norm(decoder.final_ln_g, decoder.final_ln_b, x), cache
+    B, D, H = x_t.shape[0], x_t.shape[2], decoder.nhead
+    ffn = None
+    if fused_ffn:
+        def ffn(layer, h):
+            return fused_decode.fused_ffn(h.view(B, D), layer.w1, layer.b1,
+                                          layer.w2, layer.b2).view(B, 1, D)
+    h, kv = _layer_stack(
+        decoder, x_t, cache,
+        lambda q, ks, vs, kn, vn: decode_attention_self(
+            q, ks, vs, pos, kn, vn, H, x_len=x_len, x_pad=x_pad), ffn)
+    _store_kv(cache, 3, pos.view(1), kv)
+    return h, cache
 
 
 def decode_step_block(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
@@ -218,22 +272,62 @@ def decode_step_block(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
     x_t: [B, T, D]; pos / x_len: 0-d integer tensors on the slab's device.
     Returns (final-normed hidden [B, T, D], cache).
     """
-    L, _, B, S_max, H, Dh = cache.shape
-    T = x_t.shape[1]
-    x = x_t
-    kv = []
-    for li, layer in enumerate(decoder.layers):
-        h = layer_norm(layer.ln1_g, layer.ln1_b, x)
-        q, k, v = qkv_proj(layer, h)
-        k_new = k.reshape(B, T, H, Dh)
-        v_new = v.reshape(B, T, H, Dh)
-        a = decode_attention_self_block(q, cache[li, 0], cache[li, 1], pos,
-                                        k_new, v_new, H, x_len=x_len,
-                                        x_pad=x_pad)
-        x = x + _proj(a, layer.wo, layer.bo)
-        x = x + ffn_block(layer, layer_norm(layer.ln2_g, layer.ln2_b, x),
-                          decoder.activation)
-        kv.append(torch.stack([k_new, v_new]))                  # [2,B,T,H,Dh]
-    idx = pos + torch.arange(T, device=pos.device)
-    cache.index_copy_(3, idx, torch.stack(kv).to(cache.dtype))
-    return layer_norm(decoder.final_ln_g, decoder.final_ln_b, x), cache
+    H, T = decoder.nhead, x_t.shape[1]
+    h, kv = _layer_stack(
+        decoder, x_t, cache,
+        lambda q, ks, vs, kn, vn: decode_attention_self_block(
+            q, ks, vs, pos, kn, vn, H, x_len=x_len, x_pad=x_pad))
+    _store_kv(cache, 3, pos + torch.arange(T, device=pos.device), kv)
+    return h, cache
+
+
+def decode_step_multi(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
+                      pos: torch.Tensor, x_lens: torch.Tensor, x_pad: int,
+                      prefix_lens: torch.Tensor, y_start: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lockstep serving step: :func:`decode_step_fast` with per-lane text
+    and prompt lengths (ops.attention.decode_attention_multi), a uniform
+    write pointer ``pos`` (>= y_start) and the unfused FFN.
+
+    x_t: [B, 1, D]; pos: 0-d; x_lens / prefix_lens: [B].  The caller keeps
+    pos < S_max.  Returns (final-normed hidden [B, 1, D], cache)."""
+    H = decoder.nhead
+    h, kv = _layer_stack(
+        decoder, x_t, cache,
+        lambda q, ks, vs, kn, vn: decode_attention_multi(
+            q, ks, vs, pos, kn, vn, H, x_lens, x_pad, prefix_lens, y_start))
+    _store_kv(cache, 3, pos.view(1), kv)
+    return h, cache
+
+
+def decode_step_multi_block(decoder: Decoder, x_t: torch.Tensor,
+                            cache: torch.Tensor, offsets: torch.Tensor,
+                            x_lens: torch.Tensor, x_pad: int,
+                            prefix_lens: torch.Tensor, y_start: int,
+                            gen_lens: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Speculative-serving forward: T tokens per lane in ONE pass, each lane
+    written at its OWN slab offset.
+
+    :func:`decode_step_block` with per-lane validity (ops.attention.
+    decode_attention_multi_block: a compact generated region [y_start,
+    y_start + gen_len_b) per lane); lane b's block lands at [offsets[b],
+    offsets[b] + T) through one scatter over (lane, position).  Unlike
+    JAX's scatter, which drops an index out of range, every index must lie
+    in [0, S_max): the serving loops size the slab so (inference/
+    serving.py), and an index out of range raises (a device-side assert on
+    the card).
+
+    x_t: [B, T, D]; offsets / gen_lens / x_lens / prefix_lens: [B].
+    Returns (final-normed hidden [B, T, D], cache)."""
+    B, H, T = cache.shape[2], decoder.nhead, x_t.shape[1]
+    h, kv = _layer_stack(
+        decoder, x_t, cache,
+        lambda q, ks, vs, kn, vn: decode_attention_multi_block(
+            q, ks, vs, gen_lens, kn, vn, H, x_lens, x_pad, prefix_lens,
+            y_start))
+    b_idx = torch.arange(B, device=offsets.device)[:, None]            # [B, 1]
+    s_idx = offsets[:, None] + torch.arange(T, device=offsets.device)  # [B, T]
+    slab, kv = _stored(cache, kv)
+    slab[:, :, b_idx, s_idx] = kv
+    return h, cache

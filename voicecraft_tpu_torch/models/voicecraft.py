@@ -249,33 +249,36 @@ def _adjust_logits(cfg: ModelConfig, scfg: SamplingConfig, is_tts: bool,
                    prev_token):
     """Pre-sampling logit adjustments of the reference sample_helper twins:
     the eog/eos bans, the min-length guard and the silence-repetition
-    penalty.  logits_k: [K, card] f32; the state arguments are 0-d tensors
-    (codebook_eog: [K] bool)."""
-    K, card = logits_k.shape
+    penalty.  One set of tensor operations serves any number of lanes:
+    logits_k [..., K, card] f32, codebook_eog [..., K] bool, and
+    cur_num_gen / consec_silence / prev_token of shape [...] (0-d for one
+    stream, [B] for B lanes)."""
+    K, card = logits_k.shape[-2:]
     dev = logits_k.device
     eog_stop = cfg.eog_inference if is_tts else cfg.eog
     rows = torch.arange(K, device=dev)[:, None]
     cols = torch.arange(card, device=dev)[None, :]
-    n_eog = codebook_eog.sum()
+    n_eog = codebook_eog.sum(-1)
+    cell = lambda t: t[..., None, None]          # [...] -> [..., 1, 1]
 
     la = logits_k
     if cfg.eos > 0:
         # TTS bans eog everywhere, editing bans eos everywhere
         la = la.masked_fill(cols == (cfg.eog if is_tts else cfg.eos), BAN)
     # rows beyond the next-to-finish codebook may not emit eog/empty
-    ban = (rows > n_eog) & ((cols == eog_stop) | (cols == cfg.empty_token))
+    ban = (rows > cell(n_eog)) & ((cols == eog_stop) | (cols == cfg.empty_token))
     la = la.masked_fill(ban, BAN)
     if is_tts:
-        min_guard = cur_num_gen <= cfg.encodec_sr // 5
+        min_guard = cell(cur_num_gen <= cfg.encodec_sr // 5)
         la = la.masked_fill(min_guard & (rows == 0) & (cols == eog_stop), BAN)
     if scfg.stop_repetition > 0 and len(scfg.silence_tokens) > 0:
         sil = _silence_tokens(scfg.silence_tokens, dev)
-        hit = ((sil == prev_token).any()
+        hit = ((sil == prev_token[..., None]).any(-1)
                & (consec_silence > scfg.stop_repetition) & (n_eog == 0))
-        denom = (consec_silence - (scfg.stop_repetition - 1)).float()
-        cell = (rows == 0) & (cols == prev_token)
+        denom = cell(consec_silence - (scfg.stop_repetition - 1)).float()
+        on = cell(hit) & (rows == 0) & (cols == cell(prev_token))
         penalised = torch.where(la < 0, la * denom, la / denom.clamp(min=1.0))
-        la = torch.where(hit & cell, penalised, la)
+        la = torch.where(on, penalised, la)
     return la
 
 
@@ -284,35 +287,38 @@ def _finalize_sample(cfg: ModelConfig, scfg: SamplingConfig, is_tts: bool,
                      consec_silence, prev_token, y_pos, x_len):
     """Post-sampling machinery of the reference sample_helper twins: forced
     empties for a span's first K-1 steps, the eog stop check (which sees the
-    ADJUSTED row 0), silence counters, and the eog cascade.  Returns
-    (samples [K], codebook_eog [K], consec_silence, prev_token)."""
-    K = la.shape[0]
+    ADJUSTED row 0), silence counters, and the eog cascade.  Shapes as
+    _adjust_logits (samples [..., K]; y_pos / x_len [...]).  Returns
+    (samples [..., K], codebook_eog [..., K], consec_silence, prev_token)."""
+    K = la.shape[-2]
     dev = la.device
     eog_stop = cfg.eog_inference if is_tts else cfg.eog
-    n_eog = codebook_eog.sum()
+    n_eog = codebook_eog.sum(-1)
     r = torch.arange(K, device=dev)
+    lane = lambda t: t[..., None]                # [...] -> [..., 1]
 
     # ---- n_eog == 0: forced empties, stop check, silence counters ----
-    s0 = torch.where(r > cur_num_gen, cfg.empty_token, samples)
-    stop_hit = ((s0[0] == eog_stop) | (la[0].argmax() == eog_stop)
+    s0 = torch.where(r > lane(cur_num_gen), cfg.empty_token, samples)
+    stop_hit = ((s0[..., 0] == eog_stop) | (la[..., 0, :].argmax(-1) == eog_stop)
                 | (y_pos > x_len * cap_mult))
-    s0 = torch.where(r == 0, torch.where(stop_hit, eog_stop, s0[0]), s0)
-    eog0 = torch.where(r == 0, stop_hit, codebook_eog)
+    s0 = torch.where(r == 0, lane(torch.where(stop_hit, eog_stop, s0[..., 0])),
+                     s0)
+    eog0 = torch.where(r == 0, lane(stop_hit), codebook_eog)
     if len(scfg.silence_tokens) > 0:
         sil = _silence_tokens(scfg.silence_tokens, dev)
-        is_sil = (sil == s0[0]).any() & (s0[0] == prev_token)
+        is_sil = (sil == s0[..., :1]).any(-1) & (s0[..., 0] == prev_token)
     else:
-        is_sil = torch.zeros((), dtype=torch.bool, device=dev)
+        is_sil = torch.zeros_like(stop_hit)
     consec0 = torch.where(is_sil, consec_silence + 1, 0)
-    prev0 = s0[0]
+    prev0 = s0[..., 0]
 
     # ---- n_eog > 0: continue the eog cascade ----
-    s1 = torch.where(r < n_eog, cfg.empty_token, samples)
-    s1 = torch.where(r == n_eog, eog_stop, s1)
-    eog1 = codebook_eog | (r == n_eog)
+    s1 = torch.where(r < lane(n_eog), cfg.empty_token, samples)
+    s1 = torch.where(r == lane(n_eog), eog_stop, s1)
+    eog1 = codebook_eog | (r == lane(n_eog))
 
     first = n_eog == 0
-    return (torch.where(first, s0, s1), torch.where(first, eog0, eog1),
+    return (torch.where(lane(first), s0, s1), torch.where(lane(first), eog0, eog1),
             torch.where(first, consec0, consec_silence),
             torch.where(first, prev0, prev_token))
 
@@ -320,49 +326,87 @@ def _finalize_sample(cfg: ModelConfig, scfg: SamplingConfig, is_tts: bool,
 def _adjust_and_sample(cfg: ModelConfig, scfg: SamplingConfig, is_tts: bool,
                        cap_mult: int, generator, logits_k, codebook_eog,
                        cur_num_gen, consec_silence, prev_token, y_pos, x_len,
-                       raw_override=None):
-    """One sampling decision for a single sample (logits_k [K, card] f32):
-    logit adjustments, a draw, then the deterministic finalisation.
+                       raw_override=None, bench_mode: bool = False):
+    """One sampling decision per lane: logit adjustments, a draw, then the
+    deterministic finalisation.  logits_k [..., K, card] f32 with the state
+    shapes of _adjust_logits; ``generator`` is one generator, or one per
+    lane (ops.sampling.uniform: each lane's noise from its own).
 
-    ``raw_override=(use, tokens [K])`` substitutes a predetermined raw
-    sample for the draw where ``use`` (the stochastic verifier's pending
-    corrected token); the finalisation is the same either way."""
+    ``raw_override=(use [...], tokens [..., K])`` substitutes a
+    predetermined raw sample for the draw where ``use`` (the stochastic
+    verifier's pending corrected token); the finalisation is the same
+    either way.  ``bench_mode`` (measurement) never stops: no codebook
+    finishes and special codes become 0, so a decode runs to its budget."""
     la = _adjust_logits(cfg, scfg, is_tts, logits_k, codebook_eog,
                         cur_num_gen, consec_silence, prev_token)
     samples = sample(generator, la, scfg.top_k, scfg.top_p, scfg.temperature)
     if raw_override is not None:
         use, tokens = raw_override
-        samples = torch.where(use, tokens, samples)
-    return _finalize_sample(cfg, scfg, is_tts, cap_mult, la, samples,
-                            codebook_eog, cur_num_gen, consec_silence,
-                            prev_token, y_pos, x_len)
+        samples = torch.where(use[..., None], tokens, samples)
+    out = _finalize_sample(cfg, scfg, is_tts, cap_mult, la, samples,
+                           codebook_eog, cur_num_gen, consec_silence,
+                           prev_token, y_pos, x_len)
+    return _bench(cfg, *out) if bench_mode else out
+
+
+def _bench(cfg: ModelConfig, samples, eog, consec, prev):
+    """bench_mode's rewrite of a finalised decision (the JAX loops'): no
+    codebook finishes, and special codes (>= audio_vocab_size) become 0."""
+    return (torch.where(samples >= cfg.audio_vocab_size, 0, samples),
+            torch.zeros_like(eog), consec, prev)
 
 
 # ==============================================================================
 # decode loops
 # ==============================================================================
 
-def prefill_prompt(model: VoiceCraft, x_tokens, x_len: int, y_prefix,
-                   prefix_len: int, mask_emb_idx, s_max: int, batch: int = 1):
-    """The prefill of one prompt for ``batch`` decode paths: the embedded
-    prefix broadcast to [batch, Sp, D], one forward that fills a new slab of
-    ``s_max`` slots (attention through ops.flash_attention.
-    prefill_attention), and the heads at the prefix's last column.
-    Returns (h_last [batch, D], logits [batch, K, card] f32, cache)."""
+def kv_cache_dtype(model: VoiceCraft, kv_dtype: Optional[str]) -> torch.dtype:
+    """The slab's dtype: the compute dtype, or float8_e4m3fn for
+    ``kv_dtype="float8_e4m3fn"`` (the slab in fp8, upcast per layer where
+    it is read, as the JAX loops' ``kv_dtype``)."""
+    if kv_dtype is None:
+        return model.dtype
+    if kv_dtype != "float8_e4m3fn":
+        raise ValueError(f"kv_dtype {kv_dtype!r} is not supported "
+                         "(None or 'float8_e4m3fn')")
+    return torch.float8_e4m3fn
+
+
+def prefill_lanes(model: VoiceCraft, x_tokens, x_lens, y_prefix, prefix_lens,
+                  mask_emb_idx, s_max: int, kv_dtype: Optional[str] = None):
+    """The prefill of B lanes: the embedded prefixes [B, Sp, D] (inputs of
+    one prompt broadcast to B), one forward that fills a new slab of
+    ``s_max`` slots in the ``kv_dtype`` slab dtype (attention through
+    ops.flash_attention.prefill_attention, with each lane's text and prompt
+    lengths), and the heads at each lane's last prefix column.
+
+    x_tokens [B or 1, x_pad], y_prefix [B or 1, K, y_pad], mask_emb_idx
+    [B or 1, y_pad]; x_lens / prefix_lens: int32 [B] on the model's device.
+    Returns (h_last [B, D], logits [B, K, card] f32, cache)."""
     cfg = model.cfg
-    dev = model.device
     x_pad, y_pad = x_tokens.shape[1], y_prefix.shape[2]
-    xy = embed_prefix(model, x_tokens, y_prefix, mask_emb_idx)
-    if batch > 1:
-        xy = xy.expand(batch, -1, -1)
-    x_lens = torch.tensor([x_len] * batch, dtype=torch.int32, device=dev)
-    y_lens = torch.tensor([prefix_len] * batch, dtype=torch.int32, device=dev)
-    attn = prefill_attention(x_lens, y_lens, x_pad, cfg.nhead, x_pad + y_pad)
-    cache = trm.init_kv_cache(cfg.num_decoder_layers, batch, s_max, cfg.nhead,
-                              cfg.head_dim, model.dtype, dev)
+    B = x_lens.shape[0]
+    xy = embed_prefix(model, x_tokens, y_prefix, mask_emb_idx).expand(B, -1, -1)
+    attn = prefill_attention(x_lens, prefix_lens, x_pad, cfg.nhead,
+                             x_pad + y_pad)
+    cache = trm.init_kv_cache(cfg.num_decoder_layers, B, s_max, cfg.nhead,
+                              cfg.head_dim, kv_cache_dtype(model, kv_dtype),
+                              model.device)
     h, cache = trm.prefill(model.decoder, xy, attn, cache)
-    h_last = h[:, x_pad + prefix_len - 1]                   # [batch, D]
+    last = (x_pad + prefix_lens - 1).long()
+    h_last = h[torch.arange(B, device=h.device), last]          # [B, D]
     return h_last, apply_heads(model.heads, h_last), cache
+
+
+def prefill_prompt(model: VoiceCraft, x_tokens, x_len: int, y_prefix,
+                   prefix_len: int, mask_emb_idx, s_max: int, batch: int = 1,
+                   kv_dtype: Optional[str] = None):
+    """prefill_lanes of one prompt for ``batch`` decode paths.  Returns
+    (h_last [batch, D], logits [batch, K, card] f32, cache)."""
+    lens = lambda v: torch.full((batch,), v, dtype=torch.int32,
+                                device=model.device)
+    return prefill_lanes(model, x_tokens, lens(x_len), y_prefix,
+                         lens(prefix_len), mask_emb_idx, s_max, kv_dtype)
 
 
 @dataclasses.dataclass
@@ -378,7 +422,8 @@ class DecodeResult:
 
 def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
                      y_pad: int, gen_max: int, scfg: SamplingConfig,
-                     fused_ffn: bool = False):
+                     bench_mode: bool = False, fused_ffn: bool = False,
+                     kv_dtype: Optional[str] = None):
     """The single-sample decode function for one geometry: TTS (one span)
     or multi-span editing.
 
@@ -394,6 +439,10 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
     (TTS) can never queue a feed and leaves that bookkeeping out (~30 fewer
     launches per step).  One host sync per step reads ``done``, the sample
     count and the span index together.
+
+    ``bench_mode`` (measurement) never stops a span: the decode records
+    exactly ``gen_max`` samples, with special codes mapped to 0.
+    ``kv_dtype`` (e.g. ``"float8_e4m3fn"``) stores the slab in that dtype.
 
     Returns decode(model, x_tokens [1, x_pad], x_len, y_prefix [1, K, y_pad],
     prefix_len, mask_emb_idx [1, y_pad], queue_mask_ids [max_n_spans],
@@ -415,7 +464,8 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
         ltype = torch.long
 
         _, logits, cache = prefill_prompt(model, x_tokens, x_len, y_prefix,
-                                          prefix_len, mask_emb_idx, s_max)
+                                          prefix_len, mask_emb_idx, s_max,
+                                          kv_dtype=kv_dtype)
 
         scalar = lambda v, t=ltype: torch.tensor(v, dtype=t, device=dev)
         x_len_t = scalar(x_len)
@@ -440,7 +490,8 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
         while True:
             samples, new_eog, new_consec, new_prev = _adjust_and_sample(
                 cfg, scfg, is_tts, cap_mult, generator, logits[0],
-                codebook_eog, cur_num_gen, consec, prev, y_pos, x_len_t)
+                codebook_eog, cur_num_gen, consec, prev, y_pos, x_len_t,
+                bench_mode=bench_mode)
             gen_buf.index_copy_(0, gen_cnt.view(1), samples[None])
             emb = column_embedding(model, samples)
             if not multi:
@@ -526,12 +577,6 @@ class SpecResult:
     feeds: int                # feed passes (editing)
 
 
-def _refuse_bench_options(bench_mode: bool, kv_dtype) -> None:
-    if bench_mode or kv_dtype is not None:
-        raise NotImplementedError("bench_mode and kv_dtype are not yet "
-                                  "ported to voicecraft_tpu_torch")
-
-
 def make_spec_decode_loop(cfg: ModelConfig, *, x_pad: int, y_pad: int,
                           gen_max: int, scfg: SamplingConfig, n_draft: int,
                           bench_mode: bool = False, force_accept: bool = False,
@@ -551,7 +596,9 @@ def make_spec_decode_loop(cfg: ModelConfig, *, x_pad: int, y_pad: int,
 
     ``force_accept`` (measurement): every draft is accepted, so each pass
     retires tau tokens (the drafts are emitted): the ceiling of the
-    machinery at 100% acceptance.  The slab has s_max = x_pad + y_pad +
+    machinery at 100% acceptance.  ``bench_mode`` (measurement) never
+    stops: the decode records exactly ``gen_max`` samples.  ``kv_dtype``
+    stores the slab in that dtype.  The slab has s_max = x_pad + y_pad +
     gen_max + tau slots; one host sync per pass.
 
     Returns decode(model, x_tokens [1, x_pad], x_len, y_prefix [1, K,
@@ -559,7 +606,6 @@ def make_spec_decode_loop(cfg: ModelConfig, *, x_pad: int, y_pad: int,
     """
     from ..inference.spec_common import (make_lane_sampler, spec_verify_pass,
                                          token_generators)
-    _refuse_bench_options(bench_mode, kv_dtype)
     if n_draft < 1:
         raise ValueError(f"n_draft must be >= 1, got {n_draft}")
     K = cfg.n_codebooks
@@ -575,7 +621,8 @@ def make_spec_decode_loop(cfg: ModelConfig, *, x_pad: int, y_pad: int,
         dev = model.device
         ltype = torch.long
         h, logits, cache = prefill_prompt(model, x_tokens, x_len, y_prefix,
-                                          prefix_len, mask_emb_idx, s_max)
+                                          prefix_len, mask_emb_idx, s_max,
+                                          kv_dtype=kv_dtype)
         h = h.float()
         vec = lambda v, t=ltype: torch.tensor([v], dtype=t, device=dev)
         x_lens = vec(x_len)
@@ -600,9 +647,9 @@ def make_spec_decode_loop(cfg: ModelConfig, *, x_pad: int, y_pad: int,
                 tok_gen=lambda i, salt, t=t: gens(t + i, salt), y_pos0=y_pos,
                 x_lens=x_lens, logits=logits, h=h, eog=eog, cng=cng,
                 consec=consec, prev=prev, t=t, accept_cap=gen_max,
-                forward=forward, force_accept=force_accept, scfg=scfg,
-                is_tts=True, cap_mult=cap_mult, pending=pending,
-                has_pending=has_pending)
+                forward=forward, bench_mode=bench_mode,
+                force_accept=force_accept, scfg=scfg, is_tts=True,
+                cap_mult=cap_mult, pending=pending, has_pending=has_pending)
             n_acc = out["n_acc"]
             gen_buf[t:t + tau] = out["blk"][0]
             pos += n_acc[0]
@@ -622,7 +669,8 @@ def make_spec_decode_loop(cfg: ModelConfig, *, x_pad: int, y_pad: int,
 
 
 def make_spec_edit_loop(cfg: ModelConfig, *, x_pad: int, y_pad: int,
-                        gen_max: int, scfg: SamplingConfig, n_draft: int):
+                        gen_max: int, scfg: SamplingConfig, n_draft: int,
+                        max_spans: Optional[int] = None):
     """Verified speculative multi-span editing decode.
 
     make_spec_decode_loop's verification (greedy output equal to the plain
@@ -635,12 +683,12 @@ def make_spec_edit_loop(cfg: ModelConfig, *, x_pad: int, y_pad: int,
     are masked garbage, and the next pass starts from the block's RAW
     outputs at slot 1 (the empty column's logits, as in the plain loop).
     ``n_draft`` must be >= 2 for a feed pass to fit in one block.  The slab
-    has s_max = x_pad + y_pad + gen_max + tau + 2 (max_n_spans - 1) slots;
-    one host sync per pass.
+    has s_max = x_pad + y_pad + gen_max + tau + 2 (max_spans - 1) slots
+    (``max_spans``: cfg.max_n_spans unless given); one host sync per pass.
 
     Returns decode(model, x_tokens [1, x_pad], x_len, y_prefix [1, K,
     y_pad], prefix_len, mask_emb_idx [1, y_pad], queue_mask_ids
-    [max_n_spans], n_spans, seed) -> SpecResult.
+    [max_spans], n_spans, seed) -> SpecResult.
     """
     from ..inference.spec_common import (make_lane_sampler, spec_verify_pass,
                                          token_generators)
@@ -650,16 +698,17 @@ def make_spec_edit_loop(cfg: ModelConfig, *, x_pad: int, y_pad: int,
     K, D = cfg.n_codebooks, cfg.d_model
     cap_mult = 10
     tau = n_draft
-    s_max = x_pad + y_pad + gen_max + tau + 2 * (cfg.max_n_spans - 1)
+    max_spans = max_spans or cfg.max_n_spans
+    s_max = x_pad + y_pad + gen_max + tau + 2 * (max_spans - 1)
     sample_lanes = make_lane_sampler(cfg, scfg, cap_mult, is_tts=False)
 
     @torch.inference_mode()
     def decode(model: VoiceCraft, x_tokens, x_len: int, y_prefix,
                prefix_len: int, mask_emb_idx, queue_mask_ids, n_spans: int,
                seed: int) -> SpecResult:
-        if not 1 <= n_spans <= cfg.max_n_spans:
-            raise ValueError(f"n_spans {n_spans} outside [1, max_n_spans "
-                             f"{cfg.max_n_spans}]")
+        if not 1 <= n_spans <= max_spans:
+            raise ValueError(f"n_spans {n_spans} outside [1, max_spans "
+                             f"{max_spans}]")
         check_mtp_heads(model, tau)
         dev, dtype = model.device, model.dtype
         ltype = torch.long
@@ -715,7 +764,7 @@ def make_spec_edit_loop(cfg: ModelConfig, *, x_pad: int, y_pad: int,
             more = span_idx + 1 < n_spans
             start_next = span_complete & more
             next_id = queue_mask_ids.index_select(
-                0, (span_idx + 1).clamp(max=cfg.max_n_spans - 1))
+                0, (span_idx + 1).clamp(max=max_spans - 1))
             new_queue = torch.cat(
                 [model.mask_emb.index_select(0, next_id).to(dtype),
                  empty_emb[None]])

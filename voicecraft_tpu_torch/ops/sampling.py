@@ -1,10 +1,12 @@
 """Top-k / top-p (nucleus) sampling (PyTorch port of
 voicecraft_tpu/ops/sampling.py).  Draws come from an explicit
-``torch.Generator``; ``temperature <= 0`` means greedy argmax."""
+``torch.Generator``, or from one generator per lane (a sequence of them,
+one per entry of the leading axis); ``temperature <= 0`` means greedy
+argmax."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Sequence, Union
 
 import torch
 
@@ -34,17 +36,33 @@ def top_k_top_p_filter(logits: torch.Tensor, top_k: int,
     return logits
 
 
-def sample(generator: Optional[torch.Generator], logits: torch.Tensor,
+Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
+
+
+def uniform(generator: Generators, shape, device) -> torch.Tensor:
+    """Uniforms of ``shape`` from one generator, or, given one generator per
+    lane, lane b's block ``shape[1:]`` from generator b (the only per-lane
+    work of a lane-vectorised draw)."""
+    if isinstance(generator, (list, tuple)):
+        if len(generator) != shape[0]:
+            raise ValueError(f"{len(generator)} generators for {shape[0]} lanes")
+        return torch.stack([torch.rand(shape[1:], generator=g, device=device)
+                            for g in generator])
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def sample(generator: Generators, logits: torch.Tensor,
            top_k: int = 0, top_p: float = 1.0,
            temperature: float = 1.0) -> torch.Tensor:
     """Token ids [...] from logits [..., V]: temperature, then top-k/top-p,
-    then a categorical draw (Gumbel-max with uniforms from ``generator``).
-    ``temperature <= 0`` -> argmax, and ``generator`` is not used."""
+    then a categorical draw (Gumbel-max with uniforms from ``generator``,
+    see ``uniform``).  ``temperature <= 0`` -> argmax, and ``generator`` is
+    not used."""
     if temperature <= 0.0:
         return logits.argmax(dim=-1)
     if temperature != 1.0:
         logits = logits / temperature
     logits = top_k_top_p_filter(logits, top_k, top_p)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = uniform(generator, logits.shape, logits.device)
     gumbel = -torch.log(-torch.log(u))
     return (logits + gumbel).argmax(dim=-1)
