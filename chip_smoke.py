@@ -89,18 +89,46 @@ Phases, in order; any failure raises and the script exits non-zero:
               single-stream geometry, bf16 and fp8 with the fp8 slab (frames/s
               best of 3), and the speculative loop (one run): exactly gen_max
               rows each.
+  8. engine   the same model and codec through inference/engine.py,
+              inference/streaming.py and serve_torch_cli.py, each run's
+              launch counts set to 0 just before it and read just after (the
+              attention kernel L times per prefill call from 1024 columns:
+              the startup wave at B=8 and every refill at B=1): (o) the
+              continuous-batching engine, 16 requests ((j)'s 8 prompts, two
+              texts each) over 8 lanes in bursts of 48, greedy (each request
+              against its own single-stream decode under the tie-aware rule,
+              its rows and draws kept by EngineRecorder) and sampled, device
+              operations and ms per engine step (step_profile over one
+              burst); 64 requests over 32 lanes at bench.py's engine
+              geometry with fp8 weights and the fp8 slab; the speculative
+              engine (random MTP heads, tau 4) greedy against the plain
+              engine's rows and force_accept at 4 tokens a pass; (p)
+              stream_tts of request (a)'s 17.28 s prompt (the kernel at
+              B=1), greedy, pipeline on and off: the streamed frames are
+              gen, gen against the single stream under ties, the streamed
+              audio against decode_bucketed of gen, first-audio latency;
+              (q) serve_torch_cli.Engine on giga830M behind a
+              ThreadingHTTPServer on 127.0.0.1: /healthz, two concurrent
+              /tts (one wave), /rerun, /edit with demo_alignment.csv's rows
+              and /tts_stream of the 17.28 s prompt (the kernel), each HTTP
+              200 with audio of the expected length, latencies printed.
 
 The last three lines are the card (as nvidia-smi reports it), one JSON
 object with each kernel's result, and {"ok": true, "device": {...}}.
 """
 
+import base64
 import contextlib
+import csv
+import io
 import json
+import logging
 import re
 import subprocess
 import sys
 import time
 import types
+import wave
 from pathlib import Path
 
 import numpy as np
@@ -211,6 +239,15 @@ EDIT_SERVE = (("d", [(200, 240), (520, 570), (860, 900)]),
               ("e", [(40, 70), (130, 160)]),
               ("d", [(300, 360)]),
               ("dd", [(60, 100), (300, 330)]))
+# phase 8 (o): the continuous-batching engine over (j)'s prompts, each with
+# two texts (the second from word 3b + ENGINE_TEXT_START on), ENGINE_LANES
+# lanes at (j)'s pads (Sp 1024: the startup wave at B=8 and every refill at
+# B=1 through the attention kernel), bursts of ENGINE_BURST steps; then at
+# bench.py's engine geometry (bench.py:790-830: 2 x 32 requests, 150-frame
+# random prompts, y_pad 192, targets 60-100% of the frames), its 500 frames
+# cut to BENCH_ENGINE_FRAMES
+ENGINE_LANES, ENGINE_BURST, ENGINE_TEXT_START = 8, 48, 11
+BENCH_ENGINE_FRAMES = GEN_MAX
 
 
 def log(msg: str) -> None:
@@ -1158,20 +1195,22 @@ def device_ops(fn):
     return out, n or None
 
 
-def step_profile(run, n):
+def step_profile(run, n, module=None, name="decode_step_multi"):
     """(device operations, device ms) per step of the serving wave that
     run() decodes, from torch.profiler over n whole steps: the profiler
-    starts at the wave's second decode_step_multi and stops at its
-    (n + 2)-th, so the window holds n forwards, n sampler calls and their
-    bookkeeping, and not the prefill.  The wave must run n + 2 steps or
-    more.  Each step ends in a host sync, so the window's device time must
-    fit in its wall time.  (None, None) when the profiler saw no device
+    starts at the wave's second call of module.name (the serving step,
+    transformer.decode_step_multi, by default) and stops at its (n + 2)-th,
+    so the window holds n forwards, n sampler calls and their bookkeeping,
+    and not the prefill.  The wave must run n + 2 steps or more.  The
+    window starts and ends in a host sync, so its device time must fit in
+    its wall time.  (None, None) when the profiler saw no device
     activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from voicecraft_tpu_torch.models import transformer as trm
+    module = trm if module is None else module
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    step, calls, marks = trm.decode_step_multi, [0], []
+    step, calls, marks = getattr(module, name), [0], []
 
     def marked(*a, **kw):
         calls[0] += 1
@@ -1184,11 +1223,11 @@ def step_profile(run, n):
                 prof.stop()
         return step(*a, **kw)
 
-    trm.decode_step_multi = marked
+    setattr(module, name, marked)
     try:
         run()
     finally:
-        trm.decode_step_multi = step
+        setattr(module, name, step)
         if len(marks) == 1:
             prof.stop()
     if len(marks) < 2:
@@ -1508,10 +1547,11 @@ def paths_phase(model, codec, requests, edits, ccfg):
 
 # ---- phase 7 -----------------------------------------------------------------
 
-def serving_texts():
-    """(j)'s lane texts: words of PROMPT and TARGET, lane b from word 3b on,
-    up to 22 phones for the 2 s prompt and 128 for the 17.28 s one (the
-    lanes' length caps, 10 frames a phone, lie past their prompts)."""
+def serving_texts(start: int = 0):
+    """(j)'s lane texts: words of PROMPT and TARGET, lane b from word 3b +
+    start on, up to 22 phones for the 2 s prompt and 128 for the 17.28 s
+    one (the lanes' length caps, 10 frames a phone, lie past their
+    prompts)."""
     from voicecraft_tpu_torch.data.phonemes import make_text_tokenizer
     tok = make_text_tokenizer("en-us", "grapheme")
     words = (PROMPT + " " + TARGET).split()
@@ -1521,7 +1561,8 @@ def serving_texts():
         want = round(22 + 106 * (sec - lo) / (hi - lo))
         text, n = "", 0
         while True:
-            cand = (text + " " + words[(3 * b + n) % len(words)]).strip()
+            cand = (text + " " + words[(3 * b + start + n)
+                                       % len(words)]).strip()
             if len(tok.phonemize(cand)) > want:
                 break
             text, n = cand, n + 1
@@ -1919,6 +1960,474 @@ def serving_phase(model, codec, ccfg, serve, edits):
     return out
 
 
+# ---- phase 8 -----------------------------------------------------------------
+
+class EngineRecorder(DrawRecorder):
+    """DrawRecorder over a continuous-batching engine's run (one batcher at a
+    time, built inside the block or before it): besides each draw's
+    adjusted logits and each speculative pass's token counts, it keeps the
+    lanes' counts t at each plain step, each burst's first draw, first pass
+    and lane -> request map, and each retired request's delayed-space rows,
+    so that request(rid) gives the rows and the logits each was drawn from
+    (the first draw of a row in a plain burst; a speculative row's last
+    draw, the accepted one)."""
+
+    def __enter__(self):
+        super().__enter__()
+        import voicecraft_tpu_torch.inference.engine as em
+        cb = em.ContinuousBatcher
+        self._em = em
+        self._eorig = (em.spec_verify_pass, em._lane_decode_step,
+                       cb._dispatch_burst, cb._retire)
+        pass_, step, dispatch, retire = self._eorig
+        self.ts, self.bursts, self.kept = [], [], {}
+        em.spec_verify_pass = self._mods[1].spec_verify_pass  # recording
+
+        def stepping(*a):
+            self.ts.append(a[9].clone())          # t_lane of this step
+            return step(*a)
+
+        def dispatching(eng):
+            self.bursts.append((len(self.logits), len(self.passes),
+                                list(eng._lane_req)))
+            return dispatch(eng)
+
+        def retiring(eng, status, gen_src, lane_map):
+            before = set(eng._results)
+            retire(eng, status, gen_src, lane_map)
+            for b, rid in enumerate(lane_map):
+                if rid is not None and rid in eng._results and rid not in before:
+                    f = int(status[b, 2])
+                    n = f + 1 if f >= 0 else int(status[b, 1])
+                    self.kept[rid] = gen_src[b, :n].copy()
+
+        em._lane_decode_step = stepping
+        cb._dispatch_burst, cb._retire = dispatching, retiring
+        return self
+
+    def __exit__(self, *exc):
+        em, cb = self._em, self._em.ContinuousBatcher
+        (em.spec_verify_pass, em._lane_decode_step, cb._dispatch_burst,
+         cb._retire) = self._eorig
+        super().__exit__(*exc)
+
+    def request(self, rid):
+        """(rows [n, K], the logits [K, card] each row was drawn from)."""
+        import torch
+        rows, by_row = self.kept[rid], {}
+        ts = torch.stack(self.ts).cpu() if self.ts else None
+        ends = self.bursts[1:] + [(len(self.logits), len(self.passes), None)]
+        for (d0, p0, lane_map), (d1, p1, _) in zip(self.bursts, ends):
+            if rid not in lane_map:
+                continue
+            b = lane_map.index(rid)
+            for t, first, tau in self.passes[p0:p1]:
+                tb = int(t[b])
+                for i in range(tau):
+                    by_row[tb + i] = self.logits[first + i][b]
+            if p1 == p0:
+                for i in range(d0, d1):
+                    by_row.setdefault(int(ts[i, b]), self.logits[i][b])
+        return rows, [by_row[r] for r in range(len(rows))]
+
+    def pass_counts(self, rid):
+        """The token count t at the start of each speculative pass of rid."""
+        out = []
+        ends = self.bursts[1:] + [(len(self.logits), len(self.passes), None)]
+        for (_, p0, lane_map), (_, p1, _) in zip(self.bursts, ends):
+            if rid in lane_map:
+                b = lane_map.index(rid)
+                out += [int(t[b]) for t, _, _ in self.passes[p0:p1]]
+        return out
+
+
+def wav_bytes(wav, sr=16000) -> bytes:
+    """A mono PCM16 WAV file of wav [1, T] or [T]."""
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(sr)
+        wf.writeframes(np.round(np.clip(np.reshape(wav, -1), -1, 1) * 32767)
+                       .astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def pcm_of(b64) -> np.ndarray:
+    with wave.open(io.BytesIO(base64.b64decode(b64))) as wf:
+        return np.frombuffer(wf.readframes(wf.getnframes()), dtype="<i2")
+
+
+def engine_phase(model, codec, ccfg, serve, texts2, a_req, long_wav):
+    """Phase 8: the continuous-batching engine (o), streaming TTS (p) and
+    the HTTP server (q) at giga830M, each run's launch counts set to 0 just
+    before it and read just after.  Returns the launch counts of each
+    run."""
+    import dataclasses
+    import json as js
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+    import torch
+    import serve_torch_cli
+    from voicecraft_tpu_torch.data.phonemes import make_text_tokenizer
+    from voicecraft_tpu_torch.data.spans import compose_tts_prefix
+    from voicecraft_tpu_torch.inference import engine as em
+    from voicecraft_tpu_torch.inference.engine import ContinuousBatcher
+    from voicecraft_tpu_torch.inference.streaming import stream_tts
+    from voicecraft_tpu_torch.inference.tts import decode_geometry, run_decode
+    from voicecraft_tpu_torch.models import encodec as ec
+    from voicecraft_tpu_torch.models.voicecraft import (SamplingConfig,
+                                                        init_mtp_heads)
+    from voicecraft_tpu_torch.ops import _native
+    from voicecraft_tpu_torch.utils.quantize import quantize_decoder_fp8
+    cfg = model.cfg
+    K, L = cfg.n_codebooks, cfg.num_decoder_layers
+    sampled = SamplingConfig(top_k=40, top_p=1.0, temperature=1.0)
+    greedy = SamplingConfig(top_k=40, top_p=1.0, temperature=0.0)
+    bench_scfg = SamplingConfig(top_k=40, top_p=1.0, temperature=1.0,
+                                stop_repetition=3)
+    out = []
+
+    def counted(label, fn, want_flash):
+        """fn(), its wall s; the launch counts set to 0 just before and read
+        just after: the attention kernel want_flash times (an int, or a
+        function of fn's result), no FFN kernel."""
+        _native.reset_launch_counts()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(_native.LAUNCHES)
+        want = want_flash(res) if callable(want_flash) else want_flash
+        check_launches(label, launches, {"flash_prefix_attention": want,
+                                         "fused_ffn": 0})
+        out.append(launches)
+        return res, wall
+
+    def engine_run(label, m, reqs, scfg, lanes=ENGINE_LANES,
+                   pads=SERVE_PADS, record=False, **kw):
+        """Every request of reqs through one ContinuousBatcher.run(): the
+        attention kernel L times a prefill call (the wave and each refill)
+        when x_pad + y_pad >= 1024.  Returns (results in order, engine,
+        recorder or None)."""
+        eng = ContinuousBatcher(m, lanes=lanes, x_pad=pads[0], y_pad=pads[1],
+                                gen_max=pads[2], burst=ENGINE_BURST,
+                                scfg=scfg, seed=SEED, **kw)
+        ids = [eng.submit(x, y) for x, y in reqs]
+        kernel = pads[0] + pads[1] >= 1024
+        rec = EngineRecorder() if record else contextlib.nullcontext()
+        with rec:
+            res, wall = counted(label, eng.run, lambda _: L * (
+                eng.stats["waves"] + eng.stats["refills"]) * kernel)
+        outs = [res[i] for i in ids]
+        st = eng.stats
+        frames = sum(g.shape[1] for _, g in outs)
+        unit = "pass" if kw.get("spec") else "step"
+        units = "passes" if kw.get("spec") else "steps"
+        log(f"  ({label}) {len(reqs)} requests over {lanes} lanes, burst "
+            f"{ENGINE_BURST}, Sp {pads[0] + pads[1]}, gen_max {pads[2]}: "
+            f"{st['bursts']} bursts, {st['steps']} {units}, prefills: "
+            f"{st['waves']} wave + {st['refills']} refills; {frames} frames "
+            f"in {wall:.3f} s = {frames / wall:.1f} frames/s aggregate "
+            f"({st['steps'] / wall:.1f} {units}/s), "
+            f"{frames / (st['steps'] * lanes):.2f} frames a lane {unit}"
+            f"{'' if kw.get('spec') else ' (lane occupancy)'}")
+        for (full, gen), (x, y) in zip(outs, reqs):
+            if not (np.array_equal(full[:, :y.shape[1]], y)
+                    and full.shape == (K, y.shape[1] + gen.shape[1])
+                    and 0 < gen.shape[1] < pads[2]):
+                raise AssertionError(f"({label}): bad result {full.shape}, "
+                                     f"{gen.shape}")
+            if scfg.temperature > 0:     # greedy runs meet their references
+                check_wav(label, codec, ccfg, full)
+        return outs, eng, (rec if record else None)
+
+    def single_stream(label, x, codes):
+        """The request's greedy single-stream decode (run_decode, as
+        inference_tts runs it), its rows and their draws."""
+        prefix = compose_tts_prefix(codes, cfg)
+        gx, gy, _ = decode_geometry(cfg, len(x), prefix.length,
+                                    gen_max=GEN_MAX)
+        with DrawRecorder() as rec1:
+            (ref, _), _ = counted(label, lambda: run_decode(
+                model, is_tts=True, x_tokens=x, prefix=prefix, n_spans=1,
+                scfg=greedy, seed=SEED, gen_max=GEN_MAX, return_raw=True),
+                L if gx + gy >= 1024 else 0)
+        return ref, rec1.by_index()
+
+    def capped(rows, ref, ref_la):
+        # the engine keeps gen_max - 1 rows of a lane its cap stops (the
+        # JAX engine's rule), the single stream gen_max
+        if len(rows) == GEN_MAX - 1 and len(ref) == GEN_MAX:
+            return ref[:-1], ref_la[:-1]
+        return ref, ref_la
+
+    # ---- (o) the continuous-batching engine ----
+    reqs = ([(r.x, r.codes) for r in serve]
+            + [(x2, r.codes) for r, x2 in zip(serve, texts2)])
+    names = [f"{SERVE_SECONDS[i % len(serve)]} s, text {i // len(serve) + 1}"
+             for i in range(len(reqs))]
+    log(f"[8 engine] (o) {len(reqs)} requests: (j)'s {len(serve)} prompts "
+        f"with two texts each, x_lens {[len(x) for x, _ in reqs]}")
+    _, eng, rec = engine_run("o greedy", model, reqs, greedy, record=True)
+    if eng.stats["waves"] + eng.stats["refills"] < 2:
+        raise AssertionError(f"(o): no lane was refilled: {eng.stats}")
+    plain = [rec.request(rid) for rid in range(len(reqs))]
+    for i, ((x, codes), (rows, la)) in enumerate(zip(reqs, plain)):
+        ref, ref_la = single_stream(f"o request {i} single stream", x, codes)
+        ref, ref_la = capped(rows, ref, ref_la)
+        same_under_ties(f"(o) request {i} ({names[i]}) vs its single-stream "
+                        f"decode", rows, ref, la, ref_la)
+    engine_run("o sampled", model, reqs, sampled)
+    # one burst of PROFILE_STEPS + 2 steps after the startup wave
+    peng = ContinuousBatcher(model, lanes=ENGINE_LANES, x_pad=SERVE_PADS[0],
+                             y_pad=SERVE_PADS[1], gen_max=SERVE_PADS[2],
+                             burst=PROFILE_STEPS + 2, scfg=sampled, seed=SEED)
+    for x, y in reqs[:ENGINE_LANES]:
+        peng.submit(x, y)
+    (ops, ms), _ = counted("o profile", lambda: (peng._admit(), step_profile(
+        lambda: peng._dispatch_burst().read(), PROFILE_STEPS, em,
+        "_lane_decode_step"))[1], L)
+    log(f"  (o) engine step at B={ENGINE_LANES}, sampled: "
+        f"{'not measured' if ops is None else f'{ops:.1f}'} device "
+        f"operations and {'not measured' if ms is None else f'{ms:.4f}'} "
+        f"device ms per step (torch.profiler, {PROFILE_STEPS} steps of one "
+        f"burst)")
+    del peng
+
+    # bench.py's engine geometry: 2 x 32 requests, targets 60-100% of the
+    # frames through the x_len length cap, fp8 weights and slab
+    qmodel = quantize_decoder_fp8(model, pack_qkv=True)
+    rng = np.random.default_rng(SEED + 2)
+    cap = cfg.encodec_sr // 5
+    breqs = []
+    for i in range(2 * BENCH_LANES):
+        target = int(BENCH_ENGINE_FRAMES
+                     * (0.6 + 0.4 * (i % BENCH_LANES) / (BENCH_LANES - 1)))
+        breqs.append((rng.integers(0, cfg.text_vocab_size,
+                                   (target + BENCH_PROMPT) // cap + 1),
+                      rng.integers(0, cfg.audio_vocab_size,
+                                   (K, BENCH_PROMPT))))
+    log(f"  (o) bench.py's engine geometry: {2 * BENCH_LANES} requests, "
+        f"{BENCH_PROMPT}-frame random prompts, targets 60-100% of "
+        f"{BENCH_ENGINE_FRAMES} frames, quantize_decoder_fp8(pack_qkv=True), "
+        f"fp8 slab")
+    engine_run("o bench", qmodel, breqs, bench_scfg, lanes=BENCH_LANES,
+               pads=(BENCH_X_PAD, BENCH_Y_PAD, BENCH_ENGINE_FRAMES + 16),
+               kv_dtype="float8_e4m3fn")
+    del qmodel
+
+    # the speculative engine, random MTP heads
+    model.mtp_heads = init_mtp_heads(
+        dataclasses.replace(cfg, n_mtp=N_MTP),
+        torch.Generator(device="cuda").manual_seed(SEED + 4), "cuda")
+    log(f"  (o) speculative engine: {N_MTP} random MTP head groups, tau {TAU}")
+    _, eng, rec = engine_run("o speculative greedy", model, reqs, greedy,
+                             record=True, spec=TAU)
+    for rid, (rows_p, la_p) in enumerate(plain):
+        rows, la = rec.request(rid)
+        same_under_ties(f"(o) speculative request {rid} vs the plain "
+                        f"engine's", rows, rows_p, la, la_p)
+    rows = sum(len(r) for r in rec.kept.values())
+    passes = sum(sum(t < len(rec.kept[rid]) for t in rec.pass_counts(rid))
+                 for rid in rec.kept)
+    log(f"  (o) speculative greedy: {rows / passes:.2f} tokens a pass a lane "
+        f"({rows} rows in the {passes} passes that found their request "
+        f"unfinished)")
+    _, eng, rec = engine_run(
+        "o speculative force_accept", model, reqs[:ENGINE_LANES], greedy,
+        record=True, spec=TAU, spec_force_accept=True)
+    full_passes = []
+    for rid in range(ENGINE_LANES):
+        n, ts = len(rec.kept[rid]), rec.pass_counts(rid)
+        full_passes += [b - a for a, b in zip(ts, ts[1:]) if a + TAU <= n]
+    per = float(np.mean(full_passes))
+    log(f"  (o) force_accept: {len(full_passes)} passes that ended inside "
+        f"their lane's rows accepted {per:.2f} tokens a pass")
+    if set(full_passes) != {TAU}:
+        raise AssertionError(f"(o) force_accept: {sorted(set(full_passes))} "
+                             f"tokens a pass, not {TAU}")
+    del model.mtp_heads
+
+    # ---- (p) streaming TTS of request (a)'s prompt ----
+    x_a, codes_a = a_req.x, a_req.codes
+    prefix_a = compose_tts_prefix(codes_a, cfg)
+    gx, gy, _ = decode_geometry(cfg, len(x_a), prefix_a.length,
+                                gen_max=GEN_MAX)
+    ref, ref_la = single_stream("p single stream", x_a, codes_a)
+    streams = {}
+    for pipe in (True, False):
+        def stream():
+            t0, chunks, first = time.perf_counter(), [], None
+            for c in stream_tts(model, x_a, codes_a, greedy, seed=SEED,
+                                codec=codec, burst=ENGINE_BURST,
+                                gen_max=GEN_MAX, pipeline=pipe):
+                if first is None and c["audio"].size:
+                    first = time.perf_counter() - t0
+                chunks.append(c)
+            return chunks, first
+        with EngineRecorder() as rec:
+            (chunks, first), wall = counted(f"p pipeline {pipe}", stream,
+                                            L if gx + gy >= 1024 else 0)
+        gen = chunks[-1]["gen"]
+        audio = np.concatenate([c["audio"] for c in chunks])
+        log(f"  (p) stream_tts, 17.28 s prompt, Sp {gx + gy}, greedy, burst "
+            f"{ENGINE_BURST}, pipeline {pipe}: {len(chunks)} chunks, "
+            f"{gen.shape[1]} frames, first audio after {first * 1e3:.1f} ms, "
+            f"{audio.size / ccfg.sample_rate:.2f} s of audio in {wall:.3f} s "
+            f"= {audio.size / ccfg.sample_rate / wall:.2f}x realtime")
+        if not np.array_equal(np.concatenate([c["frames"] for c in chunks],
+                                             axis=1), gen):
+            raise AssertionError("(p): the streamed frames are not gen")
+        rows, la = rec.request(0)
+        r2, la2 = capped(rows, ref, ref_la)
+        same_under_ties(f"(p) stream, pipeline {pipe}, vs the single "
+                        f"stream", rows, r2, la, la2)
+        one_shot = ec.decode_bucketed(codec, gen[None])[0]
+        err = float(np.abs(audio - one_shot).max()) if audio.size else 0.0
+        if audio.shape != one_shot.shape:
+            raise AssertionError(f"(p): audio {audio.shape} against "
+                                 f"{one_shot.shape}")
+        check("streamed audio vs decode_bucketed of gen", err,
+              CODEC_WAV_TOL)
+        streams[pipe] = gen
+    if not np.array_equal(streams[True], streams[False]):
+        raise AssertionError("(p): pipeline on and off differ")
+
+    # ---- (q) the HTTP server, in process ----
+    t0 = time.time()
+    args = serve_torch_cli.build_parser().parse_args([
+        "--model", "giga830M", "--random-init", "--device", "cuda",
+        "--seed", str(SEED),
+        "--text-backend", "grapheme", "--batch-window-ms", "500"])
+    server_eng = serve_torch_cli.Engine(args)
+    waves = []
+
+    class Waves(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("micro-batch wave"):
+                waves.append(record.getMessage())
+
+    slog = logging.getLogger("voicecraft_tpu_torch.serve")
+    handler = Waves()
+    slog.addHandler(handler)
+    slog.setLevel(logging.INFO)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                serve_torch_cli.make_handler(server_eng))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    log(f"  (q) serve_torch_cli.Engine on giga830M built in "
+        f"{time.time() - t0:.1f} s, serving {base}")
+
+    def post(path, payload, raw=False):
+        req = urllib.request.Request(base + path,
+                                     data=js.dumps(payload).encode(),
+                                     method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            if r.status != 200:
+                raise AssertionError(f"(q) {path}: HTTP {r.status}")
+            body, first = b"", None
+            while True:
+                blk = r.read(65536)
+                if not blk:
+                    break
+                if first is None and len(body) + len(blk) > 44:
+                    first = time.perf_counter() - t0
+                body += blk
+        lat = time.perf_counter() - t0
+        return (body, first, lat) if raw else (js.loads(body), lat)
+
+    def check_tts(name, res, lat):
+        pcm = pcm_of(res["wav_b64"])
+        log(f"  (q) {name}: HTTP 200 in {lat:.3f} s, {res['gen_sec']:.2f} s "
+            f"generated")
+        if not (res["gen_sec"] > 0 and pcm.size == round(res["gen_sec"] *
+                                                         ccfg.sample_rate)
+                and np.abs(pcm).max() > 0):
+            raise AssertionError(f"(q) {name}: {pcm.size} samples for "
+                                 f"{res['gen_sec']} s")
+
+    demo_b64 = base64.b64encode((REPO / "demo" / "demo.wav").read_bytes()
+                                ).decode()
+    try:
+        _native.reset_launch_counts()
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            info = js.loads(r.read())
+        log(f"  (q) /healthz: HTTP {r.status}, {info}")
+        results = [None, None]
+
+        def tts(i, text):
+            results[i] = post("/tts", {
+                "prompt_wav_b64": demo_b64, "prompt_end_sec": 2.0,
+                "prompt_transcript": "the sound of birds",
+                "target_transcript": text, "seed": SEED})
+
+        ths = [threading.Thread(target=tts, args=(i, t))
+               for i, t in enumerate(["the river runs", "the old mill"])]
+        [t.start() for t in ths]
+        [t.join() for t in ths]
+        for i, r in enumerate(results):
+            if r is None:
+                raise AssertionError(f"(q) /tts {i} failed")
+            check_tts(f"/tts {i} (concurrent)", *r)
+        log(f"  (q) micro-batch waves: {waves}")
+        if not any("2 slot(s) [tts,tts]" in w for w in waves):
+            raise AssertionError("(q): the two /tts did not share a wave")
+        rr, lat = post("/rerun", {"session": results[0][0]["session"],
+                                  "sentence_idx": 0, "seed": 7})
+        one = pcm_of(rr["sentence_wav_b64"])
+        log(f"  (q) /rerun: HTTP 200 in {lat:.3f} s, {one.size} samples")
+        if not (0 < one.size == pcm_of(rr["wav_b64"]).size
+                and one.size % ccfg.hop_length == 0):
+            raise AssertionError("(q) /rerun: bad audio")
+        with open(REPO / "demo" / "demo_alignment.csv") as f:
+            rows = [{k: (float(v) if k in ("Begin", "End") else v)
+                     for k, v in r.items()} for r in csv.DictReader(f)]
+        ed, lat = post("/edit", {
+            "wav_b64": demo_b64, "orig_transcript": PROMPT,
+            "target_transcript": EDIT_TARGET, "edit_type": "substitution",
+            "alignment": rows, "seed": SEED})
+        s, e = ed["edit_interval_frames"]
+        pcm = pcm_of(ed["wav_b64"])
+        kept = 216 - (e - s)
+        log(f"  (q) /edit (demo_alignment.csv rows): HTTP 200 in {lat:.3f} "
+            f"s, frames [{s}, {e}) regenerated, {pcm.size} samples")
+        if not (0 < s < e <= 216 and pcm.size % ccfg.hop_length == 0
+                and pcm.size >= kept * ccfg.hop_length):
+            raise AssertionError("(q) /edit: bad result")
+        launches = dict(_native.LAUNCHES)
+        check_launches("q /tts, /rerun, /edit", launches,
+                       {"flash_prefix_attention": 0, "fused_ffn": 0})
+        out.append(launches)
+        # the stream: the 17.28 s prompt, a text of letters every request
+        # before has put in the server's vocabulary, 97-128 phones: Sp 1024
+        text = " ".join(["the sound of birds"] * 6)
+        n_ph = len(make_text_tokenizer("en-us", "grapheme").phonemize(text))
+        if not 96 < n_ph <= 128:
+            raise AssertionError(f"(q): stream text of {n_ph} phones")
+        (body, first, lat), _ = counted("q /tts_stream", lambda: post(
+            "/tts_stream", {
+                "prompt_wav_b64": base64.b64encode(wav_bytes(long_wav)
+                                                   ).decode(),
+                "target_transcript": text, "seed": SEED, "burst": 48},
+            raw=True), L)
+        pcm = np.frombuffer(body[44:], dtype="<i2")
+        log(f"  (q) /tts_stream (17.28 s prompt, {n_ph} phones, Sp 1024): "
+            f"HTTP 200, first audio after {first * 1e3:.1f} ms, "
+            f"{pcm.size / ccfg.sample_rate:.2f} s of audio in {lat:.3f} s")
+        if not (body[:4] == b"RIFF" and body[8:12] == b"WAVE" and pcm.size
+                and pcm.size % ccfg.hop_length == 0
+                and np.abs(pcm).max() > 0):
+            raise AssertionError("(q) /tts_stream: bad stream")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        slog.removeHandler(handler)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2086,6 +2595,16 @@ def main() -> None:
         launches = {name: n + wave_launches[name]
                     for name, n in launches.items()}
     log(f"[7 serving] done in {time.time() - t0:.1f} s")
+
+    # ---- 8. continuous batching, streaming, the HTTP server ----
+    t0 = time.time()
+    texts2 = [np.asarray(phones_to_ids(tok.phonemize(t), vocab), np.int32)
+              for t in serving_texts(ENGINE_TEXT_START)]
+    for run_launches in engine_phase(model, codec, ccfg, serve, texts2,
+                                     requests[0], long_wav):
+        launches = {name: n + run_launches[name]
+                    for name, n in launches.items()}
+    log(f"[8 engine] done in {time.time() - t0:.1f} s")
 
     kernels = [
         dict(name="flash_prefix_attention", route="cuda",

@@ -196,9 +196,9 @@ def test_fused_ffn_rejects_non_relu_models():
 
 def test_kernel_build_is_keyed_by_sources_and_reports_nvcc_errors(
         tmp_path, monkeypatch):
-    """The build glue of ops/_native.py with a stand-in nvcc: one compile
-    per distinct set of sources, reuse otherwise, and a failing compile
-    raises with the compiler's message."""
+    """The build glue of ops/_native.py with a stand-in nvcc: one build per
+    distinct set of sources (an nvcc per source, then a link), reuse
+    otherwise, and a failing compile raises with the compiler's message."""
     from voicecraft_tpu_torch.ops import _native
     csrc, bin_dir = tmp_path / "csrc", tmp_path / "cuda" / "bin"
     csrc.mkdir()
@@ -225,7 +225,7 @@ def test_kernel_build_is_keyed_by_sources_and_reports_nvcc_errors(
     (csrc / "common.cuh").write_text("// header, edited\n")
     path2, _ = _native.build()
     assert path2 != path and path2.exists()
-    assert len(calls.read_text().split()) == 2
+    assert len(calls.read_text().split()) == 2 * 2    # a.cu, the link
     (csrc / "broken.cu").write_text("// does not compile\n")
     with pytest.raises(RuntimeError, match="error: broken.cu"):
         _native.build()

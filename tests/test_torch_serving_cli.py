@@ -135,12 +135,13 @@ def test_tts_batch_cli_wave_options_equal_serve_tts_batch(tmp_path, flags,
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--spec", "auto"], "--spec auto is not yet ported"),
-    (["--spec", "auto:4"], "--spec auto is not yet ported"),
+    (["--spec", "fast"], "--spec takes an integer TAU or auto"),
     (["--wer"], "--wer is not yet ported"),
     (["--asr-model", "whisper"], "--asr-model is not yet ported")])
 def test_tts_batch_cli_refuses_flags_not_yet_ported(tmp_path, capsys, flags,
                                                     message):
+    """The Whisper flags, and a --spec that is neither TAU nor auto (--spec
+    auto itself runs: tests/test_torch_autospec.py)."""
     with pytest.raises(SystemExit):
         _tts_cli(tmp_path, *flags)
     assert message in capsys.readouterr().err

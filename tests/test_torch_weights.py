@@ -127,12 +127,15 @@ def test_port_imports_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
         "for n in names + ['tts_torch_cli', 'edit_torch_cli', 'chip_smoke',\n"
-        "                  'tts_batch_torch_cli', 'realedit_torch_cli']:\n"
+        "                  'tts_batch_torch_cli', 'realedit_torch_cli',\n"
+        "                  'serve_torch_cli']:\n"
         "    importlib.import_module(n)\n"
         "for n in ('models.voicecraft', 'inference.editing', 'align',\n"
         "          'utils.convert_encodec', 'utils.transcribe',\n"
         "          'utils.quantize', 'inference.spec_common',\n"
-        "          'inference.serving'):\n"
+        "          'inference.serving', 'inference.engine',\n"
+        "          'inference.streaming', 'inference.autospec', 'app',\n"
+        "          'utils.text_norm'):\n"
         "    assert 'voicecraft_tpu_torch.' + n in names, n\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -155,7 +158,8 @@ def test_port_source_has_no(banned):
     (library_ms) beside the attention kernel."""
     files = [*PORT.rglob("*.py"), REPO / "tts_torch_cli.py",
              REPO / "edit_torch_cli.py", REPO / "tts_batch_torch_cli.py",
-             REPO / "realedit_torch_cli.py", REPO / "chip_smoke.py"]
+             REPO / "realedit_torch_cli.py", REPO / "serve_torch_cli.py",
+             REPO / "chip_smoke.py"]
     hits = []
     for p in files:
         lines = [ln for ln in p.read_text().splitlines() if banned in ln]

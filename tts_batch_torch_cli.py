@@ -20,7 +20,7 @@ concat_<name>_<i>_seed<seed>.wav.  Every lane of a wave is keyed on
 
   python tts_batch_torch_cli.py --model giga830M --random-init \\
       --text-backend grapheme --manifest m.tsv --audio-root /data \\
-      --output-dir out/ --lanes 8 [--kv-fp8] [--fp8] [--spec 4]
+      --output-dir out/ --lanes 8 [--kv-fp8] [--fp8] [--spec 4 | auto]
 
 Smoke mode (no checkpoints, CPU):
 
@@ -79,11 +79,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the waves' KV slab in float8_e4m3fn")
     ap.add_argument("--fp8", action="store_true",
                     help="weight-only fp8 decoder (quantize_decoder_fp8)")
-    ap.add_argument("--spec", default="0", metavar="TAU",
+    ap.add_argument("--spec", default="0", metavar="TAU|auto[:T1,T2..]",
                     help="speculative decoding with TAU tokens per verified "
                          "pass across lanes (the model needs TAU - 1 MTP "
                          "head groups; --random-init adds them); greedy "
-                         "output equals plain decoding's")
+                         "output equals plain decoding's.  'auto' picks the "
+                         "mode of each wave with a throughput bandit over "
+                         "{plain, tau=4, the model's full MTP depth} "
+                         "(inference/autospec.py; plain without MTP "
+                         "heads); 'auto:T1,T2' names the taus")
     ap.add_argument("--spec-sampling", default="exact",
                     choices=["exact", "stochastic"])
     ap.add_argument("--random-init", action="store_true")
@@ -104,13 +108,12 @@ def main(argv=None):
         if getattr(args, name) != ap.get_default(name):
             ap.error(f"--{name.replace('_', '-')} is not yet ported to "
                      "voicecraft_tpu_torch (it needs a Whisper snapshot)")
-    if str(args.spec).startswith("auto"):
-        ap.error("--spec auto is not yet ported to voicecraft_tpu_torch "
-                 "(it needs inference/autospec.py); give --spec TAU")
+    auto = str(args.spec).strip().lower().startswith("auto")
     try:
-        spec = int(args.spec)
+        spec = 0 if auto else int(args.spec)
     except ValueError:
-        ap.error(f"--spec takes an integer TAU, got {args.spec!r}")
+        ap.error(f"--spec takes an integer TAU or auto[:T1,T2..], got "
+                 f"{args.spec!r}")
     if args.lanes < 1:
         ap.error("--lanes must be >= 1")
     logging.basicConfig(level=logging.INFO)
@@ -120,6 +123,7 @@ def main(argv=None):
     from voicecraft_tpu_torch.data.phonemes import (build_vocab,
                                                     make_text_tokenizer,
                                                     phones_to_ids)
+    from voicecraft_tpu_torch.inference.autospec import resolve_spec_arg
     from voicecraft_tpu_torch.inference.loader import load_codec, load_model
     from voicecraft_tpu_torch.inference.serving import serve_tts_batch
     from voicecraft_tpu_torch.inference.tts import inference_tts
@@ -144,6 +148,9 @@ def main(argv=None):
     if args.fp8:
         from voicecraft_tpu_torch.utils.quantize import quantize_decoder_fp8
         model = quantize_decoder_fp8(model, pack_qkv=True)
+    spec, autospec = resolve_spec_arg(args.spec, model)
+    if auto and spec == 0:
+        log.warning("--spec auto: the model has no MTP heads; plain waves")
     ccfg, codec = load_codec(args.codec, args.random_init, args.seed, device,
                              codebook_size=cfg.audio_vocab_size)
     tok = make_text_tokenizer(args.language, args.text_backend)
@@ -179,11 +186,18 @@ def main(argv=None):
         wave = reqs[lo:lo + args.lanes]
         stats: dict = {}
         t_wave = time.time()
+        mode = spec
         if len(wave) > 1 or spec > 1 or args.kv_fp8:
+            # the bandit picks each wave's mode and learns from its
+            # measured throughput
+            mode = autospec.next_mode() if autospec is not None else spec
             outs = serve_tts_batch(
                 model, wave, scfg, seed=args.seed,
-                kv_dtype="float8_e4m3fn" if args.kv_fp8 else None, spec=spec,
+                kv_dtype="float8_e4m3fn" if args.kv_fp8 else None, spec=mode,
                 stats=stats)
+            if autospec is not None:
+                autospec.observe(mode, stats["frames"], stats["seconds"],
+                                 tok_per_pass=stats["tok_per_pass"])
         else:
             # a lone plain request decodes as tts_torch_cli.py would
             x, y = wave[0]
@@ -192,9 +206,9 @@ def main(argv=None):
         log.info("wave %d..%d: %d frames in %.2fs (%d %s)%s", lo,
                  lo + len(wave) - 1, sum(g.shape[1] for _, g in outs),
                  time.time() - t_wave, stats["steps"],
-                 "passes" if spec > 1 else "steps",
+                 "passes" if mode > 1 else "steps",
                  f", {stats['tok_per_pass']:.2f} tokens/pass per lane"
-                 if spec > 1 else "")
+                 if mode > 1 else "")
         for (full, gen), (i, row, prompt_wav) in zip(
                 outs, metas[lo:lo + args.lanes]):
             name = row["out_name"]
@@ -208,6 +222,8 @@ def main(argv=None):
                 args.output_dir, f"concat_{base}_{i}_seed{args.seed}.wav"),
                 np.concatenate([prompt_wav[0], gen_wav]), ccfg.sample_rate)
         outs_all += outs
+    if autospec is not None:
+        log.info("autospec: %s", autospec.snapshot())
     log.info("%d rows in %.1fs", len(rows), time.time() - t0)
     return outs_all
 

@@ -57,28 +57,37 @@ def lane_seeds(seed: Union[int, Sequence[int]], lanes: int) -> List[int]:
     return seeds
 
 
-def lane_generators(seed: Union[int, Sequence[int]], device,
-                    lanes: int) -> List[torch.Generator]:
-    """One sequential generator per lane, lane b keyed on (seed_b, b)."""
-    return [seeded_generator((s, b), device)
-            for b, s in enumerate(lane_seeds(seed, lanes))]
+def lane_generators(seed: Union[int, Sequence[int]], device, lanes: int,
+                    lane_ids: Optional[Sequence[int]] = None
+                    ) -> List[torch.Generator]:
+    """One sequential generator per lane, lane b keyed on (seed_b, id_b):
+    id_b = b, or ``lane_ids[b]`` (the continuous-batching engine keys a
+    lane on its request's admission, so that a request draws the same noise
+    in any lane)."""
+    ids = range(lanes) if lane_ids is None else lane_ids
+    return [seeded_generator((s, int(i)), device)
+            for s, i in zip(lane_seeds(seed, lanes), ids)]
 
 
 def token_generators(scfg: SamplingConfig, seed: Union[int, Sequence[int]],
-                     device, lanes: int = 1) -> TokenGenerators:
+                     device, lanes: int = 1,
+                     lane_ids: Optional[Sequence[int]] = None
+                     ) -> TokenGenerators:
     """gens(index, salt=0) -> one generator per lane for the draws of token
-    ``index`` (an int, or one index per lane), lane b keyed on (seed_b, b,
-    index_b, salt); None when sampling is greedy and draws nothing.
-    ``seed``: one seed for every lane, or one per lane."""
+    ``index`` (an int, or one index per lane), lane b keyed on (seed_b,
+    id_b, index_b, salt) with id_b = b or ``lane_ids[b]``; None when
+    sampling is greedy and draws nothing.  ``seed``: one seed for every
+    lane, or one per lane."""
     if scfg.temperature <= 0:
         return lambda index, salt=0: None
     seeds = lane_seeds(seed, lanes)
+    ids = [int(i) for i in (range(lanes) if lane_ids is None else lane_ids)]
 
     def gens(index, salt=0):
         idx = ([int(index)] * lanes if isinstance(index, (int, np.integer))
                else [int(i) for i in index])
         return [seeded_generator((s, b, i, salt), device)
-                for b, (s, i) in enumerate(zip(seeds, idx))]
+                for b, s, i in zip(ids, seeds, idx)]
     return gens
 
 

@@ -1,6 +1,6 @@
 """EnCodec neural audio codec (PyTorch port of voicecraft_tpu/models/encodec.py,
-the non-streaming codec): SEANet conv encoder/decoder with a 2-layer LSTM,
-and residual vector quantization.
+with its exact streaming decode): SEANet conv encoder/decoder with a 2-layer
+LSTM, and residual vector quantization.
 
 Activations inside are [B, C, T] (PyTorch's conv layout); the public
 ``encode`` takes a wav [B, T] and returns codes [B, n_q, T'], and
@@ -328,3 +328,206 @@ def decode_bucketed(codec: Encodec, codes: np.ndarray,
     padded[..., :T] = codes
     wav = codec.decode(torch.from_numpy(padded).to(codec.device))
     return wav.cpu().numpy()[..., :T * codec.cfg.hop_length]
+
+
+# ==============================================================================
+# exact incremental (streaming) decode
+# ==============================================================================
+#
+# The decoder stack is causal end to end, so a chunk of frames decodes with
+# O(chunk) work by carrying per-layer state instead of re-decoding the whole
+# prefix:
+#   * stride-1 causal convs carry their last (kernel_eff - 1) input samples;
+#   * the LSTM carries (h, c) per layer (nn.LSTM's hx);
+#   * transposed convs carry the (K - stride)-sample output tail
+#     (overlap-add; the bias added once, on emission).
+# The one non-causal wrinkle is the reflect LEFT pad at the sequence start:
+# the first output samples depend on inputs 1..pad, so the FIRST chunk must
+# carry at least kernel_size frames (STREAM_MIN_FIRST); the first call runs
+# the normal causal-padded conv and captures carries, later calls run VALID
+# convs over [carry ; chunk].  Activations are [B, C, T], as in the modules.
+
+STREAM_MIN_FIRST = 7     # kernel_size of the decoder's init conv
+
+
+def _sconv(conv: SConv1d, x: torch.Tensor, carry: torch.Tensor, first: bool):
+    """Streaming stride-1 causal conv: exactly x.shape[-1] outputs, and the
+    new carry."""
+    ke = (conv.weight.shape[-1] - 1) * conv.dilation + 1
+    if first:
+        y, xc = conv(x), x
+    else:
+        xc = torch.cat([carry, x], dim=-1)
+        y = F.conv1d(xc, conv.weight, conv.bias, dilation=conv.dilation)
+    return y, (xc[..., xc.shape[-1] - (ke - 1):] if ke > 1 else carry)
+
+
+def _sconvtr(convtr: SConvTranspose1d, x: torch.Tensor, tail: torch.Tensor):
+    """Streaming causal ConvTranspose1d (trim_right_ratio 1): overlap-add.
+    Emits x.shape[-1] * stride samples; carries the (K - stride)-sample tail
+    WITHOUT bias."""
+    stride, K = convtr.stride, convtr.weight.shape[-1]
+    y = F.conv_transpose1d(x, convtr.weight, None, stride=stride)
+    y = torch.cat([y[..., :K - stride] + tail, y[..., K - stride:]], dim=-1)
+    m = x.shape[-1] * stride
+    return y[..., :m] + convtr.bias[:, None], y[..., m:]
+
+
+def _slstm(slstm: SLSTM, x: torch.Tensor, carry, first: bool):
+    """Streaming SLSTM: the LSTM continues from ``carry`` = (h, c), each
+    [layers, B, H] (zeros on the first chunk)."""
+    y, hc = slstm.lstm(x.transpose(1, 2), None if first else carry)
+    return y.transpose(1, 2) + x, hc
+
+
+def _sresnet(blk: ResnetBlock, x: torch.Tensor, st: dict, first: bool):
+    h, c1 = _sconv(blk.conv1, F.elu(x), st["conv1"], first)
+    h, c2 = _sconv(blk.conv2, F.elu(h), st["conv2"], first)
+    new_st = {"conv1": c1, "conv2": c2}
+    if blk.shortcut is None:
+        return x + h, new_st
+    s, new_st["shortcut"] = _sconv(blk.shortcut, x, st["shortcut"], first)
+    return s + h, new_st
+
+
+def stream_decode_init(codec: "Encodec", B: int = 1) -> dict:
+    """Zero-initialised per-layer streaming state of the decoder."""
+    dec, dev = codec.decoder, codec.device
+
+    def conv_carry(conv: SConv1d):
+        ke = (conv.weight.shape[-1] - 1) * conv.dilation + 1
+        return torch.zeros((B, conv.weight.shape[1], ke - 1), device=dev)
+
+    def res_st(blk: ResnetBlock):
+        st = {"conv1": conv_carry(blk.conv1), "conv2": conv_carry(blk.conv2)}
+        if blk.shortcut is not None:
+            st["shortcut"] = conv_carry(blk.shortcut)
+        return st
+
+    stages = [{"up": torch.zeros((B, stage.up.weight.shape[1],
+                                  stage.up.weight.shape[-1] - stage.up.stride),
+                                 device=dev),
+               "blocks": [res_st(blk) for blk in stage.blocks]}
+              for stage in dec.stages]
+    lstm = None
+    if dec.lstm is not None:
+        m = dec.lstm.lstm
+        z = torch.zeros((m.num_layers, B, m.hidden_size), device=dev)
+        lstm = (z, z.clone())
+    return {"init": conv_carry(dec.init), "lstm": lstm, "stages": stages,
+            "final": conv_carry(dec.final)}
+
+
+def decode_frames_stream(decoder: SEANetDecoder, z: torch.Tensor, st: dict,
+                         first: bool):
+    """Streaming SEANetDecoder.forward: z [B, dimension, m] -> (wav [B,
+    channels, m * hop], new state).  With ``first`` the carries in ``st``
+    are ignored (the sequence-start reflect pad is used instead) and fresh
+    ones captured; m must then be >= STREAM_MIN_FIRST."""
+    x, c_init = _sconv(decoder.init, z, st["init"], first)
+    c_lstm = None
+    if decoder.lstm is not None:
+        x, c_lstm = _slstm(decoder.lstm, x, st["lstm"], first)
+    stages = []
+    for stage, sst in zip(decoder.stages, st["stages"]):
+        x, tail = _sconvtr(stage.up, F.elu(x), sst["up"])
+        blocks = []
+        for blk, bst in zip(stage.blocks, sst["blocks"]):
+            x, cb = _sresnet(blk, x, bst, first)
+            blocks.append(cb)
+        stages.append({"up": tail, "blocks": blocks})
+    x, c_fin = _sconv(decoder.final, F.elu(x), st["final"], first)
+    return x, {"init": c_init, "lstm": c_lstm, "stages": stages,
+               "final": c_fin}
+
+
+class StreamingDecoder:
+    """Exact incremental codes -> wav decoder (host driver).
+
+    ``feed(frames [n_q, m])`` returns the newly settled samples: every
+    sample of the stream so far beyond what earlier feeds returned, equal
+    (up to f32 summation order) to the same positions of ``Encodec.decode``
+    of the whole sequence.  Work per feed is O(m + chunk): full
+    ``chunk_frames`` blocks advance the carried state; a trailing partial
+    block is decoded off a CLONED state (zero-padded to the chunk; strict
+    causality keeps the emitted prefix exact) and decoded again once enough
+    frames arrive.  Before STREAM_MIN_FIRST frames exist nothing is emitted
+    (the sequence-start reflect pad needs them); ``flush`` decodes such a
+    short utterance in one shot and makes the stream terminal.
+    """
+
+    def __init__(self, codec: "Encodec", chunk_frames: int = 16):
+        assert codec.cfg.causal, "streaming decode requires a causal codec"
+        assert chunk_frames >= STREAM_MIN_FIRST
+        self.codec = codec
+        self.chunk = chunk_frames
+        self.pending = np.zeros((codec.cfg.n_q, 0), np.int64)
+        self.state = None              # carries for frames consumed so far
+        self.state_frames = 0          # frames consumed into self.state
+        self.emitted = 0               # samples returned so far (global)
+        self.flushed = False           # flush() makes the stream terminal
+
+    @torch.inference_mode()
+    def _run(self, frames: np.ndarray, persist: bool) -> np.ndarray:
+        """Decode ``frames`` [n_q, chunk] on top of self.state."""
+        first = self.state is None
+        codec = self.codec
+        st = stream_decode_init(codec) if first else self.state
+        codes = torch.from_numpy(frames[None]).to(codec.device)
+        z = rvq_decode(codec.codebooks, codes).transpose(1, 2)
+        wav, st = decode_frames_stream(codec.decoder, z, st, first)
+        if persist:
+            self.state = st
+            self.state_frames += frames.shape[1]
+        return wav[0, 0].float().cpu().numpy()
+
+    def feed(self, new_frames: np.ndarray) -> np.ndarray:
+        if self.flushed:
+            # the flush of a sub-minimum stream decoded its prefix with the
+            # sequence-START reflect pad; later frames would change those
+            # samples, so the stream is terminal
+            raise RuntimeError("StreamingDecoder.feed() after flush(): "
+                               "the stream is terminal")
+        hop = self.codec.cfg.hop_length
+        if new_frames.shape[1]:
+            self.pending = np.concatenate(
+                [self.pending, np.asarray(new_frames, np.int64)], axis=1)
+        out = []
+
+        def emit(wav, start_frame):
+            # drop the samples an earlier partial-block run returned
+            lo = self.emitted - start_frame * hop
+            if lo < wav.shape[0]:
+                out.append(wav[max(lo, 0):])
+                self.emitted = start_frame * hop + wav.shape[0]
+
+        while self.pending.shape[1] >= self.chunk:
+            start = self.state_frames
+            wav = self._run(self.pending[:, :self.chunk], persist=True)
+            self.pending = self.pending[:, self.chunk:]
+            emit(wav, start)
+        r = self.pending.shape[1]
+        if r and (self.state is not None
+                  or self.state_frames + r >= STREAM_MIN_FIRST):
+            padded = np.zeros((self.codec.cfg.n_q, self.chunk), np.int64)
+            padded[:, :r] = self.pending
+            emit(self._run(padded, persist=False)[:r * hop], self.state_frames)
+        if not out:
+            return np.zeros((0,), np.float32)
+        return np.concatenate(out).astype(np.float32)
+
+    def flush(self) -> np.ndarray:
+        """Emit anything still held back and make the stream terminal
+        (idempotent; a later feed() raises).  Only a whole utterance under
+        STREAM_MIN_FIRST frames is held back; it is decoded in one shot."""
+        r = self.pending.shape[1]
+        hold = (not self.flushed and self.state is None
+                and 0 < r < STREAM_MIN_FIRST)
+        self.flushed = True
+        if hold:
+            held, self.pending = self.pending, self.pending[:, :0]
+            wav = self.codec.decode(torch.from_numpy(held[None]).to(
+                self.codec.device))[0]
+            self.emitted = r * self.codec.cfg.hop_length
+            return wav.float().cpu().numpy()
+        return np.zeros((0,), np.float32)

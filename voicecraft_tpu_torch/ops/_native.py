@@ -71,9 +71,10 @@ def _nvcc() -> str:
 
 
 def build() -> Tuple[Path, str]:
-    """Compile csrc/*.cu unless a library for these exact sources exists.
-    Returns (library path, the compiler's stderr: ptxas resource lines, or ""
-    when the library was already built)."""
+    """Compile csrc/*.cu unless a library for these exact sources exists:
+    one nvcc per source, all started together, then one link.  Returns
+    (library path, the compiler's stderr: ptxas resource lines, or "" when
+    the library was already built)."""
     sources = sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sources:
@@ -84,15 +85,30 @@ def build() -> Tuple[Path, str]:
     if lib_path.exists():
         return lib_path, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libvc_kernels.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources if p.suffix == ".cu"]]
+    tag = f"{os.getpid()}.tmp"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []
+    for src in (p for p in sources if p.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs = [proc.communicate()[1] for _, _, proc in jobs]   # wait for all
+    for (cmd, _, proc), err in zip(jobs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:"
+                               f"\n{' '.join(cmd)}\n{err}")
+    tmp = out_dir / f"libvc_kernels.{tag}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+           *[str(obj) for _, obj, _ in jobs]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
                            f"{' '.join(cmd)}\n{proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink()
     os.replace(tmp, lib_path)
-    return lib_path, proc.stderr
+    return lib_path, "".join(logs) + proc.stderr
 
 
 def lib() -> ctypes.CDLL:

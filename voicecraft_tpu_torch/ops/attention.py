@@ -194,6 +194,42 @@ def _lane_valid(S_max, x_lens, x_pad, prefix_lens, y_start, gen_end, device):
     return valid[:, None, None, :]
 
 
+def _ring_valid(S_max, x_lens, x_pad, prefix_lens, y_start, W, gstep, t_lane,
+                device):
+    """Slab keys [B, 1, 1, S_max] of B continuous-batching lanes: text and
+    prompt as :func:`_lane_valid`, and the generated RING [y_start, y_start
+    + W), written at slot g mod W on global step g: slot r was last written
+    age(r) = 1 + ((gstep - 1 - r) mod W) steps ago and belongs to lane b's
+    history iff age <= t_b (and the clock has run that far)."""
+    j = torch.arange(S_max, device=device)[None, :]
+    age = 1 + torch.remainder(gstep - 1 - (j - y_start), W)
+    valid = ((j < x_lens[:, None])
+             | ((j >= x_pad) & (j < x_pad + prefix_lens[:, None]))
+             | ((j >= y_start) & (age <= t_lane[:, None]) & (gstep >= age)))
+    return valid[:, None, None, :]
+
+
+def decode_attention_ring(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, k_new: torch.Tensor,
+                          v_new: torch.Tensor, nhead: int,
+                          x_lens: torch.Tensor, x_pad: int,
+                          prefix_lens: torch.Tensor, y_start: int, W: int,
+                          gstep, t_lane: torch.Tensor) -> torch.Tensor:
+    """Decode attention of the continuous-batching engine: one query per
+    lane over the read-only slab, whose generated region is a ring of W
+    slots (:func:`_ring_valid`), plus the lane's own k/v.  The slab is read
+    in place (``slab_scores`` / ``slab_pv``).  A lane reads only its own
+    batch row, so lanes never mix.
+
+    q: [B, 1, D]; k_cache/v_cache: [B, S_max, H, Dh]; k_new/v_new:
+    [B, 1, H, Dh]; x_lens / prefix_lens / t_lane: [B]; gstep: the global
+    steps completed before this one (0-d tensor or int).
+    """
+    valid = _ring_valid(k_cache.shape[1], x_lens, x_pad, prefix_lens, y_start,
+                        W, gstep, t_lane, q.device)
+    return _attend_one(q, k_cache, v_cache, valid, k_new, v_new)
+
+
 def decode_attention_self(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, kv_len: torch.Tensor,
                           k_new: torch.Tensor, v_new: torch.Tensor,
