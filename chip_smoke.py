@@ -113,6 +113,28 @@ Phases, in order; any failure raises and the script exits non-zero:
               and /tts_stream of the 17.28 s prompt (the kernel), each HTTP
               200 with audio of the expected length, latencies printed.
 
+  9. training giga830M at full width with the e830M recipe (ScaledAdam lr
+              0.05, codebook weights 5 1 0.5 0.1, chunked attention, remat
+              "attn", the preset's dropouts, f32 master weights, bf16
+              compute) on a synthetic manifest of 256 + 16 utterances of
+              2-20 s (write_manifest_tree, codes from a seed, phones of
+              phase 7's texts): (r) forward_train's loss and every
+              gradient at 2 layers, the card in bf16 against the CPU in f32,
+              and chunked against dense attention on the card, within the
+              stated tolerances; (s) Trainer.train at full depth, 8 steps at
+              max_num_tokens 20,000 (the recipe's 100,000 cut), validate
+              and save: finite metrics, no NaN skip, step 1's loss per token
+              within 5% of ln(card) x mean(weights); tokens/s, s a step,
+              the optimizer update's ms and device operations, peak memory,
+              the device-busy share of two steps (torch.profiler); one fixed
+              batch for 6 steps without dropout, its loss falling; the
+              chunked attention's forward + backward for one layer beside
+              PyTorch's fused attention under the same mask and the bound;
+              (t) one step at the recipe's 100,000 tokens, its peak memory;
+              (u) the checkpoint through load_model in bf16 serving request
+              (a)'s prompt greedy (64 frames): the attention kernel launches
+              16 times, the prompt frames stand verbatim, the wav is finite.
+
 The last three lines are the card (as nvidia-smi reports it), one JSON
 object with each kernel's result, and {"ok": true, "device": {...}}.
 """
@@ -123,6 +145,7 @@ import csv
 import io
 import json
 import logging
+import os
 import re
 import subprocess
 import sys
@@ -248,6 +271,42 @@ EDIT_SERVE = (("d", [(200, 240), (520, 570), (860, 900)]),
 # cut to BENCH_ENGINE_FRAMES
 ENGINE_LANES, ENGINE_BURST, ENGINE_TEXT_START = 8, 48, 11
 BENCH_ENGINE_FRAMES = GEN_MAX
+# phase 9: training at giga830M with the e830M recipe (recipes/e830M.sh:
+# ScaledAdam lr 0.05, codebook weights 5 1 0.5 0.1, chunked attention,
+# remat "attn", the preset's dropouts) on a synthetic manifest: TRAIN_UTTS
+# training and TRAIN_VALID validation utterances of 2-20 s (100-1,000
+# frames) with codes from a seed and phones of phase 7's texts
+TRAIN_UTTS, TRAIN_VALID, TRAIN_FRAMES = 256, 16, (100, 1000)
+RECIPE = dict(codebook_weight=(5.0, 1.0, 0.5, 0.1), train_attn="chunked",
+              train_remat="attn")
+TRAIN_TOKENS, RECIPE_TOKENS = 20000, 100000   # (s) and (t); the recipe's is (t)
+# (s) steps 2-5 give the rates; step 6's optimizer update and steps 7-8
+# run under torch.profiler (which slows the host)
+TRAIN_STEPS, FIXED_STEPS = 8, 6
+RATE_STEPS, OPT_OPS_STEP, PROFILED_STEPS = (2, 3, 4, 5), 6, (7, 8)
+# (r): forward_train's loss and gradients at giga830M width cut to
+# NUMERICS_LAYERS layers, the card in bf16 against the CPU in f32, on
+# NUMERICS_UTTS utterances of at most NUMERICS_FRAMES frames (5 s).  bf16
+# rounds every activation and product to 8 bits (0.4%); the loss averages
+# those errors over ~4,000 targets, so 1e-2 of it is a bound with room.  A
+# gradient's relative-norm error: the median tensor's within
+# TRAIN_GRAD_MEDIAN.  The worst tensor's within TRAIN_GRAD_RTOL: bf16
+# moves a fraction f ~ 2^-8 of the FFN's pre-activations across zero, and
+# each flipped ReLU gate gets a wholly different gradient, so the tensors
+# behind the gates (lin1, its bias, LN2) carry ~sqrt(f) = 6% (measured on
+# the CPU in bf16 against f32 at 2 layers of width 256 and 512: 5.0-5.9%,
+# the median tensor 0.9%).  The norm is floored at TRAIN_GRAD_FLOOR of the
+# largest tensor's: the key biases' gradient is zero in exact arithmetic (a
+# query's logits all shift by q.bk) and holds rounding noise on both
+# devices.  Chunked against dense attention on the card, both bf16: the
+# same tolerances.
+NUMERICS_LAYERS, NUMERICS_UTTS, NUMERICS_FRAMES = 2, 4, 250
+TRAIN_LOSS_RTOL, TRAIN_GRAD_FLOOR = 1e-2, 1e-3
+TRAIN_GRAD_RTOL, TRAIN_GRAD_MEDIAN = 0.10, 2e-2
+# (s): step 1's loss per target token against ln(card) x mean(weights),
+# the CE of a uniform prediction
+STEP1_RTOL = 0.05
+U_GEN_MAX = 64                                # (u) the trained model's TTS
 
 
 def log(msg: str) -> None:
@@ -553,9 +612,16 @@ def proj_check():
                                  f"{diff.max().item() / ulp} ulps")
 
 
+def library_attention(q, k, v, allowed):
+    """One call of PyTorch's fused attention, q/k/v [B, H, S, Dh] under the
+    boolean mask ``allowed`` [B, 1, S, S]: the yardstick that phases 3 and
+    9 time beside the port's attention, used nowhere in the port."""
+    import torch.nn.functional as fnn
+    return fnn.scaled_dot_product_attention(q, k, v, attn_mask=allowed)  # library_ms
+
+
 def flash_phase(geom_long, geom_serve):
     import torch
-    import torch.nn.functional as fnn
     from voicecraft_tpu_torch.ops.attention import mha, segment_padding_bias
     from voicecraft_tpu_torch.ops.flash_attention import (
         flash_prefix_attention, flash_prefix_attention_plain)
@@ -621,8 +687,8 @@ def flash_phase(geom_long, geom_serve):
         t = dict(
             ms=graph_ms([lambda: flash_prefix_attention(*args)]),
             plain_ms=graph_ms([lambda: flash_prefix_attention_plain(*args)]),
-            library_ms=graph_ms([lambda: fnn.scaled_dot_product_attention(
-                heads(q), heads(k), heads(v), attn_mask=allowed[:, None])]))
+            library_ms=graph_ms([lambda: library_attention(
+                heads(q), heads(k), heads(v), allowed[:, None])]))
         t["bound_ms"], t["bound_by"] = bound(
             4 * B * S * D * elt, 4 * D * allowed.sum().item(), dtype_peak)
         log(f"  kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
@@ -1180,9 +1246,10 @@ def same_under_ties(name, got, ref, got_la, ref_la):
     return n
 
 
-def device_ops(fn):
-    """(fn(), the CUDA kernels and memory operations the device ran during
-    it, from torch.profiler; None when it saw no device activity)."""
+def device_time(fn):
+    """(fn(), device ms, device operations) from torch.profiler: the
+    summed time and the count of the CUDA kernels and memory operations
+    the device ran during it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1190,8 +1257,15 @@ def device_ops(fn):
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, sum(e.time_range.elapsed_us() for e in ev) / 1e3, len(ev)
+
+
+def device_ops(fn):
+    """(fn(), the CUDA kernels and memory operations the device ran during
+    it, from torch.profiler; None when it saw no device activity)."""
+    out, _, n = device_time(fn)
     return out, n or None
 
 
@@ -2428,6 +2502,423 @@ def engine_phase(model, codec, ccfg, serve, texts2, a_req, long_wav):
     return out
 
 
+# ---- phase 9 -----------------------------------------------------------------
+
+def write_training_manifest(root, tok, texts):
+    """TRAIN_UTTS + TRAIN_VALID utterances in the reference's on-disk format
+    (data/manifest.py:write_manifest_tree): random codes of 100-1,000 frames
+    from a seed, each with the phones of one of ``texts``."""
+    from voicecraft_tpu_torch import PRESETS
+    from voicecraft_tpu_torch.data.manifest import write_manifest_tree
+    cfg = PRESETS["giga830M"]()
+    rng = np.random.default_rng(SEED)
+    phones = [tok.phonemize(t) for t in texts]
+    items = [{"id": f"utt{i:04d}", "phones": phones[i % len(phones)],
+              "codes": rng.integers(0, cfg.audio_vocab_size,
+                                    (cfg.n_codebooks, int(rng.integers(
+                                        TRAIN_FRAMES[0], TRAIN_FRAMES[1] + 1))))}
+             for i in range(TRAIN_UTTS + TRAIN_VALID)]
+    write_manifest_tree(root, items[:TRAIN_UTTS], cfg, "train")
+    write_manifest_tree(root, items[TRAIN_UTTS:], cfg, "validation")
+    return [it["codes"].shape[1] for it in items]
+
+
+def grad_errors(got: dict, want: dict):
+    """Per-tensor ||got - want|| / max(||want||, TRAIN_GRAD_FLOOR x the
+    largest ||want||): (the worst, its name, the median)."""
+    norms = {n: w.float().norm().item() for n, w in want.items()}
+    floor = TRAIN_GRAD_FLOOR * max(norms.values())
+    errs = {n: (got[n].float().cpu() - want[n].float().cpu()).norm().item()
+            / max(norms[n], floor) for n in want}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst, float(np.median(list(errs.values())))
+
+
+def numerics_check(root, recipe_cfg, tcfg):
+    """(r): forward_train's loss and gradients at giga830M width cut to
+    NUMERICS_LAYERS layers, the card (bf16 compute, f32 master weights)
+    against the CPU (f32), then chunked against dense on the card."""
+    import dataclasses
+    import torch
+    from voicecraft_tpu_torch.data.manifest import ManifestDataset, collate_train
+    from voicecraft_tpu_torch.models.voicecraft import VoiceCraft, forward_train
+    cfg = dataclasses.replace(recipe_cfg, num_decoder_layers=NUMERICS_LAYERS)
+    ds = ManifestDataset(cfg, tcfg, "train")
+    idxs = [i for i, n in enumerate(ds.lengths) if n <= NUMERICS_FRAMES]
+    idxs = idxs[:NUMERICS_UTTS]
+
+    def run(model, device):
+        batch = collate_train(ds, idxs, np.random.default_rng(SEED),
+                              device=device)
+        out = forward_train(model, batch, seed=None, remat=True)
+        out["loss"].backward()
+        return (out, {n: p.grad for n, p in model.named_parameters()},
+                batch)
+
+    t0 = time.time()
+    cpu = VoiceCraft(dataclasses.replace(cfg, compute_dtype="float32"), "cpu",
+                     trainable=True).init_weights(
+                         torch.Generator().manual_seed(SEED))
+    want, want_g, batch = run(cpu, "cpu")
+    t_cpu = time.time() - t0
+    results = {}
+    for attn in ("chunked", "dense"):
+        card = VoiceCraft(dataclasses.replace(cfg, train_attn=attn), "cuda",
+                          trainable=True)
+        card.load_state_dict(cpu.state_dict())
+        results[attn] = run(card, "cuda")[:2]
+    B, Sx = batch.x.shape
+    log(f"  (r) {NUMERICS_LAYERS} layers at giga830M width, B={B}, "
+        f"S={Sx}+{batch.y_tokens.shape[2]}, {int(want['effective_ntoken'])} "
+        f"targets; the CPU in f32 took {t_cpu:.1f} s")
+    for name, (got, got_g), (ref, ref_g) in (
+            ("card bf16 (chunked) vs CPU f32", results["chunked"], (want, want_g)),
+            ("chunked vs dense, both on the card", results["chunked"],
+             results["dense"])):
+        rel = abs(got["loss"].item() - ref["loss"].item()) / abs(ref["loss"].item())
+        err, worst, med = grad_errors(got_g, ref_g)
+        log(f"  (r) {name}: loss {got['loss'].item():.4f} vs "
+            f"{ref['loss'].item():.4f}, rel {rel:.2e} (tolerance "
+            f"{TRAIN_LOSS_RTOL:g}); gradients' relative-norm error: worst "
+            f"{err:.2e} ({worst}; tolerance {TRAIN_GRAD_RTOL:g}), median "
+            f"{med:.2e} (tolerance {TRAIN_GRAD_MEDIAN:g})")
+        if not (rel <= TRAIN_LOSS_RTOL and err <= TRAIN_GRAD_RTOL
+                and med <= TRAIN_GRAD_MEDIAN):
+            raise AssertionError(f"(r) {name}: loss rel {rel}, gradient "
+                                 f"error {err} at {worst}, median {med}")
+        if got["effective_ntoken"].item() != ref["effective_ntoken"].item():
+            raise AssertionError(f"(r) {name}: the target counts differ")
+
+
+def attention_yardstick(batch, nhead, D):
+    """The chunked training attention's forward + backward for one layer
+    at a training batch's shape, beside PyTorch's fused attention under the
+    same mask (library_attention) and the bound: q/k/v/dO read and
+    o/dq/dk/dv written once, 12 x D flops for each allowed (query, key)
+    pair (the forward's two products and the backward's four)."""
+    import torch
+    from voicecraft_tpu_torch.ops.attention import segment_padding_bias
+    from voicecraft_tpu_torch.ops.flash_attention import chunked_attention
+    B, Sx = batch.x.shape
+    S = Sx + batch.y_tokens.shape[2]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, g = (torch.randn((B, S, D), generator=gen, device="cuda")
+                  .to(torch.bfloat16).requires_grad_(i < 3) for i in range(4))
+    allowed = segment_padding_bias(S, Sx, batch.x_lens, batch.y_lens)[:, 0] == 0
+    heads = lambda t: t.view(B, S, nhead, D // nhead).transpose(1, 2)
+
+    def chunked():
+        chunked_attention(q, k, v, batch.x_lens, batch.y_lens, Sx,
+                          nhead).backward(g)
+
+    def library():
+        library_attention(heads(q), heads(k), heads(v),
+                          allowed[:, None]).backward(heads(g))
+
+    t = dict(ms=cuda_ms(chunked, reps=5, warmup=2),
+             library_ms=cuda_ms(library, reps=5, warmup=2))
+    t["bound_ms"], t["bound_by"] = bound(8 * B * S * D * 2,
+                                         12 * D * allowed.sum().item(),
+                                         BF16_FLOP_PER_S)
+    log(f"  chunked attention fwd+bwd, one layer, B={B} S={S} D={D} "
+        f"H={nhead}: {t['ms']:.3f} ms (eager, CUDA events); PyTorch's fused "
+        f"attention, same mask: {t['library_ms']:.3f} ms; bound "
+        f"{t['bound_ms']:.3f} ms ({t['bound_by']})")
+    return t
+
+
+def step_parts(model, opt, batch):
+    """Where a training step's time goes: the forward, the backward with
+    its recompute and the optimizer's update, each alone.  {part: [wall ms
+    between host syncs, device ms, device operations]}, the device numbers
+    from a second run under torch.profiler."""
+    import torch
+    from voicecraft_tpu_torch.models.voicecraft import forward_train
+    parts, out = {}, {}
+    steps = (("forward", lambda: out.update(forward_train(model, batch))),
+             ("backward", lambda: out.pop("loss").backward()),
+             ("optimizer", opt.step))
+    opt.zero_grad()
+    for part, fn in steps:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        parts[part] = [(time.perf_counter() - t) * 1e3]
+    opt.zero_grad()
+    out.clear()
+    for part, fn in steps:
+        parts[part] += list(device_time(fn)[1:])
+    return parts
+
+
+def training_phase(requests, codec, tok):
+    """Phase 9: training at giga830M with the e830M recipe.  (r) numerics,
+    card against CPU; (s) Trainer.train for TRAIN_STEPS steps at
+    TRAIN_TOKENS, validate and save, then one fixed batch for FIXED_STEPS
+    steps without dropout; the chunked attention's yardstick; (t) one step
+    at the recipe's RECIPE_TOKENS; (u) the trained checkpoint through
+    load_model serving request (a)'s prompt, its launch counts set to 0
+    just before and read just after.  Returns (u)'s launch counts."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from voicecraft_tpu_torch import PRESETS
+    from voicecraft_tpu_torch.config import TrainConfig
+    from voicecraft_tpu_torch.data.manifest import collate_train
+    from voicecraft_tpu_torch.data.phonemes import phones_to_ids
+    from voicecraft_tpu_torch.inference.loader import load_model
+    from voicecraft_tpu_torch.inference.tts import inference_tts
+    from voicecraft_tpu_torch.models.voicecraft import (SamplingConfig,
+                                                        VoiceCraft)
+    from voicecraft_tpu_torch.ops import _native
+    from voicecraft_tpu_torch.training.optim import (ScaledAdam,
+                                                     eden_schedule,
+                                                     stacked_leaves)
+    from voicecraft_tpu_torch.training.step import make_train_step
+    from voicecraft_tpu_torch.training.trainer import Trainer
+
+    recipe = dataclasses.replace(PRESETS["giga830M"](), **RECIPE)
+    w = recipe.codebook_weight
+    uniform_ce = float(np.log(recipe.card) * np.mean(w))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        root = os.path.join(tmp, "data")
+        texts = (serving_texts() + serving_texts(ENGINE_TEXT_START)
+                 + [r.transcript + " " + TARGET for r in requests])
+        t0 = time.time()
+        frames = write_training_manifest(root, tok, texts)
+        log(f"[9 training] {TRAIN_UTTS} + {TRAIN_VALID} utterances of "
+            f"{min(frames)}-{max(frames)} frames written in "
+            f"{time.time() - t0:.1f} s; free disk "
+            f"{shutil.disk_usage(tmp).free / 1e9:.0f} GB")
+
+        def tcfg(exp, tokens):
+            return TrainConfig(dataset_dir=root, exp_dir=os.path.join(tmp, exp),
+                               max_num_tokens=tokens, lr=0.05,
+                               optimizer_name="ScaledAdam", seed=1,
+                               val_every_n_steps=10 ** 6,
+                               print_every_n_steps=1)
+
+        # ---- (r) numerics, card against CPU ----
+        numerics_check(root, recipe, tcfg("r", TRAIN_TOKENS))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (s) the Trainer, the recipe's settings at TRAIN_TOKENS ----
+        t0 = time.time()
+        tr = Trainer(recipe, tcfg("exp", TRAIN_TOKENS), device="cuda")
+        torch.cuda.synchronize()
+        log(f"  (s) Trainer built in {time.time() - t0:.1f} s: "
+            f"{sum(p.numel() for p in tr.model.parameters()) / 1e6:.1f}M f32 "
+            f"parameters, {len(tr.optimizer.groups)} ScaledAdam leaves, "
+            f"{len(tr.batcher.epoch_batches(0))} batches an epoch")
+        rec = {"metrics": [], "wall": [], "shape": [], "opt_ms": [],
+               "opt_ops": None, "profile": None}
+        step_fn, opt_step = tr.step_fn, tr.optimizer.step
+
+        def timed_opt_step():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if len(rec["metrics"]) + 1 == OPT_OPS_STEP:
+                _, rec["opt_ops"] = device_ops(opt_step)
+            else:
+                opt_step()
+            torch.cuda.synchronize()
+            rec["opt_ms"].append((time.perf_counter() - t) * 1e3)
+
+        def timed_step(batch, seed):
+            n = len(rec["metrics"]) + 1
+            torch.cuda.synchronize()
+            if n == PROFILED_STEPS[0]:
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.start()
+                rec["profile"] = [prof, time.perf_counter()]
+            t = time.perf_counter()
+            m = step_fn(batch, seed)
+            torch.cuda.synchronize()
+            rec["wall"].append(time.perf_counter() - t)
+            if n == PROFILED_STEPS[-1]:
+                prof, t_start = rec["profile"]
+                prof.stop()
+                wall = (time.perf_counter() - t_start) * 1e3
+                ev = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+                busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+                rec["profile"] = (busy, wall, len(ev))
+            rec["metrics"].append({k: (v.float().cpu().numpy()
+                                       if isinstance(v, torch.Tensor) else v)
+                                   for k, v in m.items()})
+            rec["shape"].append((batch.x.shape[0], batch.x.shape[1],
+                                 batch.y_tokens.shape[2]))
+            return m
+
+        tr.step_fn, tr.optimizer.step = timed_step, timed_opt_step
+        save, saves = tr.save, []
+
+        def timed_save(tag, **kw):
+            t = time.perf_counter()
+            save(tag, **kw)
+            saves.append(f"{tag} {time.perf_counter() - t:.1f} s")
+        tr.save = timed_save
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        tr.train(max_steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        t_train = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ms = rec["metrics"]
+        if len(ms) != TRAIN_STEPS:
+            raise AssertionError(f"(s) ran {len(ms)} steps, want {TRAIN_STEPS}")
+        for i, (m, wall, shp) in enumerate(zip(ms, rec["wall"], rec["shape"])):
+            ntok = float(m["effective_ntoken"])
+            log(f"  (s) step {i + 1}: B={shp[0]} S={shp[1]}+{shp[2]}, "
+                f"{ntok:.0f} targets, loss/token "
+                f"{float(m['loss']) / ntok:.4f}, top10acc "
+                f"{float(m['top10acc']) / ntok:.4f}, {wall:.3f} s, "
+                f"optimizer {rec['opt_ms'][i]:.1f} ms")
+            if m["is_nan"] or not all(np.isfinite(np.asarray(v)).all()
+                                      for v in m.values()):
+                raise AssertionError(f"(s) step {i + 1}: metrics {m}")
+        first = float(ms[0]["loss"]) / float(ms[0]["effective_ntoken"])
+        if abs(first - uniform_ce) > STEP1_RTOL * uniform_ce:
+            raise AssertionError(f"(s) step 1's loss per token {first} is not "
+                                 f"within {STEP1_RTOL} of {uniform_ce}")
+        rate = [i - 1 for i in RATE_STEPS]
+        ntoks = sum(float(ms[i]["effective_ntoken"]) for i in rate)
+        positions = sum(b * (sx + sy) for b, sx, sy in
+                        (rec["shape"][i] for i in rate))
+        wall = sum(rec["wall"][i] for i in rate)
+        opt_ms = [rec["opt_ms"][i] for i in rate]
+        busy, window, n_ev = rec["profile"]
+        hist = tr.progress["history"]
+        log(f"  (s) step 1 loss/token {first:.4f} vs ln(card) x mean(w) "
+            f"{uniform_ce:.4f} (tolerance {STEP1_RTOL:.0%}); steps "
+            f"{RATE_STEPS[0]}-{RATE_STEPS[-1]}: {ntoks / wall:.0f} target "
+            f"tokens/s, {positions / wall:.0f} positions/s, "
+            f"{wall / len(rate):.3f} s a step, the optimizer update "
+            f"{np.mean(opt_ms):.1f} ms of it; {rec['opt_ops']} device "
+            f"operations an update (step {OPT_OPS_STEP}); peak allocated "
+            f"{peak:.2f} GB ({base:.2f} GB before train(): the Trainer's "
+            f"weights and optimizer and the earlier phases'); device busy {busy / window:.1%} of steps "
+            f"{PROFILED_STEPS[0]}-{PROFILED_STEPS[-1]} ({busy:.1f} of "
+            f"{window:.1f} ms, {n_ev / len(PROFILED_STEPS):.0f} device "
+            f"operations a step, torch.profiler; derived: its "
+            f"{busy / len(PROFILED_STEPS):.1f} device ms a step over steps "
+            f"{RATE_STEPS[0]}-{RATE_STEPS[-1]}'s unprofiled "
+            f"{wall / len(rate) * 1e3:.1f} ms a step = "
+            f"{busy / len(PROFILED_STEPS) / (wall / len(rate) * 1e3):.1%}); "
+            f"train() {t_train:.1f} s "
+            f"with the validation (score {hist[-1][1]:.4f}) and the saves ("
+            f"{', '.join(saves)})")
+        ckpt = os.path.join(tr.tcfg.exp_dir, "ckpt_latest")
+        if not (os.path.isfile(os.path.join(ckpt, "model.pt"))
+                and np.isfinite(hist[-1][1])):
+            raise AssertionError(f"(s) no checkpoint or validation: {hist}")
+        fixed = collate_train(tr.train_ds, tr.batcher.epoch_batches(0)[0],
+                              np.random.default_rng(SEED), device="cuda")
+        del tr, rec, timed_step, timed_opt_step, step_fn, opt_step, save
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (s) one fixed batch, no dropout ----
+        quiet = dataclasses.replace(
+            recipe, text_embedding_dropout=0.0,
+            text_positional_embedding_dropout=0.0,
+            audio_positional_embedding_dropout=0.0, trm_dropout=0.0)
+        model = VoiceCraft(quiet, "cuda", trainable=True).init_weights(
+            torch.Generator(device="cuda").manual_seed(SEED))
+        t = TrainConfig()
+        opt = ScaledAdam(stacked_leaves(model), lr=eden_schedule(
+            t.lr, t.reduce_lr_start_step, t.reduce_lr_start_epoch,
+            t.num_steps * t.warmup_fraction, t.pseudo_epoch_size),
+            clipping_update_period=t.clipping_update_period)
+        step = make_train_step(model, opt)
+        losses = []
+        for i in range(FIXED_STEPS):
+            m = step(fixed, seed=None)
+            losses.append(m["loss"].item() / m["effective_ntoken"].item())
+        log(f"  (s) one fixed batch (B={fixed.x.shape[0]}, S={fixed.x.shape[1]}"
+            f"+{fixed.y_tokens.shape[2]}), no dropout, loss/token by step: "
+            + ", ".join(f"{v:.4f}" for v in losses))
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"(s) the fixed batch's loss did not fall: "
+                                 f"{losses}")
+        parts = step_parts(model, opt, fixed)
+        log("  (s) one step of the fixed batch by part (wall ms; device ms, "
+            "device operations): " + "; ".join(
+                f"{k} {w:.1f} ({d:.1f}, {n})" for k, (w, d, n) in parts.items()))
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        yard = attention_yardstick(fixed, recipe.nhead, recipe.d_model)
+
+        # ---- (t) the recipe's budget ----
+        tr = Trainer(recipe, tcfg("t", RECIPE_TOKENS), device="cuda")
+        _, batch = next(tr._prefetch(0, tr.batcher.epoch_batches(0), 0))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = tr.step_fn(batch, tr.next_seed())
+        torch.cuda.synchronize()
+        log(f"  (t) one step at max_num_tokens {RECIPE_TOKENS}: B="
+            f"{batch.x.shape[0]} S={batch.x.shape[1]}+{batch.y_tokens.shape[2]}"
+            f" (the bucket cap, int(budget / boundary), is 8 rows at either "
+            f"budget), {time.perf_counter() - t0:.3f} s (the first step), "
+            f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+            f"({base:.2f} before the step) of "
+            f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.0f}, "
+            f"loss/token {m['loss'].item() / m['effective_ntoken'].item():.4f}")
+        if m["is_nan"]:
+            raise AssertionError("(t): the step skipped a NaN loss")
+        del tr, batch, m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (u) the pipeline: the trained checkpoint serves TTS ----
+        a = requests[0]
+        t0 = time.time()
+        cfg_u, model_u, phn2num = load_model(ckpt, device="cuda")
+        x = np.asarray(phones_to_ids(a.phones, phn2num), np.int32)
+        if model_u.dtype != torch.bfloat16 or len(x) != len(a.x):
+            raise AssertionError(f"(u): dtype {model_u.dtype}, x {len(x)} of "
+                                 f"{len(a.x)} phones")
+        t_load = time.time() - t0
+        _native.reset_launch_counts()
+        stats = {}
+        t0 = time.time()
+        full, gen = inference_tts(model_u, x, a.codes,
+                                  SamplingConfig(top_k=40, temperature=0.0),
+                                  seed=SEED, gen_max=U_GEN_MAX, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(_native.LAUNCHES)
+        log(f"  (u) ckpt_latest loaded in {t_load:.1f} s ({model_u.dtype}); "
+            f"request (a)'s prompt, Sp {stats['prefill_len']}, greedy: "
+            f"{gen.shape[1]} frames in {wall:.3f} s")
+        check_launches("u", launches, {"flash_prefix_attention":
+                                       cfg_u.num_decoder_layers,
+                                       "fused_ffn": 0})
+        if not (np.array_equal(full[:, :a.codes.shape[1]], a.codes)
+                and stats["prefill_len"] >= 1024):
+            raise AssertionError("(u): the prompt frames changed or the "
+                                 "prefill missed the kernel")
+        check_wav("u", codec, codec.cfg, full)
+        del model_u
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches, yard
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2605,6 +3096,12 @@ def main() -> None:
         launches = {name: n + run_launches[name]
                     for name, n in launches.items()}
     log(f"[8 engine] done in {time.time() - t0:.1f} s")
+
+    # ---- 9. training, and the trained checkpoint's TTS ----
+    t0 = time.time()
+    train_launches, _ = training_phase(requests, codec, tok)
+    launches = {name: n + train_launches[name] for name, n in launches.items()}
+    log(f"[9 training] done in {time.time() - t0:.1f} s")
 
     kernels = [
         dict(name="flash_prefix_attention", route="cuda",

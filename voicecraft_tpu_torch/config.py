@@ -1,6 +1,5 @@
-"""Model configuration and presets (PyTorch port of voicecraft_tpu/config.py,
-``ModelConfig`` and ``PRESETS``; the port has no trainer, so no
-``TrainConfig``).
+"""Model and training configuration and presets (PyTorch port of
+voicecraft_tpu/config.py: ``ModelConfig``, ``TrainConfig`` and ``PRESETS``).
 
 Field names are those of the reference's flags, so a reference checkpoint's
 pickled args and a config.json written by either package load 1:1
@@ -61,19 +60,26 @@ class ModelConfig:
     # loss
     codebook_weight: Optional[Tuple[float, ...]] = None
 
-    # multi-token prediction heads (not yet ported; kept so that configs
-    # of MTP checkpoints load)
+    # multi-token prediction heads: n_mtp groups predict the tokens at
+    # offsets +2 .. +(n_mtp + 1) (speculative decoding's drafts), trained by
+    # an auxiliary loss of weight mtp_weight (on detached hiddens when
+    # mtp_detach)
     n_mtp: int = 0
     mtp_weight: float = 0.5
     mtp_detach: int = 1
 
-    # compute policy, and the training options of the JAX package (kept so
-    # that its config.json files load)
+    # compute policy: activations in compute_dtype, trained weights kept in
+    # param_dtype (f32 master weights, cast at each product)
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    # training attention: "dense" (the segment bias, with attention-prob
+    # dropout) or "chunked" (query chunks, nothing of S x S kept for the
+    # backward, no attention-prob dropout)
     train_attn: str = "dense"
     norm: str = "layernorm"
     ffn_activation: str = "relu"
+    # the layer stack's recompute policy in training: "full" | "dots" |
+    # "attn" | "attn_ffn1" | "none" (models/transformer.py:apply_stack)
     train_remat: str = "full"
 
     # ---- derived quantities -------------------------------------------------
@@ -140,6 +146,61 @@ class ModelConfig:
                 v = tuple(float(x) for x in v)
             clean[k] = v
         return cls(**clean)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training runtime config (reference config.py:6-35 and the 830M
+    recipe's settings)."""
+
+    seed: int = 1
+    lr: float = 0.05
+    max_num_tokens: int = 100000
+    val_max_num_tokens: Optional[int] = None
+    num_buckets: int = 6
+    weight_decay: float = 1e-2
+    warmup_fraction: float = 0.01
+    num_steps: Optional[int] = 50000
+    gradient_accumulation_steps: int = 1
+    early_stop_step: int = 3200
+    early_stop_threshold: float = -1.0
+
+    optimizer_name: str = "ScaledAdam"
+    reduce_lr_start_step: int = 3000
+    pseudo_epoch_size: int = 3000
+    reduce_lr_start_epoch: int = 4
+    clipping_update_period: int = 600
+
+    # data
+    audio_max_length: float = 20.0
+    audio_min_length: float = 2.0
+    text_max_length: int = 400
+    text_min_length: float = 10.0
+    pad_x: int = 1
+    drop_long: int = 1
+
+    # io
+    exp_dir: Optional[str] = None
+    dataset_dir: Optional[str] = None
+    manifest_name: str = "manifest"
+    phn_folder_name: str = "phonemes"
+    encodec_folder_name: str = "encodec_16khz_4codebooks"
+
+    tb_write_every_n_steps: int = 100
+    print_every_n_steps: int = 400
+    val_every_n_steps: int = 800
+
+    # torch.profiler trace dir and the first traced step (3 steps traced)
+    profile_dir: Optional[str] = None
+    profile_start_step: int = 10
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TrainConfig":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
 
 
 # ---- presets ----------------------------------------------------------------

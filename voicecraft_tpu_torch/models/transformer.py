@@ -1,11 +1,18 @@
-"""Pre-norm transformer decoder for prefill and decode (PyTorch port of the
-inference path of voicecraft_tpu/models/transformer.py).
+"""Pre-norm transformer decoder for training, prefill and decode (PyTorch
+port of voicecraft_tpu/models/transformer.py).
 
 Pre-norm LayerNorm (eps 1e-5, computed in f32), separate q/k/v
 projections, ReLU FFN of width 4*d_model, final LayerNorm.  Weight matrices
-are stored once in the compute dtype in the [in, out] layout (x @ w), or
-weight-only fp8 after utils/quantize.py:quantize_decoder_fp8; LayerNorm
-parameters stay f32.  The KV cache is a preallocated slab
+are stored in the [in, out] layout (x @ w): once in the compute dtype for
+inference, or weight-only fp8 after utils/quantize.py:quantize_decoder_fp8;
+in the parameter dtype (f32 master weights, cast to the compute dtype at
+each product) for training.  LayerNorm parameters stay f32.
+
+Training runs the stack through ``apply_stack``, with dropout whose masks
+are seeded per (step seed, layer, site) inside the region that draws them,
+and a recompute policy through torch.utils.checkpoint.
+
+The KV cache is a preallocated slab
 [L, 2, B, S_max, H, Dh] (k at 0, v at 1) that prefill fills and each decode
 step (or speculative block) updates once, in place, at ``pos`` (lockstep
 serving: at each lane's own offset).  The slab is in the compute dtype or,
@@ -18,13 +25,17 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.attention import (decode_attention_multi,
                              decode_attention_multi_block,
-                             decode_attention_self, decode_attention_self_block)
+                             decode_attention_self, decode_attention_self_block,
+                             dropout)
 from ..ops import fused_decode
 
 
@@ -133,6 +144,119 @@ def ffn_block(layer: DecoderLayer, h: torch.Tensor,
         raise NotImplementedError(f"ffn activation {activation!r} is not yet "
                                   "ported (only relu)")
     return _proj(torch.relu(_proj(h, layer.w1, layer.b1)), layer.w2, layer.b2)
+
+
+# ---- training forward --------------------------------------------------------------
+
+# the layer stack's recompute policies (config.ModelConfig.train_remat)
+REMAT_POLICIES = ("full", "dots", "attn", "attn_ffn1", "none")
+
+
+def fold_seed(seed: Optional[int], *path: int) -> Optional[int]:
+    """A 63-bit seed derived from ``seed`` and a path of ints (layer, site,
+    ...); None stays None (no dropout)."""
+    if seed is None:
+        return None
+    state = np.random.SeedSequence([seed, *path]).generate_state(1, np.uint64)
+    return int(state[0] >> np.uint64(1))
+
+
+def _checkpoint(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+# the products of a layer's projections: [*, in] @ [in, out] reaches aten as
+# mm (addmm where a bias is fused)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpoint_dots(fn, *args):
+    """Checkpoint that keeps every projection's product and recomputes
+    the rest (LayerNorm, relu, dropout, residuals)."""
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda:
+                      create_selective_checkpoint_contexts(_dots_policy))
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _attn_inputs(layer: DecoderLayer, x: torch.Tensor):
+    return qkv_proj(layer, layer_norm(layer.ln1_g, layer.ln1_b, x))
+
+
+def _ffn_in(layer: DecoderLayer, x: torch.Tensor, a: torch.Tensor,
+            rate: float, seed: Optional[int]):
+    """The residual after the attention's out projection, and the FFN's
+    hidden activation relu(lin1(LN2(x))) ("ffn1")."""
+    x = x + dropout(_proj(a, layer.wo, layer.bo), rate, fold_seed(seed, 1))
+    h = layer_norm(layer.ln2_g, layer.ln2_b, x)
+    return x, torch.relu(_proj(h, layer.w1, layer.b1))
+
+
+def _ffn_out(layer: DecoderLayer, x: torch.Tensor, f: torch.Tensor,
+             rate: float, seed: Optional[int]) -> torch.Tensor:
+    f = _proj(dropout(f, rate, fold_seed(seed, 2)), layer.w2, layer.b2)
+    return x + dropout(f, rate, fold_seed(seed, 3))
+
+
+def _ffn_half(layer, x, a, rate, seed):
+    return _ffn_out(layer, *_ffn_in(layer, x, a, rate, seed), rate, seed)
+
+
+def apply_layer(layer: DecoderLayer, x: torch.Tensor, attn: Callable,
+                rate: float = 0.0, seed: Optional[int] = None,
+                remat: str = "none") -> torch.Tensor:
+    """One pre-norm layer, x + SA(LN(x)) then + FFN(LN(x)), with dropout
+    ``rate`` at the attention output, the FFN hidden and the FFN output
+    (sites 1-3; the attention's own is site 0) when ``seed`` is given.
+
+    ``attn(q, k, v, seed)`` is the training attention.  It must keep only
+    q/k/v for its backward: chunked_attention does through its per-chunk
+    checkpoints; forward_train puts the dense mha under a checkpoint of its
+    own for every policy but "full" and "none".  ``remat``:
+      "none"       nothing recomputed;
+      "full"       the whole layer under one checkpoint (keeps x);
+      "attn"       the LN1 + q/k/v projections and the FFN half each under
+                   a checkpoint: the attention output is kept, so the
+                   backward never recomputes the attention forward
+                   (keeps x, q, k, v and the attention output);
+      "attn_ffn1"  "attn" with the FFN half split after relu, keeping its
+                   hidden activation too;
+      "dots"       the "attn" regions under selective checkpointing that
+                   keeps every projection's product.
+    Policies change memory and time, never values."""
+    if remat == "full":
+        return _checkpoint(apply_layer, layer, x, attn, rate, seed, "none")
+    region = {"none": _call, "dots": _checkpoint_dots}.get(remat, _checkpoint)
+    q, k, v = region(_attn_inputs, layer, x)
+    a = attn(q, k, v, fold_seed(seed, 0))
+    if remat == "attn_ffn1":
+        x, f = _checkpoint(_ffn_in, layer, x, a, rate, seed)
+        return _checkpoint(_ffn_out, layer, x, f, rate, seed)
+    return region(_ffn_half, layer, x, a, rate, seed)
+
+
+def apply_stack(decoder: Decoder, x: torch.Tensor, attn: Callable,
+                rate: float = 0.0, seed: Optional[int] = None,
+                remat: str = "none") -> torch.Tensor:
+    """The training forward of the stack over x [B, S, D]: every layer
+    (layer li's dropout seeded from (seed, li)), then the final LayerNorm.
+    See :func:`apply_layer` for ``attn`` and ``remat``."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}; expected one of "
+                         f"{REMAT_POLICIES}")
+    if decoder.activation != "relu":
+        raise NotImplementedError(f"ffn activation {decoder.activation!r} is "
+                                  "not yet ported (only relu)")
+    for li, layer in enumerate(decoder.layers):
+        x = apply_layer(layer, x, attn, rate, fold_seed(seed, li), remat)
+    return layer_norm(decoder.final_ln_g, decoder.final_ln_b, x)
 
 
 # ---- prefill / decode with KV slab ---------------------------------------------

@@ -1,14 +1,21 @@
-"""VoiceCraft model and its decode loops for zero-shot TTS, multi-span
-editing, best-of-N TTS and verified speculative decoding (PyTorch port of
-voicecraft_tpu/models/voicecraft.py).
+"""VoiceCraft model, its training forward and its decode loops for
+zero-shot TTS, multi-span editing, best-of-N TTS and verified speculative
+decoding (PyTorch port of voicecraft_tpu/models/voicecraft.py).
 
 ``VoiceCraft`` holds the parameters: per-codebook audio embeddings (summed),
 text and mask embeddings, sine positional embeddings scaled by learnable
 alphas, the pre-norm decoder, per-codebook 2-layer GELU heads and, for
 speculative decoding, ``n_mtp`` groups of multi-token-prediction heads.
 Embedding tables, alphas, LayerNorm parameters and head biases are f32, as
-the JAX code reads them; every weight matrix is stored once in the compute
-dtype (or weight-only fp8, utils/quantize.py).
+the JAX code reads them.  For inference every weight matrix is stored once
+in the compute dtype (or weight-only fp8, utils/quantize.py); a trainable
+model (``trainable=True``) keeps them in the parameter dtype, f32 master
+weights cast to the compute dtype at each product.
+
+``forward_train`` is the training forward and loss over a host-composed
+``TrainBatch`` (data/spans.py): next-token CE in the delayed space on the
+slots that hold a real token, weighted per codebook, with the MTP heads'
+auxiliary loss.
 
 Each decode loop keeps its state in device tensors of static shape (the
 write pointer, the sampling state, the token and span buffers, the span
@@ -21,15 +28,17 @@ from __future__ import annotations
 import dataclasses
 import functools
 import warnings
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 
-from ..ops.flash_attention import prefill_attention
+from ..ops.attention import dropout, mha, segment_padding_bias
+from ..ops.flash_attention import chunked_attention, prefill_attention
 from ..ops.sampling import sample
 from ..utils.quantize import dequant_dot
 from . import transformer as trm
@@ -40,8 +49,11 @@ BAN = -10000.0  # the reference's in-place logit ban value
 MAX_POS = 4096  # positional table size
 
 
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.compute_dtype]
+    return _DTYPES[cfg.compute_dtype]
 
 
 class Heads(nn.Module):
@@ -66,10 +78,15 @@ class Heads(nn.Module):
 
 
 class VoiceCraft(nn.Module):
-    def __init__(self, cfg: ModelConfig, device):
+    """``trainable``: weight matrices in ``cfg.param_dtype`` and every
+    parameter requiring grad (the trainer's model); else matrices in the
+    compute dtype, frozen (inference)."""
+
+    def __init__(self, cfg: ModelConfig, device, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
+        wdtype = _DTYPES[cfg.param_dtype] if trainable else self.dtype
         K, D, f32 = cfg.n_codebooks, cfg.d_model, torch.float32
         self.text_emb = trm._param(cfg.n_text_tokens, D, dtype=f32, device=device)
         self.audio_emb = trm._param(K, cfg.card, D, dtype=f32, device=device)
@@ -77,14 +94,15 @@ class VoiceCraft(nn.Module):
         self.alpha_text = trm._param(dtype=f32, device=device)
         self.alpha_audio = trm._param(dtype=f32, device=device)
         self.decoder = trm.Decoder(cfg.num_decoder_layers, D, cfg.nhead,
-                                   cfg.ffn_dim, self.dtype, device,
+                                   cfg.ffn_dim, wdtype, device,
                                    norm=cfg.norm, activation=cfg.ffn_activation)
         self.heads = Heads(K, D, cfg.audio_vocab_size // 2, cfg.card,
-                           self.dtype, device)
+                           wdtype, device)
         if cfg.n_mtp > 0:
-            self.mtp_heads = _mtp_heads(cfg, self.dtype, device)
+            self.mtp_heads = _mtp_heads(cfg, wdtype, device)
         self.register_buffer("pe", torch.from_numpy(sine_table(MAX_POS, D)).to(device),
                              persistent=False)
+        self.requires_grad_(trainable)
 
     @property
     def device(self) -> torch.device:
@@ -208,6 +226,147 @@ def step_input(model: VoiceCraft, emb: torch.Tensor,
     dtype = model.dtype
     pe = model.pe.index_select(0, y_pos.view(1)).to(dtype)
     return (emb + model.alpha_audio.to(dtype) * pe)[None]
+
+
+# ==============================================================================
+# training forward
+# ==============================================================================
+
+class TrainBatch(NamedTuple):
+    """A training batch composed on the host (data/spans.py,
+    data/manifest.py:collate_train), as tensors on the model's device.
+
+    x:            [B, Sx]    int32 text tokens (padded with text_pad_token)
+    x_lens:       [B]        int32
+    y_tokens:     [B, K, Sy] int32 composed delayed sequence (spans
+                  rearranged, delay-interleaved, eog/eos appended, mask
+                  placeholders at span joints, padded with audio_pad_token)
+    y_lens:       [B]        int32 composed lengths
+    mask_emb_idx: [B, Sy]    int32 mask-embedding index at mask slots, -1 else
+    target_valid: [B, K, Sy] bool, True where slot p + 1 holds a real token
+                  of the same span (position p's CE target mask)
+    """
+    x: torch.Tensor
+    x_lens: torch.Tensor
+    y_tokens: torch.Tensor
+    y_lens: torch.Tensor
+    mask_emb_idx: torch.Tensor
+    target_valid: torch.Tensor
+
+
+def _head_logits(heads: Heads, h: torch.Tensor) -> torch.Tensor:
+    """h [B, S, D] -> f32 logits [B, K, S, card]."""
+    B, S, D = h.shape
+    logits = apply_heads(heads, h.reshape(B * S, D))                # [BS,K,card]
+    return logits.view(B, S, *logits.shape[1:]).transpose(1, 2)
+
+
+def _mtp_group_stats(heads: Heads, h: torch.Tensor, tgt: torch.Tensor,
+                     valid: torch.Tensor):
+    """One MTP head group: (mean CE per codebook [K], target count per
+    codebook [K], micro top-1 accuracy)."""
+    logits = _head_logits(heads, h)
+    tl = torch.log_softmax(logits, dim=-1).gather(-1, tgt[..., None])[..., 0]
+    ntok = valid.sum(dim=(0, 2))
+    loss_k = (-tl * valid).sum(dim=(0, 2)) / ntok.clamp(min=1)
+    top1 = (logits.argmax(-1) == tgt) & valid
+    return loss_k, ntok, top1.sum() / valid.sum().clamp(min=1)
+
+
+def _shift(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t[..., n:] followed by n zero (False) columns."""
+    return torch.cat([t[..., n:], torch.zeros_like(t[..., :n])], dim=-1)
+
+
+def forward_train(model: VoiceCraft, batch: TrainBatch,
+                  seed: Optional[int] = None, remat: bool = True) -> dict:
+    """Training forward and loss (reference voicecraft.py:472-559).
+
+    Dropout (the preset's rates) is on when ``seed`` is given, each mask
+    seeded from (seed, site); ``remat`` applies ``cfg.train_remat``.
+    Returns loss (sum over codebooks of mean CE x weight x target count),
+    top10acc (micro, a count), top10acc_by_codebook [K], effective_ntoken
+    and, with MTP heads, mtp_loss (included in loss) and mtp_top1acc
+    [n_mtp]."""
+    cfg = model.cfg
+    dtype = model.dtype
+    B, Sx = batch.x.shape
+    Sy = batch.y_tokens.shape[-1]
+    pe = model.pe.to(dtype)
+    site = lambda i: trm.fold_seed(seed, i)
+
+    # the text and audio embeddings (reference voicecraft.py:311-320, 497-500)
+    x_emb = dropout(model.text_emb[batch.x].to(dtype),
+                    cfg.text_embedding_dropout, site(0))
+    x_in = dropout(x_emb + model.alpha_text.to(dtype) * pe[:Sx],
+                   cfg.text_positional_embedding_dropout, site(1))
+    y_emb = embed_audio_tokens(model.audio_emb, batch.y_tokens).to(dtype)
+    mask_vecs = model.mask_emb[batch.mask_emb_idx.clamp(min=0)].to(dtype)
+    y_emb = torch.where((batch.mask_emb_idx >= 0)[..., None], mask_vecs, y_emb)
+    y_in = dropout(y_emb + model.alpha_audio.to(dtype) * pe[:Sy],
+                   cfg.audio_positional_embedding_dropout, site(2))
+
+    # the joint stack (reference voicecraft.py:406-470)
+    policy = cfg.train_remat if remat else "none"
+    if cfg.train_attn == "chunked":
+        def attn(q, k, v, s):
+            return chunked_attention(q, k, v, batch.x_lens, batch.y_lens, Sx,
+                                     cfg.nhead)
+    else:
+        bias = segment_padding_bias(Sx + Sy, Sx, batch.x_lens, batch.y_lens)
+
+        def attn(q, k, v, s):
+            return mha(q, k, v, bias, cfg.nhead, cfg.trm_dropout, s)
+        if policy not in ("none", "full"):
+            attn = functools.partial(checkpoint, attn, use_reentrant=False)
+    h = trm.apply_stack(model.decoder, torch.cat([x_in, y_in], dim=1), attn,
+                        cfg.trm_dropout, site(3), policy)
+    h_y = h[:, Sx:]
+
+    # shifted, masked CE in the delayed space: target[q, p] = y[q, p + 1]
+    tokens = batch.y_tokens.long()
+    targets = _shift(tokens, 1)
+    valid = batch.target_valid
+    logits = _head_logits(model.heads, h_y)                        # [B,K,Sy,card]
+    tgt_logp = torch.log_softmax(logits, dim=-1).gather(
+        -1, targets[..., None])[..., 0]
+    ntok_k = valid.sum(dim=(0, 2))                                  # [K]
+    loss_k = (-tgt_logp * valid).sum(dim=(0, 2)) / ntok_k.clamp(min=1)
+    w = torch.tensor(cfg.codebook_weight or (1.0,) * cfg.n_codebooks,
+                     dtype=torch.float32, device=h.device)
+    loss = (loss_k * ntok_k.float() * w).sum()
+
+    # micro top-10 accuracy by rank (reference voicecraft.py:187-195, 541)
+    tgt_logit = logits.gather(-1, targets[..., None])
+    rank = (logits > tgt_logit).sum(dim=-1)
+    acc_k = ((rank < 10) & valid).sum(dim=(0, 2)) / ntok_k.clamp(min=1)
+    out = {"loss": loss, "top10acc_by_codebook": acc_k * ntok_k,
+           "top10acc": (acc_k * ntok_k).sum(),
+           "effective_ntoken": ntok_k.sum()}
+
+    # the MTP auxiliary loss: group j predicts offset j + 2; cell (k, p)
+    # trains where the endpoint slot p + 2 + j holds a real token of the
+    # span and no slot p + 1 .. p + 1 + j is a mask placeholder; one group's
+    # logits live at a time (each group under a checkpoint)
+    mtp = getattr(model, "mtp_heads", None)
+    if mtp is not None:
+        h_mtp = h_y.detach() if cfg.mtp_detach else h_y
+        not_mask = (batch.mask_emb_idx < 0)[:, None, :].expand_as(valid)
+        win = torch.ones_like(valid)
+        mtp_loss = torch.zeros((), dtype=torch.float32, device=h.device)
+        accs = []
+        for j, heads_j in enumerate(mtp):
+            win = win & _shift(not_mask, 1 + j)
+            valid_j = _shift(valid, 1 + j) & win
+            loss_jk, ntok_j, acc_j = checkpoint(
+                _mtp_group_stats, heads_j, h_mtp, _shift(tokens, 2 + j),
+                valid_j, use_reentrant=False)
+            mtp_loss = mtp_loss + (loss_jk * ntok_j.float() * w).sum()
+            accs.append(acc_j)
+        out["mtp_loss"] = cfg.mtp_weight * mtp_loss
+        out["mtp_top1acc"] = torch.stack(accs)
+        out["loss"] = out["loss"] + out["mtp_loss"]
+    return out
 
 
 # ==============================================================================

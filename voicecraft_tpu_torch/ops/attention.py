@@ -18,9 +18,34 @@ NEG_INF = -1e9  # large-negative instead of -inf: keeps softmax NaN-free for
                 # fully-masked (padding) query rows
 
 
+class _MatmulF32(torch.autograd.Function):
+    """:func:`matmul_f32` with a backward, for training on the card: each
+    gradient is the f32 product of the incoming gradient (rounded to the
+    operands' dtype) against the other operand, summed over a broadcast
+    batch and rounded once to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with torch.no_grad():
+            return matmul_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = matmul_f32(g.to(a.dtype), b.mT).sum_to_size(a.shape).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = matmul_f32(a.mT, g.to(b.dtype)).sum_to_size(b.shape).to(b.dtype)
+        return ga, gb
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` as f32, the product never rounded to the operands' dtype.
     2-D, 3-D (one side may have a batch of 1) or 4-D [B, H, m, k].
+    Differentiable: bf16 operands on CUDA that need a gradient go through
+    ``_MatmulF32``.
 
     On CUDA, bf16 operands go to cuBLAS with an f32 output
     (``torch.bmm(..., out_dtype=f32)``), one call per product: a 4-D
@@ -30,6 +55,10 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     On the CPU, where the port runs in f32, the operands are upcast."""
     if a.device.type != "cuda":
         return torch.matmul(a.float(), b.float())
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        if a.dtype == torch.float32:
+            return torch.matmul(a, b.float())
+        return _MatmulF32.apply(a, b)
     if a.dim() == 2:
         return torch.mm(a, b, out_dtype=torch.float32)
     if a.dim() == 4:
@@ -121,10 +150,25 @@ def segment_padding_bias(s_total: int, x_max: int, x_lens: torch.Tensor,
     return torch.where(allowed, zero, NEG_INF).to(dtype)[:, None]
 
 
+def dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
+    """Inverted dropout whose keep mask is drawn from a generator seeded
+    with ``seed`` right here, so a checkpointed region that recomputes it
+    draws the same mask (torch.utils.checkpoint restores the global RNGs,
+    not a caller's generator).  No-op for rate 0 or seed None."""
+    if rate <= 0.0 or seed is None:
+        return x
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-        nhead: int) -> torch.Tensor:
+        nhead: int, dropout_rate: float = 0.0,
+        seed: Optional[int] = None) -> torch.Tensor:
     """Dense multi-head attention.  q/k/v: [B, S, D] already projected;
-    bias: [B or 1, 1, S_q, S_kv].  Returns [B, S_q, D] in v's dtype."""
+    bias: [B or 1, 1, S_q, S_kv].  Returns [B, S_q, D] in v's dtype.
+    Training's attention-prob dropout (``dropout_rate`` with a ``seed``)
+    acts on the f32 probs."""
     B, Sq, D = q.shape
     Skv = k.shape[1]
     Dh = D // nhead
@@ -132,7 +176,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
     kh = k.view(B, Skv, nhead, Dh).transpose(1, 2)
     vh = v.view(B, Skv, nhead, Dh).transpose(1, 2)
     logits = matmul_f32(qh, kh.transpose(-1, -2)) * (1.0 / math.sqrt(Dh))
-    probs = torch.softmax(logits + bias.float(), dim=-1).to(v.dtype)
+    probs = torch.softmax(logits + bias.float(), dim=-1)
+    probs = dropout(probs, dropout_rate, seed).to(v.dtype)
     out = matmul_f32(probs, vh).to(v.dtype)
     return out.transpose(1, 2).reshape(B, Sq, D)
 

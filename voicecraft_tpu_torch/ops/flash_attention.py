@@ -1,6 +1,6 @@
 """Prefix attention for prefill: the CUDA kernel, its plain version, and the
-one dispatcher that routes prefill attention (PyTorch port of
-voicecraft_tpu/ops/flash_attention.py).
+one dispatcher that routes prefill attention; and training's differentiable
+chunked attention (PyTorch port of voicecraft_tpu/ops/flash_attention.py).
 
 ``flash_prefix_attention`` takes the plain version for CPU tensors.  For
 CUDA tensors it launches one kernel per dtype: bf16 (the card's path) the
@@ -15,9 +15,10 @@ import math
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import _native
-from .attention import NEG_INF, mha, segment_padding_bias
+from .attention import NEG_INF, matmul_f32, mha, segment_padding_bias
 
 # Prefill length from which attention goes through the kernel (the JAX
 # package's threshold, kept until the card's own crossover is measured).
@@ -103,3 +104,50 @@ def prefill_attention(x_lens: torch.Tensor, y_lens: torch.Tensor, x_pad: int,
             x_pad, nhead)
     bias = segment_padding_bias(seq_len, x_pad, x_lens, y_lens)
     return lambda q, k, v: mha(q, k, v, bias, nhead)
+
+
+# ---- training: differentiable chunked attention ---------------------------------
+
+def _chunk_body(q_blk: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                valid: torch.Tensor, q0: int) -> torch.Tensor:
+    """One query chunk [B, H, c, Dh] against every key: f32 logits under
+    the mask k_pos <= q_pos & valid, f32 softmax, p@v with f32 sums, the
+    output in q's dtype, [B, H, c, Dh]."""
+    c, S = q_blk.shape[2], kh.shape[2]
+    scale = 1.0 / math.sqrt(q_blk.shape[3])
+    logits = matmul_f32(q_blk, kh.transpose(-1, -2)) * scale       # [B,H,c,S]
+    q_pos = q0 + torch.arange(c, device=q_blk.device)
+    k_pos = torch.arange(S, device=q_blk.device)
+    mask = (k_pos[None, :] <= q_pos[:, None])[None, None] & valid[:, None, None]
+    p = torch.softmax(logits.masked_fill(~mask, NEG_INF), dim=-1)
+    return matmul_f32(p.to(vh.dtype), vh).to(q_blk.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      x_lens: torch.Tensor, y_lens: torch.Tensor, x_pad: int,
+                      nhead: int, chunk: int = 256) -> torch.Tensor:
+    """Training attention over [x_pad text ; audio] that keeps nothing of
+    S x S for the backward: a loop over QUERY chunks of ``chunk`` rows (the
+    last one holds the rest), each chunk's body under
+    torch.utils.checkpoint, so the backward recomputes one chunk's
+    [B, H, c, S] logits at a time and stores only q/k/v.  (The JAX package
+    shrinks the chunk to a divisor of S, which its scan needs: 16 rows at
+    the trainer's S = 400 + a multiple of 64.  Each row's result does not
+    depend on the chunking.)  The mask is
+    flash_prefix_attention's (causal, keys valid in [0, x_len) u [x_pad,
+    x_pad + y_len)); no attention-prob dropout.  q/k/v: [B, S, D]; returns
+    [B, S, D] in q's dtype.  On the card the products take bf16 operands
+    with f32 sums (ops.attention.matmul_f32), the precision JAX's f32
+    einsums get by default on the TPU; on the CPU everything is f32."""
+    B, S, D = q.shape
+    H = nhead
+    Dh = D // H
+    heads = lambda t: t.view(B, S, H, Dh).transpose(1, 2)          # [B,H,S,Dh]
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    j = torch.arange(S, device=q.device)
+    valid = ((j[None, :] < x_lens[:, None])
+             | ((j[None, :] >= x_pad) & (j[None, :] < x_pad + y_lens[:, None])))
+    outs = [checkpoint(_chunk_body, qh[:, :, i:i + chunk], kh, vh, valid, i,
+                       use_reentrant=False)
+            for i in range(0, S, chunk)]
+    return torch.cat(outs, dim=2).transpose(1, 2).reshape(B, S, D)
