@@ -134,6 +134,35 @@ Phases, in order; any failure raises and the script exits non-zero:
               (u) the checkpoint through load_model in bf16 serving request
               (a)'s prompt greedy (64 frames): the attention kernel launches
               16 times, the prompt frames stand verbatim, the wav is finite.
+ 10. toolbox  the icefall toolbox (models/scaling.py) on every path, each
+              counted run's launch counts set to 0 just before it and read
+              just after: (v) each scaling Function's forward and backward
+              on the card in f32 and bf16 against the CPU in f32, on an
+              activation of the e830M batch's shape [8, 1424, 2048]; (w)
+              giga830M with basicnorm + doubleswish in bf16, random weights
+              from a seed, serving request (a)'s prompt greedy for 64 frames
+              through inference_tts (the attention kernel 16 times, the
+              fused FFN never: fused_ffn=True raises), forwards/s, the
+              kernel path's logits against the plain path's after prefill
+              and 16 teacher-forced steps, then 8 lanes through
+              serve_tts_batch (the kernel at B=8), two greedy lanes against
+              their single-stream decodes under the tie-aware rule; (x)
+              forward_train's loss and every gradient with balancedbasicnorm
+              + balanceddoubleswish at 2 layers, the card in bf16 against
+              the CPU in f32, in the eval and the train form, and
+              Trainer.train for 4 steps of the e830M recipe with basicnorm +
+              doubleswish at full depth (finite metrics, no NaN skip, every
+              log_eps moved; s a step, peak memory); (y) phase 9's
+              checkpoint through export_torch_cli.py --format pth, reloaded
+              through load_model: the state dict and one prefill's logits
+              equal bit for bit; (z) recipes/make_spec_corpus.py,
+              preprocess_torch_cli.py (random 2048-bin codec), the toolbox
+              model with 3 MTP head groups trained on it, then
+              quality_torch_cli.py (7 modes) and
+              spec_acceptance_torch_cli.py (TTS and --edit) on its
+              checkpoint: each ends normally with every mode reported, and
+              a false bit-exact field is re-derived with both paths' draws
+              and must be a near-tie.
 
 The last three lines are the card (as nvidia-smi reports it), one JSON
 object with each kernel's result, and {"ok": true, "device": {...}}.
@@ -147,8 +176,10 @@ import json
 import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 import wave
@@ -251,6 +282,7 @@ PROFILE_STEPS = 16                   # serving steps in a profiled window
 # single-stream one (bench.py:190-209)
 BENCH_LANES, BENCH_X_PAD, BENCH_Y_PAD, BENCH_PROMPT = 32, 128, 192, 150
 BENCH_PHONES, BENCH_FRAMES = 120, 500
+BENCH_RUNS = 3                       # (n): frames/s is the best of these
 # the fp8 KV slab against a bf16 slab, logits relative in norm, 16 teacher-
 # forced steps of the fp8 decoder: e4m3 keeps 3 mantissa bits, so each k/v
 # is off by up to 2^-4 of itself (~1.8% rms), as each fp8 weight is; the
@@ -307,6 +339,34 @@ TRAIN_GRAD_RTOL, TRAIN_GRAD_MEDIAN = 0.10, 2e-2
 # the CE of a uniform prediction
 STEP1_RTOL = 0.05
 U_GEN_MAX = 64                                # (u) the trained model's TTS
+# phase 10: the icefall toolbox (models/scaling.py).  (v) each scaling
+# Function's forward and backward on the card against the CPU in f32, on an
+# activation of the e830M batch's shape (phase 9 (t): 8 rows of 400 + 1,024
+# positions, width 2048), in bf16 and f32.  The input and the incoming
+# gradient are bf16 numbers, so one CPU f32 run is the reference of both:
+# f32 within SCALING_F32_RTOL of the reference's largest |value| (the same
+# sums in another order), bf16 within SCALING_BF16_RTOL of it (the output's
+# own rounding, 2^-8 of an element at most, and the f32 work inside);
+# BasicNorm's log_eps gradient, one sum over 23M elements, within
+# SCALING_SCALAR_RTOL in either.  (w)-(z): giga830M built with the toolbox
+SCALING_SHAPE = (8, 1424, 2048)
+SCALING_F32_RTOL, SCALING_BF16_RTOL, SCALING_SCALAR_RTOL = 1e-4, 2.0 ** -7, 1e-3
+TOOLBOX = dict(norm="basicnorm", ffn_activation="doubleswish")
+TOOLBOX_BALANCED = dict(norm="balancedbasicnorm",
+                        ffn_activation="balanceddoubleswish")
+W_GEN_MAX = 64                                # (w) request (a), greedy
+W_PADS = (128, 896, 128)                      # (w) 8 lanes: Sp 1024
+W_COMPARED = (0, 7)                           # (w) lanes vs single streams
+X_STEPS, Z_STEPS = 4, 4                       # (x) and (z) Trainer steps
+# (z): the procedural corpus (recipes/make_spec_corpus.py) of 8 training and
+# 2 held-out utterances of 2-3 words (0.7-1.4 s), 0.6 s prompts: every CLI
+# decode runs to its length cap (10 frames a phone) on a model trained 4
+# steps, so the words set its length; one engine burst (16) for both taus
+CORPUS_ARGS = ("--train", "8", "--eval", "2", "--min-words", "2",
+               "--max-words", "3")
+CLI_PROMPT_SEC, CLI_N = "0.6", "2"
+QUALITY_MODES = ("resynth", "plain", "spec", "stream", "fp8", "edit",
+                 "edit_spec")
 
 
 def log(msg: str) -> None:
@@ -940,10 +1000,13 @@ def token_columns(model, n: int):
         return [column_embedding(model, t) for t in tokens]
 
 
-def teacher_forced_logits(model, x, prefix, step_embs, plain: bool):
+def teacher_forced_logits(model, x, prefix, step_embs, plain: bool,
+                          fused_ffn=None):
     """Logits after prefill and after each teacher-forced decode step, one
     step per embedding [D] of step_embs, through the kernels (plain=False)
-    or through their plain versions and the unfused FFN (plain=True)."""
+    or through their plain versions and the unfused FFN (plain=True).
+    ``fused_ffn`` False keeps the kernel path's FFN unfused (a model whose
+    activation the fused kernel does not compute)."""
     import torch
     from voicecraft_tpu_torch.models import transformer as trm
     from voicecraft_tpu_torch.models.voicecraft import apply_heads, step_input
@@ -969,7 +1032,8 @@ def teacher_forced_logits(model, x, prefix, step_embs, plain: bool):
         for e in step_embs:
             h, cache = trm.decode_step_fast(
                 model.decoder, step_input(model, e, y_pos), cache, pos,
-                x_len=x_len, x_pad=x_pad, fused_ffn=not plain)
+                x_len=x_len, x_pad=x_pad,
+                fused_ffn=(not plain) if fused_ffn is None else fused_ffn)
             out.append(apply_heads(model.heads, h[:, 0]))
             pos += 1
             y_pos += 1
@@ -1655,12 +1719,12 @@ def check_wav(name, codec, ccfg, codes):
 
 
 @contextlib.contextmanager
-def serving_results():
-    """Inside the block, the plain serving edit loops that serve_edit_batch
-    makes append each ServingResult (rows, span of each row) to the list
-    the block gets."""
+def serving_results(maker: str = "make_serving_edit_loop"):
+    """Inside the block, the serving loops that ``maker`` makes (by
+    default the plain edit loops of serve_edit_batch) append each
+    ServingResult (rows, and each row's span) to the list the block gets."""
     from voicecraft_tpu_torch.inference import serving as sv
-    make, results = sv.make_serving_edit_loop, []
+    make, results = getattr(sv, maker), []
 
     def keeping(*a, **kw):
         loop = make(*a, **kw)
@@ -1670,11 +1734,11 @@ def serving_results():
             return results[-1]
         return run
 
-    sv.make_serving_edit_loop = keeping
+    setattr(sv, maker, keeping)
     try:
         yield results
     finally:
-        sv.make_serving_edit_loop = make
+        setattr(sv, maker, make)
 
 
 def edit_row_logits(draws, span_of, lane=None):
@@ -2004,7 +2068,7 @@ def serving_phase(model, codec, ccfg, serve, edits):
                                 bench_mode=True, fused_ffn=True, kv_dtype=kv)
         _native.reset_launch_counts()
         times, forwards = [], 0
-        for i in range(3):
+        for i in range(BENCH_RUNS):
             t0 = time.time()
             res = loop(m, xt, len(x), yt, prefix.length, mi, qm, 1,
                        torch.Generator(device="cuda").manual_seed(i))
@@ -2017,7 +2081,7 @@ def serving_phase(model, codec, ccfg, serve, edits):
         check_launches(f"n {label}", launches, {
             "flash_prefix_attention": 0, "fused_ffn": L * forwards})
         out.append(launches)
-        log(f"  (n) {label}: {BENCH_FRAMES} rows each of 3 runs, best "
+        log(f"  (n) {label}: {BENCH_FRAMES} rows each of {BENCH_RUNS} runs, best "
             f"{min(times):.3f} s = {BENCH_FRAMES / min(times):.1f} frames/s")
     # one run: with random MTP heads nearly every sampled draft is rejected,
     # so it takes ~1 pass a row
@@ -2248,7 +2312,8 @@ def engine_phase(model, codec, ccfg, serve, texts2, a_req, long_wav):
     if eng.stats["waves"] + eng.stats["refills"] < 2:
         raise AssertionError(f"(o): no lane was refilled: {eng.stats}")
     plain = [rec.request(rid) for rid in range(len(reqs))]
-    for i, ((x, codes), (rows, la)) in enumerate(zip(reqs, plain)):
+    for i in range(len(reqs)):
+        (x, codes), (rows, la) = reqs[i], plain[i]
         ref, ref_la = single_stream(f"o request {i} single stream", x, codes)
         ref, ref_la = capped(rows, ref, ref_la)
         same_under_ties(f"(o) request {i} ({names[i]}) vs its single-stream "
@@ -2652,20 +2717,19 @@ def step_parts(model, opt, batch):
     return parts
 
 
-def training_phase(requests, codec, tok):
+def training_phase(requests, codec, tok, tmp):
     """Phase 9: training at giga830M with the e830M recipe.  (r) numerics,
     card against CPU; (s) Trainer.train for TRAIN_STEPS steps at
     TRAIN_TOKENS, validate and save, then one fixed batch for FIXED_STEPS
     steps without dropout; the chunked attention's yardstick; (t) one step
     at the recipe's RECIPE_TOKENS; (u) the trained checkpoint through
     load_model serving request (a)'s prompt, its launch counts set to 0
-    just before and read just after.  Returns (u)'s launch counts."""
+    just before and read just after.  The manifest and the checkpoints are
+    written under ``tmp`` (phase 10 exports the checkpoint and trains on
+    the manifest).  Returns ((u)'s launch counts, the yardstick)."""
     import dataclasses
     import gc
-    import shutil
-    import tempfile
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from voicecraft_tpu_torch import PRESETS
     from voicecraft_tpu_torch.config import TrainConfig
     from voicecraft_tpu_torch.data.manifest import collate_train
@@ -2684,239 +2748,771 @@ def training_phase(requests, codec, tok):
     recipe = dataclasses.replace(PRESETS["giga830M"](), **RECIPE)
     w = recipe.codebook_weight
     uniform_ce = float(np.log(recipe.card) * np.mean(w))
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    try:
-        root = os.path.join(tmp, "data")
-        texts = (serving_texts() + serving_texts(ENGINE_TEXT_START)
-                 + [r.transcript + " " + TARGET for r in requests])
-        t0 = time.time()
-        frames = write_training_manifest(root, tok, texts)
-        log(f"[9 training] {TRAIN_UTTS} + {TRAIN_VALID} utterances of "
-            f"{min(frames)}-{max(frames)} frames written in "
-            f"{time.time() - t0:.1f} s; free disk "
-            f"{shutil.disk_usage(tmp).free / 1e9:.0f} GB")
+    root = os.path.join(tmp, "data")
+    texts = (serving_texts() + serving_texts(ENGINE_TEXT_START)
+             + [r.transcript + " " + TARGET for r in requests])
+    t0 = time.time()
+    frames = write_training_manifest(root, tok, texts)
+    log(f"[9 training] {TRAIN_UTTS} + {TRAIN_VALID} utterances of "
+        f"{min(frames)}-{max(frames)} frames written in "
+        f"{time.time() - t0:.1f} s; free disk "
+        f"{shutil.disk_usage(tmp).free / 1e9:.0f} GB")
 
-        def tcfg(exp, tokens):
-            return TrainConfig(dataset_dir=root, exp_dir=os.path.join(tmp, exp),
-                               max_num_tokens=tokens, lr=0.05,
-                               optimizer_name="ScaledAdam", seed=1,
-                               val_every_n_steps=10 ** 6,
-                               print_every_n_steps=1)
+    def tcfg(exp, tokens):
+        return TrainConfig(dataset_dir=root, exp_dir=os.path.join(tmp, exp),
+                           max_num_tokens=tokens, lr=0.05,
+                           optimizer_name="ScaledAdam", seed=1,
+                           val_every_n_steps=10 ** 6,
+                           print_every_n_steps=1)
 
-        # ---- (r) numerics, card against CPU ----
-        numerics_check(root, recipe, tcfg("r", TRAIN_TOKENS))
-        gc.collect()
-        torch.cuda.empty_cache()
+    # ---- (r) numerics, card against CPU ----
+    numerics_check(root, recipe, tcfg("r", TRAIN_TOKENS))
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        # ---- (s) the Trainer, the recipe's settings at TRAIN_TOKENS ----
-        t0 = time.time()
-        tr = Trainer(recipe, tcfg("exp", TRAIN_TOKENS), device="cuda")
-        torch.cuda.synchronize()
-        log(f"  (s) Trainer built in {time.time() - t0:.1f} s: "
-            f"{sum(p.numel() for p in tr.model.parameters()) / 1e6:.1f}M f32 "
-            f"parameters, {len(tr.optimizer.groups)} ScaledAdam leaves, "
-            f"{len(tr.batcher.epoch_batches(0))} batches an epoch")
-        rec = {"metrics": [], "wall": [], "shape": [], "opt_ms": [],
-               "opt_ops": None, "profile": None}
-        step_fn, opt_step = tr.step_fn, tr.optimizer.step
+    # ---- (s) the Trainer, the recipe's settings at TRAIN_TOKENS ----
+    t0 = time.time()
+    tr = Trainer(recipe, tcfg("exp", TRAIN_TOKENS), device="cuda")
+    torch.cuda.synchronize()
+    log(f"  (s) Trainer built in {time.time() - t0:.1f} s: "
+        f"{sum(p.numel() for p in tr.model.parameters()) / 1e6:.1f}M f32 "
+        f"parameters, {len(tr.optimizer.groups)} ScaledAdam leaves, "
+        f"{len(tr.batcher.epoch_batches(0))} batches an epoch")
+    save, saves = tr.save, []
 
-        def timed_opt_step():
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            if len(rec["metrics"]) + 1 == OPT_OPS_STEP:
-                _, rec["opt_ops"] = device_ops(opt_step)
-            else:
-                opt_step()
-            torch.cuda.synchronize()
-            rec["opt_ms"].append((time.perf_counter() - t) * 1e3)
+    def timed_save(tag, **kw):
+        t = time.perf_counter()
+        save(tag, **kw)
+        saves.append(f"{tag} {time.perf_counter() - t:.1f} s")
+    tr.save = timed_save
+    rec = timed_train(tr, TRAIN_STEPS, "(s)", profiled=PROFILED_STEPS,
+                      opt_ops_step=OPT_OPS_STEP)
+    base, peak, t_train = rec["base"], rec["peak"], rec["seconds"]
+    ms = rec["metrics"]
+    for i, (m, wall, shp) in enumerate(zip(ms, rec["wall"], rec["shape"])):
+        ntok = float(m["effective_ntoken"])
+        log(f"  (s) step {i + 1}: B={shp[0]} S={shp[1]}+{shp[2]}, "
+            f"{ntok:.0f} targets, loss/token "
+            f"{float(m['loss']) / ntok:.4f}, top10acc "
+            f"{float(m['top10acc']) / ntok:.4f}, {wall:.3f} s, "
+            f"optimizer {rec['opt_ms'][i]:.1f} ms")
+    first = float(ms[0]["loss"]) / float(ms[0]["effective_ntoken"])
+    if abs(first - uniform_ce) > STEP1_RTOL * uniform_ce:
+        raise AssertionError(f"(s) step 1's loss per token {first} is not "
+                             f"within {STEP1_RTOL} of {uniform_ce}")
+    rate = [i - 1 for i in RATE_STEPS]
+    ntoks = sum(float(ms[i]["effective_ntoken"]) for i in rate)
+    positions = sum(b * (sx + sy) for b, sx, sy in
+                    (rec["shape"][i] for i in rate))
+    wall = sum(rec["wall"][i] for i in rate)
+    opt_ms = [rec["opt_ms"][i] for i in rate]
+    busy, window, n_ev = rec["profile"]
+    hist = tr.progress["history"]
+    log(f"  (s) step 1 loss/token {first:.4f} vs ln(card) x mean(w) "
+        f"{uniform_ce:.4f} (tolerance {STEP1_RTOL:.0%}); steps "
+        f"{RATE_STEPS[0]}-{RATE_STEPS[-1]}: {ntoks / wall:.0f} target "
+        f"tokens/s, {positions / wall:.0f} positions/s, "
+        f"{wall / len(rate):.3f} s a step, the optimizer update "
+        f"{np.mean(opt_ms):.1f} ms of it; {rec['opt_ops']} device "
+        f"operations an update (step {OPT_OPS_STEP}); peak allocated "
+        f"{peak:.2f} GB ({base:.2f} GB before train(): the Trainer's "
+        f"weights and optimizer and the earlier phases'); device busy {busy / window:.1%} of steps "
+        f"{PROFILED_STEPS[0]}-{PROFILED_STEPS[-1]} ({busy:.1f} of "
+        f"{window:.1f} ms, {n_ev / len(PROFILED_STEPS):.0f} device "
+        f"operations a step, torch.profiler; derived: its "
+        f"{busy / len(PROFILED_STEPS):.1f} device ms a step over steps "
+        f"{RATE_STEPS[0]}-{RATE_STEPS[-1]}'s unprofiled "
+        f"{wall / len(rate) * 1e3:.1f} ms a step = "
+        f"{busy / len(PROFILED_STEPS) / (wall / len(rate) * 1e3):.1%}); "
+        f"train() {t_train:.1f} s "
+        f"with the validation (score {hist[-1][1]:.4f}) and the saves ("
+        f"{', '.join(saves)})")
+    ckpt = os.path.join(tr.tcfg.exp_dir, "ckpt_latest")
+    if not (os.path.isfile(os.path.join(ckpt, "model.pt"))
+            and np.isfinite(hist[-1][1])):
+        raise AssertionError(f"(s) no checkpoint or validation: {hist}")
+    fixed = collate_train(tr.train_ds, tr.batcher.epoch_batches(0)[0],
+                          np.random.default_rng(SEED), device="cuda")
+    del tr, rec, save
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        def timed_step(batch, seed):
-            n = len(rec["metrics"]) + 1
-            torch.cuda.synchronize()
-            if n == PROFILED_STEPS[0]:
-                prof = profile(activities=[ProfilerActivity.CPU,
-                                           ProfilerActivity.CUDA])
-                prof.start()
-                rec["profile"] = [prof, time.perf_counter()]
-            t = time.perf_counter()
-            m = step_fn(batch, seed)
-            torch.cuda.synchronize()
-            rec["wall"].append(time.perf_counter() - t)
-            if n == PROFILED_STEPS[-1]:
-                prof, t_start = rec["profile"]
-                prof.stop()
-                wall = (time.perf_counter() - t_start) * 1e3
-                ev = [e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
-                busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
-                rec["profile"] = (busy, wall, len(ev))
-            rec["metrics"].append({k: (v.float().cpu().numpy()
-                                       if isinstance(v, torch.Tensor) else v)
-                                   for k, v in m.items()})
-            rec["shape"].append((batch.x.shape[0], batch.x.shape[1],
-                                 batch.y_tokens.shape[2]))
-            return m
+    # ---- (s) one fixed batch, no dropout ----
+    quiet = dataclasses.replace(
+        recipe, text_embedding_dropout=0.0,
+        text_positional_embedding_dropout=0.0,
+        audio_positional_embedding_dropout=0.0, trm_dropout=0.0)
+    model = VoiceCraft(quiet, "cuda", trainable=True).init_weights(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    t = TrainConfig()
+    opt = ScaledAdam(stacked_leaves(model), lr=eden_schedule(
+        t.lr, t.reduce_lr_start_step, t.reduce_lr_start_epoch,
+        t.num_steps * t.warmup_fraction, t.pseudo_epoch_size),
+        clipping_update_period=t.clipping_update_period)
+    step = make_train_step(model, opt)
+    losses = []
+    for i in range(FIXED_STEPS):
+        m = step(fixed, seed=None)
+        losses.append(m["loss"].item() / m["effective_ntoken"].item())
+    log(f"  (s) one fixed batch (B={fixed.x.shape[0]}, S={fixed.x.shape[1]}"
+        f"+{fixed.y_tokens.shape[2]}), no dropout, loss/token by step: "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"(s) the fixed batch's loss did not fall: "
+                             f"{losses}")
+    parts = step_parts(model, opt, fixed)
+    log("  (s) one step of the fixed batch by part (wall ms; device ms, "
+        "device operations): " + "; ".join(
+            f"{k} {w:.1f} ({d:.1f}, {n})" for k, (w, d, n) in parts.items()))
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    yard = attention_yardstick(fixed, recipe.nhead, recipe.d_model)
 
-        tr.step_fn, tr.optimizer.step = timed_step, timed_opt_step
-        save, saves = tr.save, []
+    # ---- (t) the recipe's budget ----
+    tr = Trainer(recipe, tcfg("t", RECIPE_TOKENS), device="cuda")
+    _, batch = next(tr._prefetch(0, tr.batcher.epoch_batches(0), 0))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = tr.step_fn(batch, tr.next_seed())
+    torch.cuda.synchronize()
+    log(f"  (t) one step at max_num_tokens {RECIPE_TOKENS}: B="
+        f"{batch.x.shape[0]} S={batch.x.shape[1]}+{batch.y_tokens.shape[2]}"
+        f" (the bucket cap, int(budget / boundary), is 8 rows at either "
+        f"budget), {time.perf_counter() - t0:.3f} s (the first step), "
+        f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"({base:.2f} before the step) of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.0f}, "
+        f"loss/token {m['loss'].item() / m['effective_ntoken'].item():.4f}")
+    if m["is_nan"]:
+        raise AssertionError("(t): the step skipped a NaN loss")
+    del tr, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        def timed_save(tag, **kw):
-            t = time.perf_counter()
-            save(tag, **kw)
-            saves.append(f"{tag} {time.perf_counter() - t:.1f} s")
-        tr.save = timed_save
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated() / 1e9
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        tr.train(max_steps=TRAIN_STEPS)
-        torch.cuda.synchronize()
-        t_train = time.time() - t0
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        ms = rec["metrics"]
-        if len(ms) != TRAIN_STEPS:
-            raise AssertionError(f"(s) ran {len(ms)} steps, want {TRAIN_STEPS}")
-        for i, (m, wall, shp) in enumerate(zip(ms, rec["wall"], rec["shape"])):
-            ntok = float(m["effective_ntoken"])
-            log(f"  (s) step {i + 1}: B={shp[0]} S={shp[1]}+{shp[2]}, "
-                f"{ntok:.0f} targets, loss/token "
-                f"{float(m['loss']) / ntok:.4f}, top10acc "
-                f"{float(m['top10acc']) / ntok:.4f}, {wall:.3f} s, "
-                f"optimizer {rec['opt_ms'][i]:.1f} ms")
-            if m["is_nan"] or not all(np.isfinite(np.asarray(v)).all()
-                                      for v in m.values()):
-                raise AssertionError(f"(s) step {i + 1}: metrics {m}")
-        first = float(ms[0]["loss"]) / float(ms[0]["effective_ntoken"])
-        if abs(first - uniform_ce) > STEP1_RTOL * uniform_ce:
-            raise AssertionError(f"(s) step 1's loss per token {first} is not "
-                                 f"within {STEP1_RTOL} of {uniform_ce}")
-        rate = [i - 1 for i in RATE_STEPS]
-        ntoks = sum(float(ms[i]["effective_ntoken"]) for i in rate)
-        positions = sum(b * (sx + sy) for b, sx, sy in
-                        (rec["shape"][i] for i in rate))
-        wall = sum(rec["wall"][i] for i in rate)
-        opt_ms = [rec["opt_ms"][i] for i in rate]
-        busy, window, n_ev = rec["profile"]
-        hist = tr.progress["history"]
-        log(f"  (s) step 1 loss/token {first:.4f} vs ln(card) x mean(w) "
-            f"{uniform_ce:.4f} (tolerance {STEP1_RTOL:.0%}); steps "
-            f"{RATE_STEPS[0]}-{RATE_STEPS[-1]}: {ntoks / wall:.0f} target "
-            f"tokens/s, {positions / wall:.0f} positions/s, "
-            f"{wall / len(rate):.3f} s a step, the optimizer update "
-            f"{np.mean(opt_ms):.1f} ms of it; {rec['opt_ops']} device "
-            f"operations an update (step {OPT_OPS_STEP}); peak allocated "
-            f"{peak:.2f} GB ({base:.2f} GB before train(): the Trainer's "
-            f"weights and optimizer and the earlier phases'); device busy {busy / window:.1%} of steps "
-            f"{PROFILED_STEPS[0]}-{PROFILED_STEPS[-1]} ({busy:.1f} of "
-            f"{window:.1f} ms, {n_ev / len(PROFILED_STEPS):.0f} device "
-            f"operations a step, torch.profiler; derived: its "
-            f"{busy / len(PROFILED_STEPS):.1f} device ms a step over steps "
-            f"{RATE_STEPS[0]}-{RATE_STEPS[-1]}'s unprofiled "
-            f"{wall / len(rate) * 1e3:.1f} ms a step = "
-            f"{busy / len(PROFILED_STEPS) / (wall / len(rate) * 1e3):.1%}); "
-            f"train() {t_train:.1f} s "
-            f"with the validation (score {hist[-1][1]:.4f}) and the saves ("
-            f"{', '.join(saves)})")
-        ckpt = os.path.join(tr.tcfg.exp_dir, "ckpt_latest")
-        if not (os.path.isfile(os.path.join(ckpt, "model.pt"))
-                and np.isfinite(hist[-1][1])):
-            raise AssertionError(f"(s) no checkpoint or validation: {hist}")
-        fixed = collate_train(tr.train_ds, tr.batcher.epoch_batches(0)[0],
-                              np.random.default_rng(SEED), device="cuda")
-        del tr, rec, timed_step, timed_opt_step, step_fn, opt_step, save
-        gc.collect()
-        torch.cuda.empty_cache()
+    # ---- (u) the pipeline: the trained checkpoint serves TTS ----
+    a = requests[0]
+    t0 = time.time()
+    cfg_u, model_u, phn2num = load_model(ckpt, device="cuda")
+    x = np.asarray(phones_to_ids(a.phones, phn2num), np.int32)
+    if model_u.dtype != torch.bfloat16 or len(x) != len(a.x):
+        raise AssertionError(f"(u): dtype {model_u.dtype}, x {len(x)} of "
+                             f"{len(a.x)} phones")
+    t_load = time.time() - t0
+    _native.reset_launch_counts()
+    stats = {}
+    t0 = time.time()
+    full, gen = inference_tts(model_u, x, a.codes,
+                              SamplingConfig(top_k=40, temperature=0.0),
+                              seed=SEED, gen_max=U_GEN_MAX, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_native.LAUNCHES)
+    log(f"  (u) ckpt_latest loaded in {t_load:.1f} s ({model_u.dtype}); "
+        f"request (a)'s prompt, Sp {stats['prefill_len']}, greedy: "
+        f"{gen.shape[1]} frames in {wall:.3f} s")
+    check_launches("u", launches, {"flash_prefix_attention":
+                                   cfg_u.num_decoder_layers,
+                                   "fused_ffn": 0})
+    if not (np.array_equal(full[:, :a.codes.shape[1]], a.codes)
+            and stats["prefill_len"] >= 1024):
+        raise AssertionError("(u): the prompt frames changed or the "
+                             "prefill missed the kernel")
+    check_wav("u", codec, codec.cfg, full)
+    del model_u
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, yard
 
-        # ---- (s) one fixed batch, no dropout ----
-        quiet = dataclasses.replace(
-            recipe, text_embedding_dropout=0.0,
-            text_positional_embedding_dropout=0.0,
-            audio_positional_embedding_dropout=0.0, trm_dropout=0.0)
-        model = VoiceCraft(quiet, "cuda", trainable=True).init_weights(
-            torch.Generator(device="cuda").manual_seed(SEED))
-        t = TrainConfig()
-        opt = ScaledAdam(stacked_leaves(model), lr=eden_schedule(
-            t.lr, t.reduce_lr_start_step, t.reduce_lr_start_epoch,
-            t.num_steps * t.warmup_fraction, t.pseudo_epoch_size),
-            clipping_update_period=t.clipping_update_period)
-        step = make_train_step(model, opt)
-        losses = []
-        for i in range(FIXED_STEPS):
-            m = step(fixed, seed=None)
-            losses.append(m["loss"].item() / m["effective_ntoken"].item())
-        log(f"  (s) one fixed batch (B={fixed.x.shape[0]}, S={fixed.x.shape[1]}"
-            f"+{fixed.y_tokens.shape[2]}), no dropout, loss/token by step: "
-            + ", ".join(f"{v:.4f}" for v in losses))
-        if not losses[-1] < losses[0]:
-            raise AssertionError(f"(s) the fixed batch's loss did not fall: "
-                                 f"{losses}")
-        parts = step_parts(model, opt, fixed)
-        log("  (s) one step of the fixed batch by part (wall ms; device ms, "
-            "device operations): " + "; ".join(
-                f"{k} {w:.1f} ({d:.1f}, {n})" for k, (w, d, n) in parts.items()))
-        del model, opt, step
-        gc.collect()
-        torch.cuda.empty_cache()
-        yard = attention_yardstick(fixed, recipe.nhead, recipe.d_model)
 
-        # ---- (t) the recipe's budget ----
-        tr = Trainer(recipe, tcfg("t", RECIPE_TOKENS), device="cuda")
-        _, batch = next(tr._prefetch(0, tr.batcher.epoch_batches(0), 0))
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated() / 1e9
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        m = tr.step_fn(batch, tr.next_seed())
-        torch.cuda.synchronize()
-        log(f"  (t) one step at max_num_tokens {RECIPE_TOKENS}: B="
-            f"{batch.x.shape[0]} S={batch.x.shape[1]}+{batch.y_tokens.shape[2]}"
-            f" (the bucket cap, int(budget / boundary), is 8 rows at either "
-            f"budget), {time.perf_counter() - t0:.3f} s (the first step), "
-            f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
-            f"({base:.2f} before the step) of "
-            f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.0f}, "
-            f"loss/token {m['loss'].item() / m['effective_ntoken'].item():.4f}")
-        if m["is_nan"]:
-            raise AssertionError("(t): the step skipped a NaN loss")
-        del tr, batch, m
-        gc.collect()
-        torch.cuda.empty_cache()
+# ---- phase 10 ----------------------------------------------------------------
 
-        # ---- (u) the pipeline: the trained checkpoint serves TTS ----
-        a = requests[0]
-        t0 = time.time()
-        cfg_u, model_u, phn2num = load_model(ckpt, device="cuda")
-        x = np.asarray(phones_to_ids(a.phones, phn2num), np.int32)
-        if model_u.dtype != torch.bfloat16 or len(x) != len(a.x):
-            raise AssertionError(f"(u): dtype {model_u.dtype}, x {len(x)} of "
-                                 f"{len(a.x)} phones")
-        t_load = time.time() - t0
+def scaling_check():
+    """(v): each scaling Function's forward and backward on the card, in f32
+    and bf16, against the CPU in f32 on the same bf16-valued inputs."""
+    import math
+    import torch
+    from voicecraft_tpu_torch.models import scaling as S
+    g = torch.Generator().manual_seed(SEED)
+    B, T, C = SCALING_SHAPE
+    # a dominant direction, so MaxEig's and Whiten's penalties are active
+    d = torch.randn(C, generator=g)
+    x0 = (1.5 * torch.randn(SCALING_SHAPE, generator=g) + 0.2
+          + 4.0 * torch.randn(B, T, 1, generator=g) * d / d.norm())
+    x0 = x0.bfloat16().float()
+    g0 = torch.randn(SCALING_SHAPE, generator=g).bfloat16().float()
+    le0 = torch.tensor(math.log(1e-5))
+    d0 = S.max_eig_init(C)
+    cases = {
+        "softmax": lambda x, le: S.softmax(x),
+        "double_swish": lambda x, le: S.double_swish(x),
+        "activation_balancer": lambda x, le: S.activation_balancer(x),
+        "balanced_double_swish": lambda x, le: S.balanced_double_swish(x),
+        "basic_norm (eval)": lambda x, le: S.basic_norm(x, le),
+        "basic_norm (train)": lambda x, le: S.basic_norm(x, le, train=True),
+        "balanced_basic_norm (train)": lambda x, le: S.balanced_basic_norm(
+            x, le, train=True),
+        "penalize_abs_values_gt": lambda x, le: S.penalize_abs_values_gt(
+            x, 3.0, 0.05),
+        "with_loss": lambda x, le: S.with_loss(x, le * x.new_ones(4)),
+        "whiten (8 groups)": lambda x, le: S.whiten(x, 8, 2.0, 0.02),
+        "max_eig": lambda x, le: S.max_eig(x, d0.to(x.device))[0],
+    }
+
+    def run(fn, device, dtype):
+        x = x0.to(device, dtype).clone().requires_grad_(True)
+        le = le0.to(device).clone().requires_grad_(True)
+        y = fn(x, le)
+        y.backward(g0.to(device, dtype))
+        return (y.detach().float().cpu(), x.grad.float().cpu(),
+                None if le.grad is None else le.grad.item())
+
+    t0 = time.time()
+    worst = {}
+    for name, fn in cases.items():
+        ref = run(fn, "cpu", torch.float32)
+        for dtype, rtol in ((torch.float32, SCALING_F32_RTOL),
+                            (torch.bfloat16, SCALING_BF16_RTOL)):
+            got = run(fn, "cuda", dtype)
+            errs = [(a - b).abs().max().item() / b.abs().max().item()
+                    for a, b in zip(got[:2], ref[:2])]
+            if ref[2] is not None:
+                errs.append(abs(got[2] - ref[2]) / abs(ref[2])
+                            * rtol / SCALING_SCALAR_RTOL)
+            key = str(dtype).split(".")[-1]
+            worst[(name, key)] = max(errs)
+            if not max(errs) <= rtol:
+                raise AssertionError(f"(v) {name} {key}: errors {errs} (of "
+                                     f"the reference's largest value) > {rtol}")
+    torch.cuda.synchronize()
+    log(f"  (v) {len(cases)} scaling functions on {list(SCALING_SHAPE)}, "
+        f"forward and backward, card vs CPU f32 ({time.time() - t0:.1f} s): "
+        + "; ".join(f"{n} {worst[(n, 'float32')]:.1e} / "
+                    f"{worst[(n, 'bfloat16')]:.1e}" for n in cases)
+        + f" (f32 / bf16 error over the largest |value|; tolerance "
+        f"{SCALING_F32_RTOL:g} / {SCALING_BF16_RTOL:g}, log_eps gradient "
+        f"{SCALING_SCALAR_RTOL:g})")
+
+
+def toolbox_serving(base, codec, ccfg, requests, serve, out):
+    """(w): giga830M with TOOLBOX in bf16, random weights from SEED, serving
+    request (a)'s prompt greedy and 8 lanes, and against ``base`` (phase
+    4's layernorm + relu model) on the same request, unfused: forwards/s,
+    and one decode step's device ms and operations; each run's launch
+    counts set to 0 just before it and read just after, into ``out``."""
+    import torch
+    from voicecraft_tpu_torch.data.spans import compose_tts_prefix
+    from voicecraft_tpu_torch.inference import serving as sv
+    from voicecraft_tpu_torch.inference.loader import load_model
+    from voicecraft_tpu_torch.inference.tts import (decode_geometry,
+                                                    inference_tts, run_decode)
+    from voicecraft_tpu_torch.models.voicecraft import SamplingConfig
+    from voicecraft_tpu_torch.ops import _native
+    greedy = SamplingConfig(top_k=40, top_p=1.0, temperature=0.0)
+    t0 = time.time()
+    cfg, model, _ = load_model("giga830M", random_init=True, seed=SEED,
+                               device="cuda", overrides=TOOLBOX)
+    L = cfg.num_decoder_layers
+    log(f"  (w) giga830M {model.dtype}, norm {cfg.norm}, ffn_activation "
+        f"{cfg.ffn_activation}, built in {time.time() - t0:.1f} s")
+
+    def counted(label, fn, sp):
         _native.reset_launch_counts()
-        stats = {}
         t0 = time.time()
-        full, gen = inference_tts(model_u, x, a.codes,
-                                  SamplingConfig(top_k=40, temperature=0.0),
-                                  seed=SEED, gen_max=U_GEN_MAX, stats=stats)
+        res = fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(_native.LAUNCHES)
-        log(f"  (u) ckpt_latest loaded in {t_load:.1f} s ({model_u.dtype}); "
-            f"request (a)'s prompt, Sp {stats['prefill_len']}, greedy: "
-            f"{gen.shape[1]} frames in {wall:.3f} s")
-        check_launches("u", launches, {"flash_prefix_attention":
-                                       cfg_u.num_decoder_layers,
-                                       "fused_ffn": 0})
-        if not (np.array_equal(full[:, :a.codes.shape[1]], a.codes)
-                and stats["prefill_len"] >= 1024):
-            raise AssertionError("(u): the prompt frames changed or the "
-                                 "prefill missed the kernel")
-        check_wav("u", codec, codec.cfg, full)
-        del model_u
-        gc.collect()
-        torch.cuda.empty_cache()
-        return launches, yard
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        check_launches(label, launches, {
+            "flash_prefix_attention": L if sp >= 1024 else 0, "fused_ffn": 0})
+        out.append(launches)
+        return res, wall
+
+    a = requests[0]
+    stats = {}
+    (full, gen), wall = counted("w request (a)", lambda: inference_tts(
+        model, a.x, a.codes, greedy, seed=SEED, gen_max=W_GEN_MAX,
+        stats=stats), 1024)
+    log(f"  (w) request (a)'s {a.wav.shape[1] / 16000:.2f} s prompt, Sp "
+        f"{stats['prefill_len']}, greedy: {gen.shape[1]} frames, "
+        f"{stats['steps']} forwards in {wall:.3f} s = "
+        f"{stats['steps'] / wall:.1f} forwards/s "
+        f"({gen.shape[1] / wall:.1f} frames/s)")
+    if not (stats["prefill_len"] >= 1024
+            and np.array_equal(full[:, :a.codes.shape[1]], a.codes)):
+        raise AssertionError("(w): the prompt frames changed or the prefill "
+                             "missed the kernel")
+    check_wav("w", codec, ccfg, full)
+    prefix = compose_tts_prefix(a.codes, cfg)
+    base_stats = {}
+    _, base_wall = counted("w layernorm + relu, unfused", lambda: inference_tts(
+        base, a.x, a.codes, greedy, seed=SEED, gen_max=W_GEN_MAX,
+        stats=base_stats), 1024)
+    costs = [step_costs(m, a.x, prefix, fused_ffn=False) for m in (base, model)]
+    log(f"  (w) the same request on phase 4's layernorm + relu model, "
+        f"unfused: {base_stats['steps'] / base_wall:.1f} forwards/s against "
+        f"{stats['steps'] / wall:.1f}; one decode step (graph replay / "
+        f"torch.profiler): {costs[0][0]:.4f} device ms, {costs[0][1]} "
+        f"operations against {costs[1][0]:.4f} ms, {costs[1][1]} operations")
+    try:
+        inference_tts(model, a.x, a.codes, greedy, gen_max=8, fused_ffn=True)
+    except ValueError as e:
+        log(f"  (w) fused_ffn=True refused: {e}")
+    else:
+        raise AssertionError("(w): fused_ffn=True ran a doubleswish model")
+    steps = token_columns(model, 16)
+    k_path = teacher_forced_logits(model, a.x, prefix, steps, plain=False,
+                                   fused_ffn=False)
+    p_path = teacher_forced_logits(model, a.x, prefix, steps, plain=True)
+    errs = [(k - p).abs().max().item() for k, p in zip(k_path, p_path)]
+    log(f"  (w) logits, kernel path vs plain path (max |logit| "
+        f"{max(t.abs().max().item() for t in p_path):.3f}):")
+    check("after prefill", errs[0], TOL_LOGITS)
+    check("after 16 teacher-forced decode steps", max(errs[1:]), TOL_LOGITS)
+
+    # 8 lanes through serve_tts_batch: the kernel at B=8
+    reqs = [(r.x, r.codes) for r in serve]
+    with DrawRecorder() as rec, serving_results("make_serving_tts_loop") as kept:
+        outs, wall = counted("w 8 lanes", lambda: sv.serve_tts_batch(
+            model, reqs, greedy, pads=W_PADS, seeds=SERVE_SEEDS),
+            W_PADS[0] + W_PADS[1])
+    (res,) = kept
+    log(f"  (w) {len(reqs)} lanes, Sp {W_PADS[0] + W_PADS[1]}, greedy: "
+        f"{res.steps} steps, rows {res.n_rows} in {wall:.3f} s = "
+        f"{sum(res.n_rows) / wall:.1f} rows/s aggregate")
+    for b, (full, _) in enumerate(outs):
+        if not np.array_equal(full[:, :reqs[b][1].shape[1]], reqs[b][1]):
+            raise AssertionError(f"(w) lane {b}: prompt not kept")
+    for b in W_COMPARED:
+        x, codes = reqs[b]
+        prefix = compose_tts_prefix(codes, cfg)
+        gx, gy, _ = decode_geometry(cfg, len(x), prefix.length,
+                                    gen_max=W_PADS[2])
+        with DrawRecorder() as rec1:
+            (ref, _), _ = counted(f"w lane {b} single stream", lambda: run_decode(
+                model, is_tts=True, x_tokens=x, prefix=prefix, n_spans=1,
+                scfg=greedy, seed=SEED, gen_max=W_PADS[2], return_raw=True),
+                gx + gy)
+        same_under_ties(f"(w) lane {b} ({SERVE_SECONDS[b]} s) vs its own "
+                        f"single-stream decode",
+                        res.gen_buf[:res.n_rows[b], b].cpu().numpy(), ref,
+                        rec.lane(b), rec1.by_index())
+
+
+def toolbox_numerics(root, recipe):
+    """(x): forward_train's loss and gradients at 2 layers with
+    TOOLBOX_BALANCED, the card (bf16) against the CPU (f32), in the eval
+    form (no seed) and the train form (a seed; dropout rates 0, so only the
+    norms' form changes), within phase 9 (r)'s tolerances."""
+    import dataclasses
+    import torch
+    from voicecraft_tpu_torch.config import TrainConfig
+    from voicecraft_tpu_torch.data.manifest import ManifestDataset, collate_train
+    from voicecraft_tpu_torch.models.voicecraft import VoiceCraft, forward_train
+    cfg = dataclasses.replace(
+        recipe, num_decoder_layers=NUMERICS_LAYERS, text_embedding_dropout=0.0,
+        text_positional_embedding_dropout=0.0,
+        audio_positional_embedding_dropout=0.0, trm_dropout=0.0,
+        **TOOLBOX_BALANCED)
+    ds = ManifestDataset(cfg, TrainConfig(dataset_dir=root), "train")
+    idxs = [i for i, n in enumerate(ds.lengths)
+            if n <= NUMERICS_FRAMES][:NUMERICS_UTTS]
+    cpu = VoiceCraft(dataclasses.replace(cfg, compute_dtype="float32"), "cpu",
+                     trainable=True).init_weights(
+                         torch.Generator().manual_seed(SEED))
+    card = VoiceCraft(cfg, "cuda", trainable=True)
+    card.load_state_dict(cpu.state_dict())
+    losses = {}
+    for form, seed in (("eval", None), ("train", SEED)):
+        res = []
+        for model, dev in ((cpu, "cpu"), (card, "cuda")):
+            model.zero_grad(set_to_none=True)
+            batch = collate_train(ds, idxs, np.random.default_rng(SEED),
+                                  device=dev)
+            o = forward_train(model, batch, seed=seed, remat=True)
+            o["loss"].backward()
+            res.append((o["loss"].item(),
+                        {n: p.grad for n, p in model.named_parameters()}))
+        (want, want_g), (got, got_g) = res
+        losses[form] = (want, got)
+        rel = abs(got - want) / abs(want)
+        err, worst, med = grad_errors(got_g, want_g)
+        log(f"  (x) {cfg.norm} + {cfg.ffn_activation}, {NUMERICS_LAYERS} "
+            f"layers, {form} form, card bf16 vs CPU f32: loss {got:.4f} vs "
+            f"{want:.4f}, rel {rel:.2e} (tolerance {TRAIN_LOSS_RTOL:g}); "
+            f"gradients' relative-norm error: worst {err:.2e} ({worst}; "
+            f"tolerance {TRAIN_GRAD_RTOL:g}), median {med:.2e} (tolerance "
+            f"{TRAIN_GRAD_MEDIAN:g})")
+        if not (rel <= TRAIN_LOSS_RTOL and err <= TRAIN_GRAD_RTOL
+                and med <= TRAIN_GRAD_MEDIAN):
+            raise AssertionError(f"(x) {form}: loss rel {rel}, gradient error "
+                                 f"{err} at {worst}, median {med}")
+    gap = [abs(losses["train"][i] - losses["eval"][i]) / losses["eval"][i]
+           for i in (0, 1)]
+    log(f"  (x) train form vs eval form (log_eps = log(1e-5) < -3: the "
+        f"expected ballast differs): loss rel gap {gap[0]:.2e} on the CPU, "
+        f"{gap[1]:.2e} on the card")
+    if not (gap[0] > 0 and gap[1] > 0):
+        raise AssertionError(f"(x): the train and eval forms agree: {gap}")
+
+
+def timed_train(tr, steps, label, profiled=(), opt_ops_step=None):
+    """Trainer.train(max_steps=steps) with each step and each optimizer
+    update synced and timed; every step's metrics must be finite with no
+    NaN skip.  Returns a dict: per step "metrics", "wall" (s), "shape"
+    (B, Sx, Sy) and "opt_ms"; "opt_ops", the device operations of update
+    ``opt_ops_step``; "profile", (device busy ms, wall ms, device
+    operations) over the steps ``profiled`` (torch.profiler); "base" and
+    "peak", GB allocated before and during train(); "seconds" of train()."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rec = {"metrics": [], "wall": [], "shape": [], "opt_ms": [],
+           "opt_ops": None, "profile": None}
+    step_fn, opt_step = tr.step_fn, tr.optimizer.step
+
+    def timed_opt_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if len(rec["metrics"]) + 1 == opt_ops_step:
+            _, rec["opt_ops"] = device_ops(opt_step)
+        else:
+            opt_step()
+        torch.cuda.synchronize()
+        rec["opt_ms"].append((time.perf_counter() - t) * 1e3)
+
+    def timed_step(batch, seed):
+        n = len(rec["metrics"]) + 1
+        torch.cuda.synchronize()
+        if profiled and n == profiled[0]:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.start()
+            rec["profile"] = [prof, time.perf_counter()]
+        t = time.perf_counter()
+        m = step_fn(batch, seed)
+        torch.cuda.synchronize()
+        rec["wall"].append(time.perf_counter() - t)
+        if profiled and n == profiled[-1]:
+            prof, t_start = rec["profile"]
+            prof.stop()
+            wall = (time.perf_counter() - t_start) * 1e3
+            ev = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+            rec["profile"] = (busy, wall, len(ev))
+        rec["metrics"].append({k: (v.float().cpu().numpy()
+                                   if isinstance(v, torch.Tensor) else v)
+                               for k, v in m.items()})
+        rec["shape"].append((batch.x.shape[0], batch.x.shape[1],
+                             batch.y_tokens.shape[2]))
+        return m
+
+    tr.step_fn, tr.optimizer.step = timed_step, timed_opt_step
+    torch.cuda.synchronize()
+    rec["base"] = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    tr.train(max_steps=steps)
+    torch.cuda.synchronize()
+    rec["seconds"] = time.time() - t0
+    rec["peak"] = torch.cuda.max_memory_allocated() / 1e9
+    tr.step_fn, tr.optimizer.step = step_fn, opt_step
+    if len(rec["metrics"]) != steps:
+        raise AssertionError(f"{label} ran {len(rec['metrics'])} steps, "
+                             f"want {steps}")
+    for i, m in enumerate(rec["metrics"]):
+        if m["is_nan"] or not all(np.isfinite(np.asarray(v)).all()
+                                  for v in m.values()):
+            raise AssertionError(f"{label} step {i + 1}: metrics {m}")
+    return rec
+
+
+def check_log_eps_moved(model, label):
+    """Every BasicNorm log_eps left its init log(1e-5)."""
+    import math
+    le = {n: p.item() for n, p in model.named_parameters() if "log_eps" in n}
+    still = [n for n, v in le.items() if v == np.float32(math.log(1e-5))]
+    log(f"  ({label}) {len(le)} log_eps parameters, all moved: "
+        f"{min(le.values()):.6f} .. {max(le.values()):.6f} (init "
+        f"{math.log(1e-5):.6f})")
+    if still or len(le) != 2 * model.cfg.num_decoder_layers + 1:
+        raise AssertionError(f"({label}): log_eps unmoved {still} of {len(le)}")
+
+
+def cli_ties(model, codec, mode, item, tau):
+    """A tooling CLI's item whose greedy output differed from its plain
+    reference: both paths again, their recorded rows with the logits each
+    was drawn from, under same_under_ties (a near-tie may differ)."""
+    from voicecraft_tpu_torch.data.spans import (compose_edit_prefix,
+                                                 compose_tts_prefix)
+    from voicecraft_tpu_torch.inference import tts
+    from voicecraft_tpu_torch.inference.streaming import stream_tts
+    from voicecraft_tpu_torch.models.voicecraft import (SamplingConfig,
+                                                        make_spec_decode_loop)
+    greedy = SamplingConfig(top_k=0, top_p=1.0, temperature=0.0,
+                            stop_repetition=3)
+    cfg, x = model.cfg, item["x"]
+    if mode in ("edit_spec",):
+        prefix, qids = compose_edit_prefix(item["codes"], [item["span"]], cfg)
+        paths = []
+        for spec in (0, tau):
+            with DrawRecorder() as rec:
+                rows, _ = tts.run_decode(
+                    model, is_tts=False, x_tokens=x, prefix=prefix,
+                    queue_mask_ids=qids, n_spans=1, scfg=greedy, seed=1,
+                    return_raw=True, spec=spec)
+            paths.append((rows, rec.by_index()))
+        (ref, ref_la), (got, got_la) = paths
+    else:
+        prefix = compose_tts_prefix(item["prompt"], cfg)
+        with DrawRecorder() as rec:
+            ref, _ = tts.run_decode(model, is_tts=True, x_tokens=x,
+                                    prefix=prefix, n_spans=1, scfg=greedy,
+                                    seed=1, return_raw=True)
+        ref_la = rec.by_index()
+        if mode == "spec":
+            _, plen, x_pad, y_pad, gen_max, (xt, yt, mi) = tts._tts_prompt(
+                model, x, item["prompt"], None)
+            with DrawRecorder() as rec:
+                loop = make_spec_decode_loop(cfg, x_pad=x_pad, y_pad=y_pad,
+                                             gen_max=gen_max, scfg=greedy,
+                                             n_draft=tau)
+                res = loop(model, xt, len(x), yt, plen, mi, 1)
+            got, got_la = res.gen_buf[:res.gen_cnt].cpu().numpy(), rec.by_index()
+        else:
+            with EngineRecorder() as rec:
+                list(stream_tts(model, x, item["prompt"], greedy, seed=1,
+                                codec=codec))
+            got, got_la = rec.request(0)
+    return same_under_ties(f"(z) {mode} vs its plain reference, {item['id']}",
+                           got, ref, got_la, ref_la)
+
+
+def tooling_clis(codec, ccfg, work, recipe):
+    """(z): the procedural corpus, preprocess_torch_cli.py, the toolbox
+    model with 3 MTP head groups trained on it, then quality_torch_cli.py
+    and spec_acceptance_torch_cli.py on its checkpoint.  The two CLIs run in
+    this process (their main() / run()), so their draws can be recorded
+    again where a bit-exact field is false."""
+    import contextlib as cl
+    import dataclasses
+    import gc
+    import io as _io
+    import torch
+    import quality_torch_cli as qcli
+    import spec_acceptance_torch_cli as scli
+    from voicecraft_tpu_torch.config import TrainConfig
+    from voicecraft_tpu_torch.inference.loader import load_model
+    from voicecraft_tpu_torch.training.trainer import Trainer
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    corpus, data = os.path.join(work, "corpus"), os.path.join(work, "corpus_data")
+    t0 = time.time()
+    for cmd in ([str(REPO / "recipes" / "make_spec_corpus.py"), corpus,
+                 *CORPUS_ARGS],
+                [str(REPO / "preprocess_torch_cli.py"), "--audio-dir",
+                 os.path.join(corpus, "train"), "--out-dir", data,
+                 "--random-init", "--codec-bins", str(ccfg.codebook_size),
+                 "--text-backend", "grapheme", "--device", "cuda"]):
+        r = subprocess.run([sys.executable, *cmd], env=env, cwd=work,
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"(z) {Path(cmd[0]).name} exited "
+                                 f"{r.returncode}: {r.stderr[-2000:]}")
+    log(f"  (z) corpus (recipes/make_spec_corpus.py {' '.join(CORPUS_ARGS)}) "
+        f"and preprocess_torch_cli.py (random {ccfg.codebook_size}-bin codec, "
+        f"grapheme backend) in {time.time() - t0:.1f} s")
+
+    zcfg = dataclasses.replace(recipe, n_mtp=N_MTP, **TOOLBOX)
+    t0 = time.time()
+    tr = Trainer(zcfg, TrainConfig(
+        dataset_dir=data, exp_dir=os.path.join(work, "z_exp"),
+        max_num_tokens=TRAIN_TOKENS, lr=0.05, optimizer_name="ScaledAdam",
+        seed=1, audio_min_length=0.5, text_min_length=2,
+        val_every_n_steps=10 ** 6, print_every_n_steps=1), device="cuda")
+    rec = timed_train(tr, Z_STEPS, "(z)")
+    log(f"  (z) {zcfg.norm} + {zcfg.ffn_activation} giga830M with {N_MTP} MTP "
+        f"head groups trained {Z_STEPS} steps on the corpus (B, Sx, Sy "
+        f"{rec['shape'][0]}), loss/token "
+        + ", ".join(f"{float(m['loss']) / float(m['effective_ntoken']):.4f}"
+                    for m in rec["metrics"])
+        + f"; {time.time() - t0:.1f} s with the build and the save")
+    ckpt = os.path.join(work, "z_exp", "ckpt_latest")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    common = ["--model", ckpt, "--eval-dir", os.path.join(corpus, "eval"),
+              "--codec-bins", str(ccfg.codebook_size), "--prompt-sec",
+              CLI_PROMPT_SEC, "--device", "cuda"]
+    # quality_torch_cli.py: the run behind its main(), for the codes
+    t0 = time.time()
+    args = qcli.build_parser().parse_args(
+        common + ["--n", CLI_N, "--modes", *QUALITY_MODES])
+    with cl.redirect_stderr(_io.StringIO()):
+        quality, codes = qcli.run(args)
+    log(f"  (z) quality_torch_cli.py --n {CLI_N} --modes "
+        f"{' '.join(QUALITY_MODES)} ({time.time() - t0:.1f} s): "
+        + json.dumps(quality))
+    if set(quality["modes"]) != set(QUALITY_MODES) or quality["n"] != 2:
+        raise AssertionError(f"(z) quality: modes {sorted(quality['modes'])}")
+    false = [(m, f) for m, f in (("spec", "bit_exact_vs_plain"),
+                                 ("stream", "bit_exact_vs_plain"),
+                                 ("edit_spec", "bit_exact_vs_edit"))
+             if quality["modes"][m][f] is not True]
+    if false:
+        _, model, phn2num = load_model(ckpt, device="cuda")
+        from voicecraft_tpu_torch.data.phonemes import (make_text_tokenizer,
+                                                        phones_to_ids)
+        from voicecraft_tpu_torch.inference.editing import fractional_edit_span
+        from voicecraft_tpu_torch.models import encodec as ec
+        from voicecraft_tpu_torch.utils import audio as au
+        tok = make_text_tokenizer("en-us", "grapheme")
+        p_frames = int(float(CLI_PROMPT_SEC) * ccfg.frame_rate)
+        for mode, field in false:
+            base = "edit" if mode == "edit_spec" else "plain"
+            for uid, got in codes[mode].items():
+                if np.array_equal(got, codes[base][uid]):
+                    continue
+                path = os.path.join(corpus, "eval", uid)
+                with open(path[:-4] + ".txt") as f:
+                    x = np.asarray(phones_to_ids(tok.phonemize(
+                        f.read().strip()), phn2num), np.int32)
+                full = ec.encode_bucketed(codec, au.load_audio(
+                    path, ccfg.sample_rate))[0].astype(np.int32)
+                item = {"id": uid, "x": x, "prompt": full[:, :p_frames],
+                        "codes": full, "span": fractional_edit_span(
+                            full.shape[1], 0.4, 0.7)}
+                cli_ties(model, codec, mode, item, quality["tau"])
+        del model
+        log(f"  (z) quality: {false} false, each item's first divergence a "
+            f"near-tie")
+
+    # spec_acceptance_torch_cli.py, TTS then --edit
+    for extra in ([], ["--edit"]):
+        t0 = time.time()
+        argv = common + ["--taus", "2", "4", "--n", CLI_N, "--lanes", "2",
+                         "--engine-requests", "1", "--engine-burst", "16",
+                         *extra]
+        with cl.redirect_stdout(_io.StringIO()), \
+                cl.redirect_stderr(_io.StringIO()):
+            acc = scli.main(argv)
+        log(f"  (z) spec_acceptance_torch_cli.py --taus 2 4 --n {CLI_N} "
+            f"--lanes 2 --engine-requests 1 --engine-burst 16 "
+            f"{' '.join(extra)} "
+            f"({time.time() - t0:.1f} s): {json.dumps(acc, default=float)}")
+        if extra:
+            if not all(2 in acc["edit"][k] and 4 in acc["edit"][k]
+                       for k in ("edit_single", "edit_serving")):
+                raise AssertionError(f"(z) spec acceptance --edit: {acc}")
+        elif not all(tau in acc[k] for k in ("single", "serving", "engine")
+                     for tau in (2, 4)):
+            raise AssertionError(f"(z) spec acceptance: {acc}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def toolbox_phase(base, codec, ccfg, requests, serve, work):
+    """Phase 10: the icefall toolbox (models/scaling.py) on every path:
+    (v) the scaling Functions card vs CPU; (w) a toolbox giga830M serving,
+    beside ``base``, phase 4's model;
+    (x) toolbox training; (y) phase 9's checkpoint through
+    export_torch_cli.py; (z) the tooling CLIs.  Returns the launch counts of
+    each counted run (each set to 0 just before it and read just after)."""
+    import dataclasses
+    import gc
+    import torch
+    from voicecraft_tpu_torch import PRESETS
+    from voicecraft_tpu_torch.config import TrainConfig
+    from voicecraft_tpu_torch.data.spans import compose_tts_prefix
+    from voicecraft_tpu_torch.inference.loader import load_model
+    from voicecraft_tpu_torch.ops import _native
+    from voicecraft_tpu_torch.training.trainer import Trainer
+    import export_torch_cli
+    out = []
+    recipe = dataclasses.replace(PRESETS["giga830M"](), **RECIPE)
+    root = os.path.join(work, "data")
+
+    t0 = time.time()
+    scaling_check()
+    log(f"  (v) done in {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    toolbox_serving(base, codec, ccfg, requests, serve, out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (w) done in {time.time() - t0:.1f} s")
+
+    # ---- (x) toolbox training ----
+    t0 = time.time()
+    toolbox_numerics(root, recipe)
+    gc.collect()
+    torch.cuda.empty_cache()
+    xcfg = dataclasses.replace(recipe, **TOOLBOX)
+    tr = Trainer(xcfg, TrainConfig(
+        dataset_dir=root, exp_dir=os.path.join(work, "x_exp"),
+        max_num_tokens=TRAIN_TOKENS, lr=0.05, optimizer_name="ScaledAdam",
+        seed=1, val_every_n_steps=10 ** 6, print_every_n_steps=1),
+        device="cuda")
+    rec = timed_train(tr, X_STEPS, "(x)")
+    walls = rec["wall"]
+    log(f"  (x) {xcfg.norm} + {xcfg.ffn_activation} giga830M, Trainer.train "
+        f"{X_STEPS} steps of the e830M recipe at max_num_tokens "
+        f"{TRAIN_TOKENS}: batches (B, Sx, Sy) {rec['shape']}, loss/token "
+        + ", ".join(f"{float(m['loss']) / float(m['effective_ntoken']):.4f}"
+                    for m in rec["metrics"])
+        + f"; s a step {', '.join(f'{w:.3f}' for w in walls)} (steps 2-"
+        f"{X_STEPS}: {np.mean(walls[1:]):.3f}); peak allocated "
+        f"{rec['peak']:.2f} GB")
+    check_log_eps_moved(tr.model, "x")
+    del tr
+    shutil.rmtree(os.path.join(work, "x_exp"), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (x) done in {time.time() - t0:.1f} s")
+
+    # ---- (y) export of phase 9's checkpoint ----
+    t0 = time.time()
+    ckpt9 = os.path.join(work, "exp", "ckpt_latest")
+    pth = os.path.join(work, "export.pth")
+    export_torch_cli.main(["--ckpt", ckpt9, "--out", pth, "--format", "pth"])
+    t_export = time.time() - t0
+    _, m9, v9 = load_model(ckpt9, device="cuda")
+    _, mx, vx = load_model(pth, device="cuda")
+    s9, sx = m9.state_dict(), mx.state_dict()
+    diff = [k for k in sx if not torch.equal(s9[k], sx[k])]
+    if set(sx) != set(s9) or diff or vx != v9:
+        raise AssertionError(f"(y): the reloaded export differs: {diff[:5]}, "
+                             f"keys {set(s9) ^ set(sx)}")
+    a = requests[0]
+    prefix = compose_tts_prefix(a.codes, m9.cfg)
+    logits = []
+    for m in (m9, mx):
+        _native.reset_launch_counts()
+        logits.append(teacher_forced_logits(m, a.x, prefix, [], plain=False,
+                                            fused_ffn=False)[0])
+        launches = dict(_native.LAUNCHES)
+        check_launches("y prefill", launches, {
+            "flash_prefix_attention": m.cfg.num_decoder_layers,
+            "fused_ffn": 0})
+        out.append(launches)
+    if not torch.equal(*logits):
+        raise AssertionError("(y): the export's prefill logits differ")
+    log(f"  (y) phase 9's ckpt_latest exported (export_torch_cli.py --format "
+        f"pth, {os.path.getsize(pth) / 1e9:.2f} GB in {t_export:.1f} s), "
+        f"reloaded through load_model: {len(sx)} tensors and one prefill's "
+        f"logits (S {a.x.shape[0]}+{prefix.length}, the attention kernel) "
+        f"equal bit for bit")
+    del m9, mx, s9, sx
+    os.remove(pth)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    tooling_clis(codec, ccfg, work, recipe)
+    log(f"  (z) done in {time.time() - t0:.1f} s")
+    return out
 
 
 def main() -> None:
@@ -3097,11 +3693,25 @@ def main() -> None:
                     for name, n in launches.items()}
     log(f"[8 engine] done in {time.time() - t0:.1f} s")
 
-    # ---- 9. training, and the trained checkpoint's TTS ----
-    t0 = time.time()
-    train_launches, _ = training_phase(requests, codec, tok)
-    launches = {name: n + train_launches[name] for name, n in launches.items()}
-    log(f"[9 training] done in {time.time() - t0:.1f} s")
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # ---- 9. training, and the trained checkpoint's TTS ----
+        t0 = time.time()
+        train_launches, _ = training_phase(requests, codec, tok, work)
+        launches = {name: n + train_launches[name]
+                    for name, n in launches.items()}
+        log(f"[9 training] done in {time.time() - t0:.1f} s")
+
+        # ---- 10. the icefall toolbox, export, the tooling CLIs ----
+        t0 = time.time()
+        log("[10 toolbox]")
+        for run_launches in toolbox_phase(model, codec, ccfg, requests, serve,
+                                          work):
+            launches = {name: n + run_launches[name]
+                        for name, n in launches.items()}
+        log(f"[10 toolbox] done in {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     kernels = [
         dict(name="flash_prefix_attention", route="cuda",

@@ -129,7 +129,9 @@ def test_port_imports_without_jax():
         "for n in names + ['tts_torch_cli', 'edit_torch_cli', 'chip_smoke',\n"
         "                  'tts_batch_torch_cli', 'realedit_torch_cli',\n"
         "                  'serve_torch_cli', 'train_torch_cli',\n"
-        "                  'eval_torch_cli', 'preprocess_torch_cli']:\n"
+        "                  'eval_torch_cli', 'preprocess_torch_cli',\n"
+        "                  'export_torch_cli', 'quality_torch_cli',\n"
+        "                  'spec_acceptance_torch_cli']:\n"
         "    importlib.import_module(n)\n"
         "for n in ('models.voicecraft', 'inference.editing', 'align',\n"
         "          'utils.convert_encodec', 'utils.transcribe',\n"
@@ -138,14 +140,15 @@ def test_port_imports_without_jax():
         "          'inference.streaming', 'inference.autospec', 'app',\n"
         "          'utils.text_norm', 'native', 'data.manifest',\n"
         "          'training.optim', 'training.step', 'training.trainer',\n"
-        "          'utils.profiling'):\n"
+        "          'utils.profiling', 'models.scaling',\n"
+        "          'ops.pattern_providers', 'utils.quality'):\n"
         "    assert 'voicecraft_tpu_torch.' + n in names, n\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 29
+    assert int(out.stdout.strip()) >= 32
 
 
 @pytest.mark.parametrize("banned", ["import jax", "from jax",
@@ -163,7 +166,9 @@ def test_port_source_has_no(banned):
              REPO / "edit_torch_cli.py", REPO / "tts_batch_torch_cli.py",
              REPO / "realedit_torch_cli.py", REPO / "serve_torch_cli.py",
              REPO / "train_torch_cli.py", REPO / "eval_torch_cli.py",
-             REPO / "preprocess_torch_cli.py", REPO / "chip_smoke.py"]
+             REPO / "preprocess_torch_cli.py", REPO / "export_torch_cli.py",
+             REPO / "quality_torch_cli.py",
+             REPO / "spec_acceptance_torch_cli.py", REPO / "chip_smoke.py"]
     hits = []
     for p in files:
         lines = [ln for ln in p.read_text().splitlines() if banned in ln]

@@ -1,11 +1,13 @@
 """Model and codec loading for the port's CLIs and trainer (PyTorch port of
 voicecraft_tpu/inference/loader.py).
 
-Model sources: a named preset with random weights (``random_init``), a
-reference ``*.pth`` bundle, a local HF-hub snapshot directory (config.json
-+ model.safetensors or pytorch_model.bin, optional vocab.txt), or a
-checkpoint directory of the port's trainer (``<exp>/ckpt_<tag>`` beside
-``<exp>/meta_<tag>.json`` and ``<exp>/vocab.txt``).  Codec sources: an
+Model sources: a named preset with random weights (``random_init``, with
+config overrides), a reference ``*.pth`` bundle or a local HF-hub snapshot
+directory (config.json + model.safetensors or pytorch_model.bin, optional
+vocab.txt), both in the reference's layout and so LayerNorm + relu only,
+or a checkpoint directory of the port's trainer (``<exp>/ckpt_<tag>``
+beside ``<exp>/meta_<tag>.json`` and ``<exp>/vocab.txt``), which carries
+any norm family and FFN activation.  Codec sources: an
 audiocraft ``.th`` checkpoint or random weights.  Nothing is downloaded.
 The compute dtype is the config's (bf16 for the presets) on CUDA, and f32
 on the CPU; a trained checkpoint's f32 weights load into a compute-dtype
@@ -82,18 +84,25 @@ def load_state(path: str) -> Tuple[ModelConfig, dict, Optional[Dict[str, int]]]:
 
 
 def load_model(path_or_preset: str, random_init: bool = False, seed: int = 0,
-               device="cuda") -> Tuple[ModelConfig, VoiceCraft,
-                                       Optional[Dict[str, int]]]:
+               device="cuda", overrides: Optional[dict] = None
+               ) -> Tuple[ModelConfig, VoiceCraft, Optional[Dict[str, int]]]:
     """Returns (cfg, model on ``device`` in the compute dtype, phn2num or
-    None)."""
+    None).  A checkpoint's config carries its norm family and FFN
+    activation; a preset takes them (or any other field) from
+    ``overrides``, e.g. {"norm": "basicnorm", "ffn_activation":
+    "doubleswish"}."""
     device = torch.device(device)
     if path_or_preset in PRESETS:
         if not random_init:
             raise ValueError("presets carry no weights: pass random_init "
                              "(--random-init)")
-        cfg = _device_dtype_fix(PRESETS[path_or_preset](), device)
+        cfg = _device_dtype_fix(dataclasses.replace(
+            PRESETS[path_or_preset](), **(overrides or {})), device)
         gen = torch.Generator(device=device).manual_seed(seed)
         return cfg, VoiceCraft(cfg, device).init_weights(gen).eval(), None
+    if overrides:
+        raise ValueError("overrides apply to a preset, not to a checkpoint "
+                         f"({path_or_preset!r})")
     cfg, state, phn2num = load_state(path_or_preset)
     cfg = _device_dtype_fix(cfg, device)
     model = VoiceCraft(cfg, device)

@@ -1,16 +1,24 @@
 """Pre-norm transformer decoder for training, prefill and decode (PyTorch
 port of voicecraft_tpu/models/transformer.py).
 
-Pre-norm LayerNorm (eps 1e-5, computed in f32), separate q/k/v
-projections, ReLU FFN of width 4*d_model, final LayerNorm.  Weight matrices
-are stored in the [in, out] layout (x @ w): once in the compute dtype for
-inference, or weight-only fp8 after utils/quantize.py:quantize_decoder_fp8;
-in the parameter dtype (f32 master weights, cast to the compute dtype at
-each product) for training.  LayerNorm parameters stay f32.
+Pre-norm layers with separate q/k/v projections, an FFN of width
+4*d_model and a final norm.  The norm family and the FFN activation are the
+config's (``ModelConfig.norm`` / ``ffn_activation``): LayerNorm (eps 1e-5),
+BasicNorm, BalancedBasicNorm or the identity, and relu, exact-erf gelu,
+DoubleSwish or BalancedDoubleSwish (models/scaling.py).  Each layer and the
+decoder record their family by site ("ln1", "ln2", "final_ln"); every
+forward goes through :func:`apply_norm` and :func:`ffn_block`.  Norm
+parameters (LayerNorm's g/b, BasicNorm's log_eps) are f32; norms are
+computed in f32.  Weight matrices are stored in the [in, out] layout
+(x @ w): once in the compute dtype for inference, or weight-only fp8 after
+utils/quantize.py:quantize_decoder_fp8; in the parameter dtype (f32 master
+weights, cast to the compute dtype at each product) for training.
 
 Training runs the stack through ``apply_stack``, with dropout whose masks
 are seeded per (step seed, layer, site) inside the region that draws them,
-and a recompute policy through torch.utils.checkpoint.
+and a recompute policy through torch.utils.checkpoint.  As in the JAX
+package, the norms take their train form (BasicNorm's expected ballast)
+exactly when a dropout seed is given.
 
 The KV cache is a preallocated slab
 [L, 2, B, S_max, H, Dh] (k at 0, v at 1) that prefill fills and each decode
@@ -23,6 +31,7 @@ JAX package does (``.astype``); a slab in q's dtype is read in place.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -37,6 +46,7 @@ from ..ops.attention import (decode_attention_multi,
                              decode_attention_self, decode_attention_self_block,
                              dropout)
 from ..ops import fused_decode
+from . import scaling
 
 
 def _param(*shape: int, dtype: torch.dtype, device) -> nn.Parameter:
@@ -44,12 +54,64 @@ def _param(*shape: int, dtype: torch.dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+# each norm family's parameters by suffix ("ln1" + "_g", ...): the keys of
+# the JAX package's _norm_init; the identity has none
+NORM_PARAMS = {"layernorm": ("g", "b"), "basicnorm": ("log_eps",),
+               "balancedbasicnorm": ("log_eps_bal",), "identity": ()}
+# BasicNorm's eps in the transformer's norms (the reference's family
+# wrappers pass layer_norm_eps; scaling.basic_norm_init keeps 0.25)
+BASIC_NORM_EPS = 1e-5
+
+# the FFN activations (reference transformer.py _get_activation_fn and the
+# icefall activations), and the JAX package's first-projection key of each
+FFN_ACTS = {
+    "relu": torch.relu,
+    "gelu": lambda h: F.gelu(h, approximate="none"),
+    "doubleswish": scaling.double_swish,
+    "balanceddoubleswish": scaling.balanced_double_swish,
+}
+FFN_KEYS = {"relu": "lin1", "gelu": "lin1_gelu", "doubleswish": "lin1_dsw",
+            "balanceddoubleswish": "lin1_bdsw"}
+
+
+def _check_family(norm: str, activation: str) -> None:
+    if norm not in NORM_PARAMS:
+        raise ValueError(f"unknown norm {norm!r}; expected layernorm | "
+                         "basicnorm | balancedbasicnorm | identity")
+    if activation not in FFN_ACTS:
+        raise ValueError(f"unknown activation {activation!r}; expected one "
+                         f"of {sorted(FFN_ACTS)}")
+
+
+def _add_norm(module: nn.Module, site: str, kind: str, D: int, device) -> None:
+    """The parameters of norm ``kind`` at ``site``, f32: g/b [D], log_eps 0-d."""
+    module.norm_kinds[site] = kind
+    for suffix in NORM_PARAMS[kind]:
+        shape = (D,) if suffix in ("g", "b") else ()
+        setattr(module, f"{site}_{suffix}",
+                _param(*shape, dtype=torch.float32, device=device))
+
+
+@torch.no_grad()
+def _init_norm(module: nn.Module, site: str) -> None:
+    for suffix in NORM_PARAMS[module.norm_kinds[site]]:
+        t = getattr(module, f"{site}_{suffix}")
+        t.fill_({"g": 1.0, "b": 0.0}.get(suffix, math.log(BASIC_NORM_EPS)))
+
+
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model: int, ffn_dim: int, dtype: torch.dtype, device):
+    """One layer's parameters.  ``norm`` is the pre-attention norm; the
+    pre-FFN norm is the same family, except that the identity's is
+    balancedbasicnorm (reference transformer.py:245-252)."""
+
+    def __init__(self, d_model: int, ffn_dim: int, dtype: torch.dtype, device,
+                 norm: str = "layernorm", activation: str = "relu"):
         super().__init__()
-        D, f32 = d_model, torch.float32
-        self.ln1_g = _param(D, dtype=f32, device=device)
-        self.ln1_b = _param(D, dtype=f32, device=device)
+        _check_family(norm, activation)
+        D = d_model
+        self.norm_kinds = {}
+        self.activation = activation
+        _add_norm(self, "ln1", norm, D, device)
         self.wq = _param(D, D, dtype=dtype, device=device)
         self.wk = _param(D, D, dtype=dtype, device=device)
         self.wv = _param(D, D, dtype=dtype, device=device)
@@ -58,8 +120,9 @@ class DecoderLayer(nn.Module):
         self.bv = _param(D, dtype=dtype, device=device)
         self.wo = _param(D, D, dtype=dtype, device=device)
         self.bo = _param(D, dtype=dtype, device=device)
-        self.ln2_g = _param(D, dtype=f32, device=device)
-        self.ln2_b = _param(D, dtype=f32, device=device)
+        _add_norm(self, "ln2",
+                  "balancedbasicnorm" if norm == "identity" else norm, D,
+                  device)
         self.w1 = _param(D, ffn_dim, dtype=dtype, device=device)
         self.b1 = _param(ffn_dim, dtype=dtype, device=device)
         self.w2 = _param(ffn_dim, D, dtype=dtype, device=device)
@@ -72,10 +135,10 @@ class DecoderLayer(nn.Module):
         limit = (6.0 / (D + 3 * D)) ** 0.5        # xavier on the packed [3D, D]
         for w in (self.wq, self.wk, self.wv):
             w.uniform_(-limit, limit, generator=generator)
-        for w in (self.bq, self.bk, self.bv, self.ln1_b, self.ln2_b):
+        for w in (self.bq, self.bk, self.bv):
             w.zero_()
-        self.ln1_g.fill_(1.0)
-        self.ln2_g.fill_(1.0)
+        _init_norm(self, "ln1")
+        _init_norm(self, "ln2")
         for w, b, fan_in in ((self.wo, self.bo, D), (self.w1, self.b1, D),
                              (self.w2, self.b2, Fd)):
             bound = fan_in ** -0.5
@@ -84,30 +147,29 @@ class DecoderLayer(nn.Module):
 
 
 class Decoder(nn.Module):
-    """The layer stack plus the final LayerNorm.  ``activation`` names the
-    FFN nonlinearity of the checkpoint; only relu is ported."""
+    """The layer stack plus the final norm: ``norm``'s family, except
+    layernorm after an identity stack (the reference always passes
+    LayerNorm there, voicecraft.py:175).  ``activation`` is the FFN's."""
 
     def __init__(self, num_layers: int, d_model: int, nhead: int,
                  ffn_dim: int, dtype: torch.dtype, device,
                  norm: str = "layernorm", activation: str = "relu"):
         super().__init__()
-        if norm != "layernorm":
-            raise NotImplementedError(f"norm {norm!r} is not yet ported "
-                                      "(only layernorm)")
+        _check_family(norm, activation)
         self.nhead = nhead
         self.activation = activation
+        self.norm_kinds = {}
         self.layers = nn.ModuleList(
-            DecoderLayer(d_model, ffn_dim, dtype, device)
+            DecoderLayer(d_model, ffn_dim, dtype, device, norm, activation)
             for _ in range(num_layers))
-        self.final_ln_g = _param(d_model, dtype=torch.float32, device=device)
-        self.final_ln_b = _param(d_model, dtype=torch.float32, device=device)
+        _add_norm(self, "final_ln",
+                  "layernorm" if norm == "identity" else norm, d_model, device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         for layer in self.layers:
             layer.init_weights(generator)
-        self.final_ln_g.fill_(1.0)
-        self.final_ln_b.zero_()
+        _init_norm(self, "final_ln")
 
 
 # ---- primitives ---------------------------------------------------------------
@@ -116,6 +178,53 @@ def layer_norm(g: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm computed in f32 with f32 params, returned in x's dtype."""
     return F.layer_norm(x.float(), (x.shape[-1],), g, b, eps).to(x.dtype)
+
+
+def apply_norm(module: nn.Module, site: str, x: torch.Tensor,
+               train: bool = False) -> torch.Tensor:
+    """The norm at ``site`` of ``module`` (a DecoderLayer's "ln1" / "ln2",
+    the Decoder's "final_ln") on x, in x's dtype.  ``train`` selects
+    BasicNorm's train form (scaling.basic_norm)."""
+    kind = module.norm_kinds[site]
+    if kind == "layernorm":
+        return layer_norm(getattr(module, site + "_g"),
+                          getattr(module, site + "_b"), x)
+    if kind == "basicnorm":
+        return scaling.basic_norm(x, getattr(module, site + "_log_eps"),
+                                  train=train)
+    if kind == "balancedbasicnorm":
+        return scaling.balanced_basic_norm(
+            x, getattr(module, site + "_log_eps_bal"), train=train)
+    return x
+
+
+def adaptive_layer_norm_init(generator: torch.Generator, d_model: int,
+                             dtype=torch.float32, norm: str = "layernorm"
+                             ) -> nn.Module:
+    """AdaptiveLayerNorm's parameters (reference transformer.py:84-115): a
+    d_model -> 2 d_model projection ``project_w`` / ``project_b`` of a
+    conditioning embedding and an inner norm ("norm" site).  The VoiceCraft
+    configs do not use it."""
+    dev = generator.device
+    m = nn.Module()
+    m.norm_kinds = {}
+    bound = d_model ** -0.5
+    m.project_w = _param(d_model, 2 * d_model, dtype=dtype, device=dev)
+    m.project_b = _param(2 * d_model, dtype=dtype, device=dev)
+    with torch.no_grad():
+        m.project_w.uniform_(-bound, bound, generator=generator)
+        m.project_b.uniform_(-bound, bound, generator=generator)
+    _add_norm(m, "norm", norm, d_model, dev)
+    _init_norm(m, "norm")
+    return m
+
+
+def adaptive_layer_norm(m: nn.Module, x: torch.Tensor,
+                        embedding: torch.Tensor) -> torch.Tensor:
+    """weight * norm(x) + bias, (weight, bias) = split(proj(embedding))."""
+    wb = _proj(embedding, m.project_w, m.project_b)
+    weight, bias = wb.chunk(2, dim=-1)
+    return weight * apply_norm(m, "norm", x) + bias
 
 
 def _proj(x: torch.Tensor, w, b: torch.Tensor) -> torch.Tensor:
@@ -138,12 +247,14 @@ def qkv_proj(layer: DecoderLayer, h: torch.Tensor):
             _proj(h, layer.wv, layer.bv))
 
 
-def ffn_block(layer: DecoderLayer, h: torch.Tensor,
-              activation: str = "relu") -> torch.Tensor:
-    if activation != "relu":
-        raise NotImplementedError(f"ffn activation {activation!r} is not yet "
-                                  "ported (only relu)")
-    return _proj(torch.relu(_proj(h, layer.w1, layer.b1)), layer.w2, layer.b2)
+def ffn_hidden(layer: DecoderLayer, h: torch.Tensor) -> torch.Tensor:
+    """The FFN's hidden activation, act(lin1(h))."""
+    return FFN_ACTS[layer.activation](_proj(h, layer.w1, layer.b1))
+
+
+def ffn_block(layer: DecoderLayer, h: torch.Tensor) -> torch.Tensor:
+    """lin1 -> the layer's activation -> lin2."""
+    return _proj(ffn_hidden(layer, h), layer.w2, layer.b2)
 
 
 # ---- training forward --------------------------------------------------------------
@@ -177,7 +288,7 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 def _checkpoint_dots(fn, *args):
     """Checkpoint that keeps every projection's product and recomputes
-    the rest (LayerNorm, relu, dropout, residuals)."""
+    the rest (the norms, the activation, dropout, residuals)."""
     return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda:
                       create_selective_checkpoint_contexts(_dots_policy))
 
@@ -186,17 +297,18 @@ def _call(fn, *args):
     return fn(*args)
 
 
-def _attn_inputs(layer: DecoderLayer, x: torch.Tensor):
-    return qkv_proj(layer, layer_norm(layer.ln1_g, layer.ln1_b, x))
+def _attn_inputs(layer: DecoderLayer, x: torch.Tensor, train: bool):
+    return qkv_proj(layer, apply_norm(layer, "ln1", x, train))
 
 
 def _ffn_in(layer: DecoderLayer, x: torch.Tensor, a: torch.Tensor,
             rate: float, seed: Optional[int]):
     """The residual after the attention's out projection, and the FFN's
-    hidden activation relu(lin1(LN2(x))) ("ffn1")."""
+    hidden activation act(lin1(norm2(x))) ("ffn1"); the norm in its train
+    form when ``seed`` is given."""
     x = x + dropout(_proj(a, layer.wo, layer.bo), rate, fold_seed(seed, 1))
-    h = layer_norm(layer.ln2_g, layer.ln2_b, x)
-    return x, torch.relu(_proj(h, layer.w1, layer.b1))
+    h = apply_norm(layer, "ln2", x, train=seed is not None)
+    return x, ffn_hidden(layer, h)
 
 
 def _ffn_out(layer: DecoderLayer, x: torch.Tensor, f: torch.Tensor,
@@ -212,9 +324,11 @@ def _ffn_half(layer, x, a, rate, seed):
 def apply_layer(layer: DecoderLayer, x: torch.Tensor, attn: Callable,
                 rate: float = 0.0, seed: Optional[int] = None,
                 remat: str = "none") -> torch.Tensor:
-    """One pre-norm layer, x + SA(LN(x)) then + FFN(LN(x)), with dropout
-    ``rate`` at the attention output, the FFN hidden and the FFN output
-    (sites 1-3; the attention's own is site 0) when ``seed`` is given.
+    """One pre-norm layer, x + SA(norm1(x)) then + FFN(norm2(x)), with
+    dropout ``rate`` at the attention output, the FFN hidden and the FFN
+    output (sites 1-3; the attention's own is site 0) when ``seed`` is
+    given; the norms take their train form exactly then, as the JAX
+    package's ``train = rng is not None``.
 
     ``attn(q, k, v, seed)`` is the training attention.  It must keep only
     q/k/v for its backward: chunked_attention does through its per-chunk
@@ -222,19 +336,19 @@ def apply_layer(layer: DecoderLayer, x: torch.Tensor, attn: Callable,
     own for every policy but "full" and "none".  ``remat``:
       "none"       nothing recomputed;
       "full"       the whole layer under one checkpoint (keeps x);
-      "attn"       the LN1 + q/k/v projections and the FFN half each under
+      "attn"       the norm1 + q/k/v projections and the FFN half each under
                    a checkpoint: the attention output is kept, so the
                    backward never recomputes the attention forward
                    (keeps x, q, k, v and the attention output);
-      "attn_ffn1"  "attn" with the FFN half split after relu, keeping its
-                   hidden activation too;
+      "attn_ffn1"  "attn" with the FFN half split after the activation,
+                   keeping its hidden activation too;
       "dots"       the "attn" regions under selective checkpointing that
                    keeps every projection's product.
     Policies change memory and time, never values."""
     if remat == "full":
         return _checkpoint(apply_layer, layer, x, attn, rate, seed, "none")
     region = {"none": _call, "dots": _checkpoint_dots}.get(remat, _checkpoint)
-    q, k, v = region(_attn_inputs, layer, x)
+    q, k, v = region(_attn_inputs, layer, x, seed is not None)
     a = attn(q, k, v, fold_seed(seed, 0))
     if remat == "attn_ffn1":
         x, f = _checkpoint(_ffn_in, layer, x, a, rate, seed)
@@ -246,17 +360,15 @@ def apply_stack(decoder: Decoder, x: torch.Tensor, attn: Callable,
                 rate: float = 0.0, seed: Optional[int] = None,
                 remat: str = "none") -> torch.Tensor:
     """The training forward of the stack over x [B, S, D]: every layer
-    (layer li's dropout seeded from (seed, li)), then the final LayerNorm.
-    See :func:`apply_layer` for ``attn`` and ``remat``."""
+    (layer li's dropout seeded from (seed, li)), then the final norm (in
+    its train form when ``seed`` is given).  See :func:`apply_layer` for
+    ``attn`` and ``remat``."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat!r}; expected one of "
                          f"{REMAT_POLICIES}")
-    if decoder.activation != "relu":
-        raise NotImplementedError(f"ffn activation {decoder.activation!r} is "
-                                  "not yet ported (only relu)")
     for li, layer in enumerate(decoder.layers):
         x = apply_layer(layer, x, attn, rate, fold_seed(seed, li), remat)
-    return layer_norm(decoder.final_ln_g, decoder.final_ln_b, x)
+    return apply_norm(decoder, "final_ln", x, train=seed is not None)
 
 
 # ---- prefill / decode with KV slab ---------------------------------------------
@@ -307,15 +419,12 @@ def prefill(decoder: Decoder, x: torch.Tensor,
     B, S, D = x.shape
     H = decoder.nhead
     for li, layer in enumerate(decoder.layers):
-        h = layer_norm(layer.ln1_g, layer.ln1_b, x)
-        q, k, v = qkv_proj(layer, h)
-        a = _proj(attn(q, k, v), layer.wo, layer.bo)
-        x = x + a
-        x = x + ffn_block(layer, layer_norm(layer.ln2_g, layer.ln2_b, x),
-                          decoder.activation)
+        q, k, v = qkv_proj(layer, apply_norm(layer, "ln1", x))
+        x = x + _proj(attn(q, k, v), layer.wo, layer.bo)
+        x = x + ffn_block(layer, apply_norm(layer, "ln2", x))
         cache[li, 0, :, :S] = k.view(B, S, H, D // H)
         cache[li, 1, :, :S] = v.view(B, S, H, D // H)
-    return layer_norm(decoder.final_ln_g, decoder.final_ln_b, x), cache
+    return apply_norm(decoder, "final_ln", x), cache
 
 
 def _layer_stack(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
@@ -332,19 +441,16 @@ def _layer_stack(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
     x = x_t
     kv = []
     for li, layer in enumerate(decoder.layers):
-        h = layer_norm(layer.ln1_g, layer.ln1_b, x)
-        q, k, v = qkv_proj(layer, h)
+        q, k, v = qkv_proj(layer, apply_norm(layer, "ln1", x))
         k_new = k.reshape(B, T, H, Dh)
         v_new = v.reshape(B, T, H, Dh)
         k_slab, v_slab = _layer_slab(cache, li, q.dtype)
         a = attend(q, k_slab, v_slab, k_new, v_new)
         x = x + _proj(a, layer.wo, layer.bo)
-        h2 = layer_norm(layer.ln2_g, layer.ln2_b, x)
-        x = x + (ffn_block(layer, h2, decoder.activation) if ffn is None
-                 else ffn(layer, h2))
+        h2 = apply_norm(layer, "ln2", x)
+        x = x + (ffn_block(layer, h2) if ffn is None else ffn(layer, h2))
         kv.append(torch.stack([k_new, v_new]))                  # [2,B,T,H,Dh]
-    return (layer_norm(decoder.final_ln_g, decoder.final_ln_b, x),
-            torch.stack(kv))
+    return apply_norm(decoder, "final_ln", x), torch.stack(kv)
 
 
 def decode_step_fast(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
@@ -364,8 +470,8 @@ def decode_step_fast(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
     if fused_ffn and decoder.activation != "relu":
         raise ValueError(
             "fused_ffn supports the relu FFN only (the kernel hard-codes "
-            f"relu); this model was built with ffn_activation "
-            f"{decoder.activation!r}")
+            "relu); this model was built with ffn_activation != 'relu' "
+            f"(ffn_activation {decoder.activation!r})")
     B, D, H = x_t.shape[0], x_t.shape[2], decoder.nhead
     ffn = None
     if fused_ffn:

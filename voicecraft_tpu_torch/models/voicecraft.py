@@ -6,7 +6,7 @@ decoding (PyTorch port of voicecraft_tpu/models/voicecraft.py).
 text and mask embeddings, sine positional embeddings scaled by learnable
 alphas, the pre-norm decoder, per-codebook 2-layer GELU heads and, for
 speculative decoding, ``n_mtp`` groups of multi-token-prediction heads.
-Embedding tables, alphas, LayerNorm parameters and head biases are f32, as
+Embedding tables, alphas, norm parameters and head biases are f32, as
 the JAX code reads them.  For inference every weight matrix is stored once
 in the compute dtype (or weight-only fp8, utils/quantize.py); a trainable
 model (``trainable=True``) keeps them in the parameter dtype, f32 master

@@ -21,6 +21,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
+from ..models.transformer import FFN_KEYS
+
 Schedule = Union[float, Callable[[int], float]]
 
 
@@ -60,24 +62,32 @@ def _schedule(lr: Schedule) -> Callable[[int], float]:
 
 
 # the JAX package's tree paths of a decoder layer's parameters: its layers
-# (and its MTP head groups) are stacked along a leading axis, one leaf each
+# (and its MTP head groups) are stacked along a leading axis, one leaf each.
+# The norms' (ln1_g -> ln1/g, ln2_log_eps -> ln2/log_eps, ...) and the first
+# FFN projection's (ffn/lin1, ffn/lin1_dsw, ...) follow the model's family.
 _LAYER_PATHS = {
     "bk": "attn/bk", "bq": "attn/bq", "bv": "attn/bv", "bo": "attn/out/b",
     "wo": "attn/out/w", "wk": "attn/wk", "wq": "attn/wq", "wv": "attn/wv",
-    "b1": "ffn/lin1/b", "w1": "ffn/lin1/w", "b2": "ffn/lin2/b",
-    "w2": "ffn/lin2/w", "ln1_b": "ln1/b", "ln1_g": "ln1/g", "ln2_b": "ln2/b",
-    "ln2_g": "ln2/g"}
+    "b2": "ffn/lin2/b", "w2": "ffn/lin2/w"}
 
 
-def _jax_path(name: str) -> Tuple[str, str]:
-    """(JAX tree path, the port's name with the stacked index dropped)."""
+def _jax_path(name: str, lin1: str = "lin1") -> Tuple[str, str]:
+    """(JAX tree path, the port's name with the stacked index dropped);
+    ``lin1`` is the JAX key of the first FFN projection."""
     parts = name.split(".")
     if parts[:2] == ["decoder", "layers"]:
-        return "decoder/layers/" + _LAYER_PATHS[parts[3]], f"decoder.layers.{parts[3]}"
+        leaf = parts[3]
+        if leaf in ("w1", "b1"):
+            path = f"ffn/{lin1}/{leaf[0]}"
+        elif leaf.startswith(("ln1_", "ln2_")):
+            path = leaf[:3] + "/" + leaf[4:]
+        else:
+            path = _LAYER_PATHS[leaf]
+        return "decoder/layers/" + path, f"decoder.layers.{leaf}"
     if parts[0] == "mtp_heads":
         return "mtp_heads/" + parts[2], f"mtp_heads.{parts[2]}"
     if name.startswith("decoder.final_ln_"):
-        return "decoder/final_ln/" + name[-1], name
+        return "decoder/final_ln/" + name[len("decoder.final_ln_"):], name
     if name == "text_emb":
         return "text_emb/weight", name
     return name.replace(".", "/"), name
@@ -90,9 +100,10 @@ def stacked_leaves(model: torch.nn.Module) -> List[Tuple[torch.Tensor, ...]]:
     stacks, in the JAX tree's order.  ScaledAdam's per-tensor scale, rms and
     scale-gradient are per leaf."""
     groups: Dict[str, Tuple[str, List[torch.Tensor]]] = {}
+    lin1 = FFN_KEYS[model.decoder.activation]
     for name, p in model.named_parameters():
         if p.requires_grad:
-            path, key = _jax_path(name)
+            path, key = _jax_path(name, lin1)
             groups.setdefault(key, (path, []))[1].append(p)
     return [tuple(ps) for _, ps in sorted(groups.values(), key=lambda v: v[0])]
 

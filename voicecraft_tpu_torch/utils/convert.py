@@ -2,16 +2,19 @@
 the reference PyTorch VoiceCraft ``state_dict`` (PyTorch port of
 voicecraft_tpu/utils/convert.py).
 
-Each function returns a ``state_dict`` for the port's modules
+The ``from_*`` functions return a ``state_dict`` for the port's modules
 (``models.voicecraft.VoiceCraft`` / ``models.encodec.Encodec``); load it with
 ``module.load_state_dict(state)``, which casts each tensor to the module's
 storage dtype.  The JAX decoder's per-layer parameters are stacked [L, ...]
 and its matrices are [in, out], the port's own layout.
+:func:`to_reference_state_dict` goes the other way, from the port's state to
+the reference's.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import logging
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -19,6 +22,7 @@ import torch
 from ..config import ModelConfig
 
 from ..models.encodec import EncodecConfig
+from ..models.transformer import FFN_KEYS
 
 State = Dict[str, torch.Tensor]
 
@@ -37,9 +41,21 @@ def to_torch(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))   # a writable copy
 
 
-def _ffn_lin1(ffn: dict) -> dict:
-    """The first FFN projection; its key name encodes the activation."""
-    return next(v for k, v in ffn.items() if k.startswith("lin1"))
+def _ffn_lin1(ffn: dict, cfg: ModelConfig) -> dict:
+    """The first FFN projection, whose key name encodes the activation
+    (lin1, lin1_gelu, lin1_dsw, lin1_bdsw); it must be cfg's."""
+    key = next(k for k in ffn if k.startswith("lin1"))
+    want = FFN_KEYS[cfg.ffn_activation]
+    if key != want:
+        raise ValueError(f"the tree's FFN projection {key!r} is not that of "
+                         f"ffn_activation {cfg.ffn_activation!r} ({want!r})")
+    return ffn[key]
+
+
+def _norm_entries(prefix: str, p: dict) -> State:
+    """A JAX norm's parameters ({"g", "b"}, {"log_eps"}, {"log_eps_bal"} or
+    none) as ``{prefix}_{key}`` entries."""
+    return {f"{prefix}_{k}": v for k, v in p.items()}
 
 
 def _matrix(st: State, key: str, w) -> None:
@@ -74,26 +90,28 @@ def from_jax_params(tree: dict, cfg: ModelConfig) -> State:
     ``quantize_decoder_fp8`` (packed qkv or not) carry across bit for bit:
     load them into a model of the same layout
     (``utils.quantize.quantize_decoder_fp8(model, pack_qkv)``).  The MTP
-    heads [n_mtp, K, ...] become ``mtp_heads.{j}``."""
+    heads [n_mtp, K, ...] become ``mtp_heads.{j}``.  Every norm family and
+    FFN activation carries across (BasicNorm's log_eps, the identity's
+    empty norm, the lin1_* projection); a tree whose FFN projection is not
+    cfg.ffn_activation's raises ValueError."""
     t = to_torch
     lay = tree["decoder"]["layers"]
     attn, ffn = lay["attn"], lay["ffn"]
-    lin1 = _ffn_lin1(ffn)
+    lin1 = _ffn_lin1(ffn, cfg)
     st: State = {
         "text_emb": t(tree["text_emb"]["weight"]),
         "audio_emb": t(tree["audio_emb"]),
         "mask_emb": t(tree["mask_emb"]),
         "alpha_text": t(tree["alpha_text"]).reshape(()),
         "alpha_audio": t(tree["alpha_audio"]).reshape(()),
-        "decoder.final_ln_g": t(tree["decoder"]["final_ln"]["g"]),
-        "decoder.final_ln_b": t(tree["decoder"]["final_ln"]["b"]),
     }
+    st.update({k: t(v) for k, v in _norm_entries(
+        "decoder.final_ln", tree["decoder"]["final_ln"]).items()})
     _heads(st, "heads", tree["heads"])
     stacked: State = {}
     per_layer = {
-        "ln1_g": lay["ln1"]["g"], "ln1_b": lay["ln1"]["b"],
+        **_norm_entries("ln1", lay["ln1"]), **_norm_entries("ln2", lay["ln2"]),
         "wo": attn["out"]["w"], "bo": attn["out"]["b"],
-        "ln2_g": lay["ln2"]["g"], "ln2_b": lay["ln2"]["b"],
         "w1": lin1["w"], "b1": lin1["b"],
         "w2": ffn["lin2"]["w"], "b2": ffn["lin2"]["b"],
     }
@@ -112,9 +130,20 @@ def from_jax_params(tree: dict, cfg: ModelConfig) -> State:
     return st
 
 
+def _reference_layout(cfg: ModelConfig) -> None:
+    """The reference layout maps LayerNorm + relu models only."""
+    if cfg.norm != "layernorm" or cfg.ffn_activation != "relu":
+        raise ValueError(
+            f"the reference state_dict layout maps only norm 'layernorm' with "
+            f"ffn_activation 'relu'; this model has norm {cfg.norm!r} and "
+            f"ffn_activation {cfg.ffn_activation!r}")
+
+
 def from_reference_state_dict(sd: dict, cfg: ModelConfig) -> State:
     """A reference VoiceCraft state_dict (packed attention in-proj [3D, D],
-    torch Linear [out, in] weights) -> the port's VoiceCraft state."""
+    torch Linear [out, in] weights) -> the port's VoiceCraft state.  Only
+    LayerNorm + relu configs (ValueError otherwise)."""
+    _reference_layout(cfg)
     K, D, L = cfg.n_codebooks, cfg.d_model, cfg.num_decoder_layers
     g = lambda k: to_torch(sd[k]).float()
     st: State = {
@@ -148,6 +177,54 @@ def from_reference_state_dict(sd: dict, cfg: ModelConfig) -> State:
             p + "w2": g(p + "linear2.weight").T, p + "b2": g(p + "linear2.bias"),
         })
     return {k: v.contiguous() for k, v in st.items()}
+
+
+def to_reference_state_dict(state: Mapping[str, torch.Tensor],
+                            cfg: ModelConfig) -> State:
+    """The port's VoiceCraft state (``model.state_dict()`` or a trainer
+    checkpoint's) -> the reference's state_dict, f32 CPU tensors: the
+    inverse of :func:`from_reference_state_dict`.  Only LayerNorm + relu
+    models map (ValueError otherwise); MTP heads are dropped, with a
+    warning."""
+    _reference_layout(cfg)
+    K, L = cfg.n_codebooks, cfg.num_decoder_layers
+    if any(k.startswith("mtp_heads.") for k in state):
+        logging.getLogger(__name__).warning(
+            "exporting to the reference format drops the MTP heads "
+            "(speculative decoding); keep the trainer checkpoint if you need "
+            "them")
+    g = lambda k: to_torch(state[k]).float()
+    out: State = {"text_embedding.word_embeddings.weight": g("text_emb")}
+    audio = g("audio_emb")
+    for k in range(K):
+        out[f"audio_embedding.{k}.word_embeddings.weight"] = audio[k]
+    out["mask_embedding"] = g("mask_emb")
+    out["text_positional_embedding.alpha"] = g("alpha_text").reshape(1)
+    out["audio_positional_embedding.alpha"] = g("alpha_audio").reshape(1)
+    for i in range(L):
+        p = f"decoder.layers.{i}."
+        out[p + "self_attn.in_proj_weight"] = torch.cat(
+            [g(p + "wq").T, g(p + "wk").T, g(p + "wv").T], dim=0)
+        out[p + "self_attn.in_proj_bias"] = torch.cat(
+            [g(p + "bq"), g(p + "bk"), g(p + "bv")], dim=0)
+        out[p + "self_attn.out_proj.weight"] = g(p + "wo").T
+        out[p + "self_attn.out_proj.bias"] = g(p + "bo")
+        out[p + "norm1.weight"] = g(p + "ln1_g")
+        out[p + "norm1.bias"] = g(p + "ln1_b")
+        out[p + "norm2.weight"] = g(p + "ln2_g")
+        out[p + "norm2.bias"] = g(p + "ln2_b")
+        out[p + "linear1.weight"] = g(p + "w1").T
+        out[p + "linear1.bias"] = g(p + "b1")
+        out[p + "linear2.weight"] = g(p + "w2").T
+        out[p + "linear2.bias"] = g(p + "b2")
+    out["decoder.norm.weight"] = g("decoder.final_ln_g")
+    out["decoder.norm.bias"] = g("decoder.final_ln_b")
+    for name, idx in (("w1", 0), ("w2", 2)):
+        w, b = g(f"heads.{name}"), g(f"heads.b{name[1]}")
+        for k in range(K):
+            out[f"predict_layer.{k}.{idx}.weight"] = w[k].T
+            out[f"predict_layer.{k}.{idx}.bias"] = b[k]
+    return {k: v.contiguous() for k, v in out.items()}
 
 
 def load_reference_bundle(path: str):

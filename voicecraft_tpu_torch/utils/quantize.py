@@ -4,8 +4,11 @@ voicecraft_tpu/utils/quantize.py).
 Batch-1 decode streams every decoder weight once per token, so storing the
 matrices as float8_e4m3fn with one bf16 scale per output column halves the
 bytes a step must read.  The decoder's q/k/v (or the packed qkv), out and
-both FFN projections, the prediction heads and the MTP heads are quantized;
-embeddings, LayerNorms and biases stay as they are.
+both FFN projections (``w1`` under every activation: the JAX package's
+lin1 / lin1_gelu / lin1_dsw / lin1_bdsw), the prediction heads and the MTP
+heads are quantized; embeddings, norms and biases stay as they are.  The
+fp8 decoder of a model whose activation is not relu serves through the
+unfused FFN, as the JAX package's does.
 
 Per-output-column scales commute with the contraction, so
     x @ w == (x @ (w / s)) * s
