@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (voicecraft_tpu_torch) on one CUDA card.
+"""Smoke run of the PyTorch port (voicecraft_tpu_torch) on one CUDA card
+(and, with --cards 4, of its mesh on four).
 
     python3 chip_smoke.py
 
@@ -163,9 +164,43 @@ Phases, in order; any failure raises and the script exits non-zero:
               checkpoint: each ends normally with every mode reported, and
               a false bit-exact field is re-derived with both paths' draws
               and must be a near-tie.
+ 11. mesh     parallel/mesh.py on one card: a one-rank NCCL group and a
+              1 x 1 mesh; (j)'s 8-lane greedy wave through
+              serve_tts_batch(mesh=), its tokens the no-mesh wave's bit for
+              bit (16 attention launches in its prefill, none a step); an
+              engine run (8 requests over 4 lanes) the no-mesh engine's bit
+              for bit; 2 Trainer(mesh=) steps on phase 9's manifest, the
+              parameters Trainer()'s bit for bit (ZeRO-1 is off at data 1).
+
+    python3 chip_smoke.py --cards 4
+
+runs phases 1-2 and then only
+
+ 12. cards    four cards, four NCCL ranks (torch.multiprocessing spawn,
+              TCP rendezvous on 127.0.0.1, a collective timeout; any rank's
+              failure fails the run), giga830M in bf16 from seed 0 on every
+              rank: (A) (j)'s 8 greedy lanes as one card's wave on each
+              card, then at 4 x 1 and 2 x 2, plain and speculative (3 random
+              MTP head groups, tau 4), each rank's lanes against the
+              one-card wave under the tie-aware rule, 16 attention launches
+              per rank (8 local heads at 2 x 2), frames/s, peak memory per
+              card; (B) the engine at 4 x 1, 16 requests over 8 lanes, each
+              against its single stream under ties, and stream_tts at 4 x 1
+              with lanes 4; (D) the e830M recipe with its dropouts at 0 on
+              phase 9's manifest: Trainer(mesh=) 4 steps at 4 x 1 with
+              ZeRO-1, without (twice), and at 2 x 2 with ZeRO-1, each loss
+              against one card's on the same global batches, target
+              tokens/s summed over the cards, s a step, peak memory per
+              card, the NCCL kernels' ms in a step (torch.profiler), ZeRO-1
+              against replicated moments; (E) the 2 x 2 run's checkpoint on
+              one card: its parameters the gathered ones bit for bit,
+              load_model serving a lane; (C) serve_torch_cli.py --mesh 2x2
+              under torch.distributed.run: two concurrent /tts in one wave
+              and an /edit.  It refuses to run on fewer than 4 cards.
 
 The last three lines are the card (as nvidia-smi reports it), one JSON
-object with each kernel's result, and {"ok": true, "device": {...}}.
+object with each kernel's result, and {"ok": true, "device": {...}};
+--cards 4 ends with the card and that last line.
 """
 
 import base64
@@ -339,6 +374,29 @@ TRAIN_GRAD_RTOL, TRAIN_GRAD_MEDIAN = 0.10, 2e-2
 # the CE of a uniform prediction
 STEP1_RTOL = 0.05
 U_GEN_MAX = 64                                # (u) the trained model's TTS
+# phase 11: the 1 x 1 mesh; its engine run and its Trainer steps
+MESH_ENGINE_LANES, MESH_ENGINE_GEN, MESH_STEPS = 4, 128, 2
+# phase 12 (--cards 4): MESH_TRAIN_STEPS Trainer steps per run, the NCCL
+# time from step MESH_PROFILED_STEP; the recipe with its dropouts at 0, so
+# that each step's loss can be held against one card's on the same global
+# batches (TRAIN_LOSS_RTOL); ZeRO-1 against replicated moments: the same
+# gradients summed in another order (a reduce-scatter against an
+# all-reduce), so the losses within ZERO1_LOSS_RTOL.  The parameters are
+# not held to f32 rounding: bf16 forwards turn the first update's rounding
+# into bf16-sized differences of every later gradient, and ScaledAdam's
+# normalised update g / sqrt(v) carries them into the parameters.  So
+# their distance is held to ZERO1_UPDATE_RTOL of the distance the steps
+# moved them, beside a second replicated run's (the floor of the same
+# physics).  A hung collective
+# fails after MESH_TIMEOUT_S; the ranks' phase after CARDS_PHASE_S; the
+# server must answer /healthz within SERVER_START_S.
+MESH_TRAIN_STEPS, MESH_PROFILED_STEP = 4, 3
+MESH_NO_DROPOUT = dict(text_embedding_dropout=0.0,
+                       text_positional_embedding_dropout=0.0,
+                       audio_positional_embedding_dropout=0.0,
+                       audio_embedding_dropout=0.0, trm_dropout=0.0)
+ZERO1_LOSS_RTOL, ZERO1_UPDATE_RTOL = 1e-5, 1e-2
+MESH_TIMEOUT_S, CARDS_PHASE_S, SERVER_START_S = 600, 780, 240
 # phase 10: the icefall toolbox (models/scaling.py).  (v) each scaling
 # Function's forward and backward on the card against the CPU in f32, on an
 # activation of the e830M batch's shape (phase 9 (t): 8 rows of 400 + 1,024
@@ -784,6 +842,16 @@ def flash_phase(geom_long, geom_serve):
                              sx_pad, sx_lens, sy_lens, torch.bfloat16)
     cases.append(dict(case=name, max_abs_err=err8,
                       **timings(args8, BF16_FLOP_PER_S, 2)))
+    # that prefill's local shape on a 2 x 2 mesh (phase 12): data rank 0's
+    # half of the lanes, its model rank's 8 of the 16 heads (D = 1,024)
+    nl = len(sx_lens) // 2
+    name = (f"bf16 B={nl} S={sx_pad + sy_pad} D=1024 H=8 (the serving "
+            f"prefill's local shape on a 2 x 2 mesh: lanes 0-{nl - 1}, 8 of "
+            f"16 heads)")
+    err22, args22, _, _ = case(name, nl, sx_pad + sy_pad, 1024, 8, sx_pad,
+                               sx_lens[:nl], sy_lens[:nl], torch.bfloat16)
+    cases.append(dict(case=name, max_abs_err=err22,
+                      **timings(args22, BF16_FLOP_PER_S, 2)))
     # edge shapes: B=2 with different lens, S off every tile size, x_pad off
     # the tile grid, every head dim, and a text padding wide enough that
     # whole key tiles in it are skipped (one row with no text at all)
@@ -961,6 +1029,33 @@ def ffn_phase():
                 cases.append(dict(case="fp8 weights of quantize_decoder_fp8, "
                                        "B=1 D=2048 F=8192",
                                   **numbers, library_ms=None))
+    # the f32 route (csrc/fused_ffn.cu, the checks' kernel) on f32 copies of
+    # the same weight sets; the library call is the cuBLAS pair in f32
+    sets32 = [tuple(t.float() for t in ws) for ws in sets]
+    log(f"fused_ffn, f32 x and weights (csrc/fused_ffn.cu) at D={D} F={F}, "
+        f"the same {FFN_SETS} layers in f32 (CUDA-graph replays); the library "
+        f"call is addmm, relu, addmm in f32 (TF32 off):")
+    for B in (1, 4, 8):
+        x = rows(B, D, torch.float32)
+        err = check_case(f"f32 B={B} D={D} F={F}", x, sets32[0])
+        ms = graph_ms([lambda ws=ws: fused_ffn(x, *ws) for ws in sets32])
+        plain_ms = graph_ms([lambda ws=ws: fused_ffn_plain(x, *ws)
+                             for ws in sets32])
+        library_ms = graph_ms([lambda ws=ws: torch.addmm(
+            ws[3], torch.relu(torch.addmm(ws[1], x, ws[0])), ws[2])
+            for ws in sets32])
+        nbytes = 2 * D * F * 4 + 2 * B * D * 4 + (F + D) * 4
+        bound_ms, bound_by = bound(nbytes, 4 * B * D * F, F32_FLOP_PER_S)
+        log(f"  B={B} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"cuBLAS pair {library_ms:.4f} ms per call; bound "
+            f"{bound_ms:.4f} ms ({bound_by}), the kernel at "
+            f"{bound_ms / ms:.0%} of it")
+        cases.append(dict(case=f"f32 x and weights (csrc/fused_ffn.cu), "
+                               f"B={B} D={D} F={F}",
+                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms))
+    del sets32
     return dict(result, cases=cases)
 
 
@@ -2126,8 +2221,10 @@ class EngineRecorder(DrawRecorder):
             return step(*a)
 
         def dispatching(eng):
-            self.bursts.append((len(self.logits), len(self.passes),
-                                list(eng._lane_req)))
+            # the lane map of the engine's own lanes (over a mesh, its data
+            # rank's), which index its draws
+            self.bursts.append((len(self.logits), len(self.passes), list(
+                eng._lane_req[eng._lo:eng._lo + eng._gen_buf.shape[0]])))
             return dispatch(eng)
 
         def retiring(eng, status, gen_src, lane_map):
@@ -2927,6 +3024,132 @@ def training_phase(requests, codec, tok, tmp):
     return launches, yard
 
 
+# ---- phase 11 ----------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def mesh_phase(model, serve, work):
+    """Phase 11: parallel/mesh.py on one card, a one-rank NCCL group and a
+    1 x 1 mesh, against the same paths without a mesh: (j)'s 8-lane greedy
+    wave through serve_tts_batch(mesh=) with the same tokens bit for bit
+    (the attention kernel 16 times in its prefill, none a step); MESH_STEPS
+    Trainer(mesh=) steps on phase 9's manifest with the same parameters bit
+    for bit as Trainer()'s (ZeRO-1 is off at data 1, as in the JAX package;
+    the end-of-run validation and checkpoint are left out: the --cards 4
+    mode saves at 2 x 2); an engine run with the same results.  ``model``
+    (phase 4's) is sharded at 1 x 1 on the way: phase 11 runs last.
+    Returns the launch counts of each mesh run."""
+    import dataclasses
+    import gc
+    import torch
+    import torch.distributed as dist
+    from voicecraft_tpu_torch import PRESETS
+    from voicecraft_tpu_torch.config import TrainConfig
+    from voicecraft_tpu_torch.inference.engine import ContinuousBatcher
+    from voicecraft_tpu_torch.inference.serving import serve_tts_batch
+    from voicecraft_tpu_torch.models.voicecraft import SamplingConfig
+    from voicecraft_tpu_torch.ops import _native
+    from voicecraft_tpu_torch.parallel.mesh import (gather_params, make_mesh,
+                                                    shard_params)
+    from voicecraft_tpu_torch.training.trainer import Trainer
+    L = model.cfg.num_decoder_layers
+    greedy = SamplingConfig(top_k=40, top_p=1.0, temperature=0.0)
+    reqs = [(r.x, r.codes) for r in serve]
+    out = []
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1, torch.device("cuda", torch.cuda.current_device()))
+        log(f"[11 mesh] a one-rank NCCL group, a {mesh.n_data} x "
+            f"{mesh.n_model} mesh on {mesh.device}")
+
+        def engine(m):
+            eng = ContinuousBatcher(m, lanes=MESH_ENGINE_LANES,
+                                    x_pad=SERVE_PADS[0], y_pad=SERVE_PADS[1],
+                                    gen_max=MESH_ENGINE_GEN, burst=ENGINE_BURST,
+                                    scfg=greedy, seed=SEED, mesh=m.mesh)
+            ids = [eng.submit(x, y) for x, y in reqs]
+            res = eng.run()
+            return [res[i] for i in ids], eng.stats
+
+        # the references, without a mesh
+        wave = lambda m: serve_tts_batch(m, reqs, greedy, pads=SERVE_PADS,
+                                         seeds=SERVE_SEEDS, mesh=m.mesh)
+        t0 = time.time()
+        ref_wave, (ref_eng, ref_stats) = wave(model), engine(model)
+        t_ref = time.time() - t0
+        shard_params(model, mesh)
+        _native.reset_launch_counts()
+        t0 = time.time()
+        got = wave(model)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(_native.LAUNCHES)
+        check_launches("11 wave at 1 x 1", launches,
+                       {"flash_prefix_attention": L, "fused_ffn": 0})
+        out.append(launches)
+        same = all(np.array_equal(a[1], b[1]) for a, b in zip(got, ref_wave))
+        log(f"  (j)'s {len(reqs)} lanes, greedy, through serve_tts_batch("
+            f"mesh=) in {wall:.3f} s: frames {[g.shape[1] for _, g in got]}, "
+            f"the no-mesh wave's tokens bit for bit: {same}")
+        if not same:
+            raise AssertionError("(11) the 1 x 1 wave differs from the "
+                                 "no-mesh wave")
+        _native.reset_launch_counts()
+        t0 = time.time()
+        got_eng, st = engine(model)
+        wall = time.time() - t0
+        launches = dict(_native.LAUNCHES)
+        check_launches("11 engine at 1 x 1", launches, {
+            "flash_prefix_attention": L * (st["waves"] + st["refills"]),
+            "fused_ffn": 0})
+        out.append(launches)
+        same = (st == ref_stats and all(
+            np.array_equal(a[1], b[1]) for a, b in zip(got_eng, ref_eng)))
+        log(f"  the engine, {len(reqs)} requests over {MESH_ENGINE_LANES} "
+            f"lanes at 1 x 1 in {wall:.3f} s ({st}): the no-mesh engine's "
+            f"results bit for bit: {same} (both references {t_ref:.1f} s)")
+        if not same:
+            raise AssertionError("(11) the 1 x 1 engine differs from the "
+                                 "no-mesh engine")
+
+        # the Trainer on phase 9's manifest, MESH_STEPS steps each way
+        recipe = dataclasses.replace(PRESETS["giga830M"](), **RECIPE)
+        params = []
+        for label, m in (("Trainer()", None), ("Trainer(mesh=1 x 1)", mesh)):
+            tcfg = TrainConfig(
+                dataset_dir=os.path.join(work, "data"),
+                exp_dir=os.path.join(work, f"mesh11_{len(params)}"),
+                max_num_tokens=TRAIN_TOKENS, lr=0.05,
+                optimizer_name="ScaledAdam", seed=1,
+                val_every_n_steps=10 ** 6, print_every_n_steps=1)
+            t0 = time.time()
+            tr = Trainer(recipe, tcfg, mesh=m, device="cuda")
+            tr.validate_and_save = lambda: None
+            tr.train(max_steps=MESH_STEPS)
+            torch.cuda.synchronize()
+            params.append({k: v.cpu() for k, v in gather_params(tr.model).items()})
+            log(f"  {label}: {MESH_STEPS} steps in {time.time() - t0:.1f} s "
+                f"(build included), step {tr.progress['step'] - 1}")
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+        same = all(torch.equal(params[0][k], params[1][k]) for k in params[0])
+        log(f"  the parameters after {MESH_STEPS} steps, Trainer(mesh=1 x 1) "
+            f"against Trainer(): bit for bit {same}")
+        if not same:
+            raise AssertionError("(11) Trainer(mesh=1 x 1) differs from "
+                                 "Trainer()")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 # ---- phase 10 ----------------------------------------------------------------
 
 def scaling_check():
@@ -3515,6 +3738,596 @@ def toolbox_phase(base, codec, ccfg, requests, serve, work):
     return out
 
 
+# ---- phase 12 (--cards 4) --------------------------------------------------------
+
+def mesh_serving(rank, model, mesh, reqs, ref, label, spec=0):
+    """(j)'s greedy wave over ``mesh`` (plain, or speculative at tau
+    ``spec``) through serving's own loop on this rank's lanes, its draws
+    recorded; this rank's lanes against the one-card wave ``ref`` (rows and
+    draws of every lane) under the tie-aware rule.  Returns this rank's
+    numbers (launches, wall s, rows, frames/s, peak GB)."""
+    import torch
+    from voicecraft_tpu_torch.inference import serving as sv
+    from voicecraft_tpu_torch.models.voicecraft import SamplingConfig
+    from voicecraft_tpu_torch.ops import _native
+    from voicecraft_tpu_torch.parallel.mesh import data_slice
+    cfg = model.cfg
+    greedy = SamplingConfig(top_k=40, top_p=1.0, temperature=0.0)
+    pads, args = sv.tts_wave_inputs(model, reqs, SERVE_PADS)
+    x_pad, y_pad, gen_max = pads
+    sl = data_slice(len(reqs), mesh)
+    Bl = sl.stop - sl.start
+    if spec:
+        loop = sv.make_spec_serving_loop(cfg, batch_size=Bl, n_draft=spec,
+                                         x_pad=x_pad, y_pad=y_pad,
+                                         gen_max=gen_max, scfg=greedy)
+    else:
+        loop = sv.make_serving_tts_loop(cfg, batch_size=Bl, x_pad=x_pad,
+                                        y_pad=y_pad, gen_max=gen_max,
+                                        scfg=greedy)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _native.reset_launch_counts()
+    with DrawRecorder() as rec:
+        t0 = time.time()
+        res = sv._wave_on_mesh(loop, model, args + (SERVE_SEEDS,), mesh)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launches = dict(_native.LAUNCHES)
+    want = cfg.num_decoder_layers if x_pad + y_pad >= 1024 else 0
+    if launches != {"flash_prefix_attention": want, "fused_ffn": 0}:
+        raise AssertionError(f"({label}) rank {rank}: launches {launches}, "
+                             f"want {want} attention launches")
+    ref_rows, ref_la = ref
+    for i in range(Bl):
+        b = sl.start + i
+        rows = res.gen_buf[:res.n_rows[b], b].cpu().numpy()
+        same_under_ties(f"({label}) rank {rank} lane {b} vs the one-card "
+                        f"wave", rows, ref_rows[b], rec.lane(i), ref_la[b])
+    return dict(launches=launches["flash_prefix_attention"], wall=wall,
+                rows=int(sum(res.n_rows)), steps=res.steps,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def report(rank, label, mine, note=""):
+    """Gather every rank's numbers of one run and log them on rank 0."""
+    import torch.distributed as dist
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    if rank == 0:
+        wall = max(m["wall"] for m in every)
+        extra = (f"; {every[0]['rows']} rows in {wall:.3f} s = "
+                 f"{every[0]['rows'] / wall:.1f} frames/s aggregate"
+                 if "rows" in every[0] else "")
+        log(f"  ({label}) per rank: attention launches "
+            f"{[m.get('launches') for m in every]}, peak memory "
+            f"{[round(m['peak_gb'], 2) for m in every]} GB{extra}{note}")
+    return every
+
+
+def mesh_tcfg(root, exp, zero1):
+    from voicecraft_tpu_torch.config import TrainConfig
+    return TrainConfig(dataset_dir=root, exp_dir=os.path.join(root, "..", exp),
+                       max_num_tokens=TRAIN_TOKENS, lr=0.05,
+                       optimizer_name="ScaledAdam", seed=1, zero1=zero1,
+                       val_every_n_steps=10 ** 6, print_every_n_steps=1)
+
+
+def train_run(rank, mesh, recipe, tcfg, save):
+    """MESH_TRAIN_STEPS Trainer(mesh=) steps on phase 9's manifest, each step
+    timed, the NCCL kernels' device time of step MESH_PROFILED_STEP from
+    torch.profiler, each step's batch kept (host copies).  Returns (numbers,
+    the gathered parameters on the host, the batches, rank 0's gathered
+    parameters before the first step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from voicecraft_tpu_torch.parallel.mesh import gather_params
+    from voicecraft_tpu_torch.training.trainer import Trainer
+    exp = os.path.basename(tcfg.exp_dir)
+    t0 = time.time()
+    tr = Trainer(recipe, tcfg, mesh=mesh, device="cuda")
+    t_build = time.time() - t0
+    if not save:
+        tr.validate_and_save = lambda: None
+    step_fn, walls, losses, ntoks, batches, nccl = tr.step_fn, [], [], [], [], []
+
+    def timed(batch, seed):
+        torch.cuda.synchronize()
+        prof = None
+        if len(walls) + 1 == MESH_PROFILED_STEP:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+        t = time.perf_counter()
+        m = step_fn(batch, seed)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        if prof is not None:
+            prof.stop()
+            nccl.append(sum(e.self_device_time_total
+                            for e in prof.key_averages()
+                            if "nccl" in e.key.lower()) / 1e3)
+        losses.append(float(m["loss"]))
+        ntoks.append(float(m["effective_ntoken"]))
+        batches.append(tuple(t.cpu() for t in batch))
+        if m["is_nan"]:
+            raise AssertionError(f"({exp}) step {len(walls)}: non-finite")
+        return m
+
+    tr.step_fn = timed
+    start = gather_params(tr.model)          # collective: every rank
+    start = ({k: v.float().cpu().clone() for k, v in start.items()}
+             if rank == 0 else None)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    tr.train(max_steps=MESH_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    params = {k: v.float().cpu().clone()
+              for k, v in gather_params(tr.model).items()}
+    del tr
+    torch.cuda.empty_cache()
+    local_tokens = sum(int(b[5].sum()) for b in batches)
+    return (dict(wall=sum(walls[1:]), steps=walls, losses=losses, ntok=ntoks,
+                 nccl_ms=nccl[0] if nccl else None, base_gb=base,
+                 peak_gb=peak, build_s=t_build, tokens=local_tokens),
+            params, batches, start)
+
+
+def one_card_losses(recipe, tcfg, every_batches, device):
+    """The loss of each step on one card: the Trainer's model and
+    ScaledAdam (as Trainer builds them from ``tcfg``), each step's gradient
+    the sum over the data rows' batches of that step (what the mesh sums),
+    no dropout (the phase's recipe has none)."""
+    import torch
+    from voicecraft_tpu_torch.models.voicecraft import (TrainBatch,
+                                                        VoiceCraft,
+                                                        forward_train)
+    from voicecraft_tpu_torch.training.optim import (ScaledAdam,
+                                                     eden_schedule,
+                                                     stacked_leaves)
+    model = VoiceCraft(recipe, device, trainable=True).init_weights(
+        torch.Generator(device=device).manual_seed(tcfg.seed))
+    total = tcfg.num_steps or 50000
+    opt = ScaledAdam(stacked_leaves(model), lr=eden_schedule(
+        tcfg.lr, tcfg.reduce_lr_start_step, tcfg.reduce_lr_start_epoch,
+        total * tcfg.warmup_fraction, tcfg.pseudo_epoch_size),
+        betas=(0.9, 0.95), clipping_scale=2.0,
+        clipping_update_period=tcfg.clipping_update_period)
+    out = []
+    for step in range(len(every_batches[0])):
+        opt.zero_grad()
+        loss = 0.0
+        for rank_batches in every_batches:
+            batch = TrainBatch(*(t.to(device) for t in rank_batches[step]))
+            res = forward_train(model, batch, seed=None)
+            res["loss"].backward()
+            loss += float(res["loss"])
+        opt.step()
+        out.append(loss)
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def cards_worker(rank, world, port, inputs, root, failed):
+    """One rank of phase 12: NCCL over 127.0.0.1 with a collective timeout,
+    this rank's card; any failure is reported in ``failed`` and re-raised
+    (the process exits non-zero)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "1")
+    sys.path.insert(0, str(REPO))
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        cards_phase(rank, inputs, root)
+    except BaseException:
+        import traceback
+        traceback.print_exc()
+        sys.stderr.flush()
+        failed.set()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def cards_phase(rank, inputs, root):
+    """Phase 12 on one rank of four (see the module docstring)."""
+    import dataclasses
+    import gc
+    import torch
+    import torch.distributed as dist
+    from voicecraft_tpu_torch import PRESETS
+    from voicecraft_tpu_torch.data.spans import compose_tts_prefix
+    from voicecraft_tpu_torch.inference import engine as em
+    from voicecraft_tpu_torch.inference import serving as sv
+    from voicecraft_tpu_torch.inference.engine import ContinuousBatcher
+    from voicecraft_tpu_torch.inference.loader import load_model
+    from voicecraft_tpu_torch.inference.streaming import stream_tts
+    from voicecraft_tpu_torch.inference.tts import decode_geometry, run_decode
+    from voicecraft_tpu_torch.models.voicecraft import (SamplingConfig,
+                                                        init_mtp_heads)
+    from voicecraft_tpu_torch.ops import _native
+    from voicecraft_tpu_torch.parallel.mesh import (gather_objects, make_mesh,
+                                                    shard_params)
+    dev = torch.device("cuda", rank)
+    _native.lib()
+    greedy = SamplingConfig(top_k=40, top_p=1.0, temperature=0.0)
+    reqs, texts2 = inputs["reqs"], inputs["texts2"]
+
+    def build():
+        cfg, model, _ = load_model("giga830M", random_init=True, seed=SEED,
+                                   device=dev)
+        model.mtp_heads = init_mtp_heads(
+            dataclasses.replace(cfg, n_mtp=N_MTP),
+            torch.Generator(device=dev).manual_seed(SEED + 4), dev)
+        return model
+
+    # ---- (A) lockstep serving: the one-card wave, then 4 x 1 and 2 x 2 ----
+    model = build()
+    cfg = model.cfg
+    L = cfg.num_decoder_layers
+    pads, args = sv.tts_wave_inputs(model, reqs, SERVE_PADS)
+    loop = sv.make_serving_tts_loop(cfg, batch_size=len(reqs),
+                                    x_pad=pads[0], y_pad=pads[1],
+                                    gen_max=pads[2], scfg=greedy)
+    with DrawRecorder() as rec:
+        t0 = time.time()
+        res = loop(model, *args, SERVE_SEEDS)
+        torch.cuda.synchronize()
+        one_wall = time.time() - t0
+    ref = ([res.gen_buf[:n, b].cpu().numpy() for b, n in enumerate(res.n_rows)],
+           [rec.lane(b) for b in range(len(reqs))])
+    del rec
+    if rank == 0:
+        log(f"[12 cards] (A) the one-card wave of (j)'s {len(reqs)} lanes, "
+            f"greedy, on each card: {sum(res.n_rows)} rows in {one_wall:.3f} "
+            f"s = {sum(res.n_rows) / one_wall:.1f} frames/s")
+    m41 = make_mesh(4, 1, dev)
+    shard_params(model, m41)
+    for label, spec in (("A 4x1 plain", 0), ("A 4x1 speculative", TAU)):
+        report(rank, label, mesh_serving(rank, model, m41, reqs, ref, label,
+                                         spec))
+
+    # ---- (B) the engine and a stream at 4 x 1 ----
+    reqs16 = reqs + [(x2, y) for (_, y), x2 in zip(reqs, texts2)]
+    eng = ContinuousBatcher(model, lanes=len(reqs), x_pad=SERVE_PADS[0],
+                            y_pad=SERVE_PADS[1], gen_max=GEN_MAX,
+                            burst=ENGINE_BURST, scfg=greedy, seed=SEED,
+                            mesh=m41)
+    ids = [eng.submit(x, y) for x, y in reqs16]
+    torch.cuda.reset_peak_memory_stats()
+    _native.reset_launch_counts()
+    with EngineRecorder() as erec:
+        t0 = time.time()
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launches = _native.LAUNCHES["flash_prefix_attention"]
+    prefills = eng.stats["waves"] + eng.stats["refills"]
+    if launches % L or not launches or _native.LAUNCHES["fused_ffn"]:
+        raise AssertionError(f"(B) rank {rank}: launches {_native.LAUNCHES}")
+    mine = sorted({rid for _, _, lane_map in erec.bursts for rid in lane_map
+                   if rid is not None})
+    frames = sum(out[i][1].shape[1] for i in ids)
+    for rid in mine:
+        rows, la = erec.request(rid)
+        x, codes = reqs16[rid]
+        prefix = compose_tts_prefix(codes, cfg)
+        gx, gy, _ = decode_geometry(cfg, len(x), prefix.length,
+                                    gen_max=GEN_MAX)
+        with DrawRecorder() as rec1:
+            ref1, _ = run_decode(model, is_tts=True, x_tokens=x, prefix=prefix,
+                                 n_spans=1, scfg=greedy, seed=SEED,
+                                 gen_max=GEN_MAX, return_raw=True)
+        r_la = rec1.by_index()
+        if len(rows) == GEN_MAX - 1 and len(ref1) == GEN_MAX:
+            ref1, r_la = ref1[:-1], r_la[:-1]
+        same_under_ties(f"(B) rank {rank} request {rid} vs its single "
+                        f"stream", rows, ref1, la, r_la)
+    report(rank, "B engine 4x1", dict(
+        launches=launches, wall=wall, rows=frames,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9),
+        note=f"; {len(reqs16)} requests over {len(reqs)} lanes, "
+             f"{eng.stats}, {L} attention launches a prefill on the ranks "
+             f"whose lanes it fills ({prefills} prefills)")
+    del erec, eng
+    x, codes = reqs[-1]
+    chunks = list(stream_tts(model, x, codes, greedy, seed=SEED,
+                             gen_max=GEN_MAX, mesh=m41, lanes=4))
+    got = np.concatenate([c["frames"] for c in chunks], axis=1)
+    gens = gather_objects(chunks[-1]["gen"], m41)
+    if not (np.array_equal(got, chunks[-1]["gen"]) and got.shape[1] > 0
+            and all(np.array_equal(g, gens[0]) for g in gens)):
+        raise AssertionError(f"(B) rank {rank}: the stream's frames")
+    if rank == 0:
+        log(f"  (B) stream_tts at 4 x 1 with lanes 4: {len(chunks)} chunks, "
+            f"{got.shape[1]} frames, the same on every rank")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    m22 = make_mesh(2, 2, dev)
+    model = shard_params(build(), m22)
+    for label, spec in (("A 2x2 plain", 0), ("A 2x2 speculative", TAU)):
+        report(rank, label, mesh_serving(rank, model, m22, reqs, ref, label,
+                                         spec))
+    del model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (D) training, and (E) a 2 x 2 checkpoint on one card ----
+    recipe = dataclasses.replace(PRESETS["giga830M"](), **RECIPE,
+                                 **MESH_NO_DROPOUT)
+    runs, losses = {}, {}
+    for label, mesh, zero1, save in (("4x1 ZeRO-1", m41, True, False),
+                                     ("4x1 replicated", m41, False, False),
+                                     ("4x1 replicated again", m41, False,
+                                      False),
+                                     ("2x2 ZeRO-1", m22, True, True)):
+        tcfg = mesh_tcfg(root, "exp_" + label.replace(" ", "_"), zero1)
+        nums, params, batches, start = train_run(rank, mesh, recipe, tcfg,
+                                                 save)
+        if label == "4x1 ZeRO-1":
+            runs["start"] = start
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, (nums, batches))
+        runs[label], losses[label] = params, nums["losses"]
+        one = None
+        if rank == 0 and "replicated" not in label:
+            rows = [b for r, (_, b) in enumerate(every)
+                    if r % mesh.n_model == 0]
+            one = one_card_losses(recipe, tcfg, rows, dev)
+        dist.barrier()
+        if rank == 0:
+            tok = sum(n["tokens"] for n, _ in every[::mesh.n_model])
+            steps = len(nums["steps"])
+            wall = max(n["wall"] for n, _ in every)
+            log(f"  (D) {label}: {steps} steps, loss/token "
+                f"{[round(l / t, 5) for l, t in zip(nums['losses'], nums['ntok'])]}"
+                f", one card on the same global batches "
+                f"{'not run' if one is None else [round(l / t, 5) for l, t in zip(one, nums['ntok'])]}"
+                f"; s a step {[round(s, 3) for s in nums['steps']]}; "
+                f"{tok} targets over the cards in {steps} steps, "
+                f"{tok * (steps - 1) / steps / wall:.0f} target tokens/s "
+                f"summed over the cards (steps 2-{steps}); peak memory "
+                f"{[round(n['peak_gb'], 2) for n, _ in every]} GB, model + "
+                f"optimizer {[round(n['base_gb'], 2) for n, _ in every]} GB "
+                f"before the first step; NCCL kernels "
+                f"{[None if n['nccl_ms'] is None else round(n['nccl_ms'], 2) for n, _ in every]}"
+                f" ms in step {MESH_PROFILED_STEP} (torch.profiler)")
+            if one is not None:
+                err = max(abs(a - b) / abs(b) for a, b in zip(nums["losses"], one))
+                if not err <= TRAIN_LOSS_RTOL:
+                    raise AssertionError(f"(D) {label}: losses {nums['losses']}"
+                                         f" against one card's {one}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        z, r, r2, p0 = (runs["4x1 ZeRO-1"], runs["4x1 replicated"],
+                        runs["4x1 replicated again"], runs["start"])
+        dist2 = lambda a, b: sum(float((a[k] - b[k]).double().square().sum())
+                                 for k in a) ** 0.5
+        moved, dz, dr = dist2(r, p0), dist2(z, r), dist2(r2, r)
+        n = sum(t.numel() for t in r.values())
+        beyond = lambda a: sum(int(((a[k] - r[k]).abs() > 1e-5).sum())
+                               for k in a)
+        worst = max(r, key=lambda k: (z[k] - r[k]).abs().max().item())
+        loss_err = max(abs(x - y) / abs(y) for x, y in
+                       zip(losses["4x1 ZeRO-1"], losses["4x1 replicated"]))
+        log(f"  (D) 4 x 1 after {MESH_TRAIN_STEPS} steps, ZeRO-1 against "
+            f"replicated moments: losses within {loss_err:.2e} relative; the "
+            f"parameters {dz:.4e} apart (L2), {dz / moved:.2e} of the "
+            f"{moved:.4e} the steps moved them; a second replicated run "
+            f"{dr:.4e} ({dr / moved:.2e}) from the first; elements apart by "
+            f"more than 1e-5: {beyond(z)} (ZeRO-1) and {beyond(r2)} "
+            f"(replicated again) of {n}; the largest "
+            f"{(z[worst] - r[worst]).abs().max().item():.3e} ({worst})")
+        if not (loss_err <= ZERO1_LOSS_RTOL
+                and dz <= ZERO1_UPDATE_RTOL * moved):
+            raise AssertionError("(D) ZeRO-1 and replicated differ")
+        ckpt = os.path.join(root, "..", "exp_2x2_ZeRO-1", "ckpt_latest")
+        state = torch.load(os.path.join(ckpt, "model.pt"), map_location="cpu",
+                           weights_only=True)
+        same = all(torch.equal(state[k].float(), v)
+                   for k, v in runs["2x2 ZeRO-1"].items())
+        _, one_model, _ = load_model(ckpt, device=dev)
+        _native.reset_launch_counts()
+        x, codes = reqs[-1]
+        prefix = compose_tts_prefix(codes, cfg)
+        rows, _ = run_decode(one_model, is_tts=True, x_tokens=x,
+                             prefix=prefix, n_spans=1, scfg=greedy,
+                             seed=SEED, gen_max=U_GEN_MAX, return_raw=True)
+        log(f"  (E) the 2 x 2 run's ckpt_latest on one card: the gathered "
+            f"parameters bit for bit {same}; load_model serves (j)'s lane "
+            f"{len(reqs) - 1} greedy, {len(rows)} rows, attention launches "
+            f"{_native.LAUNCHES['flash_prefix_attention']}")
+        if not same or _native.LAUNCHES["flash_prefix_attention"] != L:
+            raise AssertionError("(E) the 2 x 2 checkpoint on one card")
+    dist.barrier()
+
+
+def server_phase(port):
+    """(C) serve_torch_cli.py --mesh 2x2 under torchrun on the four cards:
+    two concurrent /tts in one wave and an /edit; every process is stopped
+    after."""
+    import json as js
+    import signal
+    import threading
+    import urllib.request
+    logf = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_")) / "serve.log"
+    http = free_port()
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc-per-node", "4", "--master-addr", "127.0.0.1",
+           "--master-port", str(port), str(REPO / "serve_torch_cli.py"),
+           "--mesh", "2x2", "--model", "giga830M", "--random-init",
+           "--seed", str(SEED), "--text-backend", "grapheme",
+           "--batch-window-ms", "2000", "--port", str(http)]
+    t0 = time.time()
+    with open(logf, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=REPO, start_new_session=True)
+    base = f"http://127.0.0.1:{http}"
+    demo_b64 = base64.b64encode((REPO / "demo" / "demo.wav").read_bytes()
+                                ).decode()
+
+    def post(path, payload):
+        req = urllib.request.Request(base + path,
+                                     data=js.dumps(payload).encode(),
+                                     method="POST")
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return js.loads(r.read()), time.perf_counter() - t
+
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"(C) the server exited: "
+                                     f"{logf.read_text()[-4000:]}")
+            try:
+                with urllib.request.urlopen(base + "/healthz", timeout=5) as r:
+                    info = js.loads(r.read())
+                break
+            except OSError:
+                if time.time() - t0 > SERVER_START_S:
+                    raise AssertionError("(C) no /healthz in time")
+                time.sleep(2)
+        log(f"  (C) serve_torch_cli.py --mesh 2x2 under torchrun up in "
+            f"{time.time() - t0:.1f} s: {info}")
+        results = [None, None]
+        gate = threading.Barrier(2)
+
+        def tts(i, text):
+            payload = {"prompt_wav_b64": demo_b64, "prompt_end_sec": 2.0,
+                       "prompt_transcript": "the sound of birds",
+                       "target_transcript": text, "seed": SEED}
+            gate.wait()
+            results[i] = post("/tts", payload)
+
+        ths = [threading.Thread(target=tts, args=(i, t))
+               for i, t in enumerate(["the river runs", "the old mill"])]
+        [t.start() for t in ths]
+        [t.join() for t in ths]
+        for i, r in enumerate(results):
+            if r is None or not r[0]["gen_sec"] > 0:
+                raise AssertionError(f"(C) /tts {i}: {r}")
+            log(f"  (C) /tts {i} (concurrent): HTTP 200 in {r[1]:.3f} s, "
+                f"{r[0]['gen_sec']:.2f} s generated")
+        with open(REPO / "demo" / "demo_alignment.csv") as f:
+            rows = [{k: (float(v) if k in ("Begin", "End") else v)
+                     for k, v in r.items()} for r in csv.DictReader(f)]
+        ed, lat = post("/edit", {
+            "wav_b64": demo_b64, "orig_transcript": PROMPT,
+            "target_transcript": EDIT_TARGET, "edit_type": "substitution",
+            "alignment": rows, "seed": SEED})
+        s, e = ed["edit_interval_frames"]
+        log(f"  (C) /edit: HTTP 200 in {lat:.3f} s, frames [{s}, {e}) "
+            f"regenerated")
+        waves = [ln for ln in logf.read_text().splitlines()
+                 if "micro-batch wave" in ln]
+        log(f"  (C) micro-batch waves: {waves}")
+        if not any("2 slot(s) [tts,tts]" in w for w in waves):
+            raise AssertionError("(C) the two /tts did not share a wave")
+    finally:
+        os.killpg(proc.pid, signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def cards_main(n_cards: int) -> None:
+    """``--cards 4``: the build, the inputs and phase 12 alone, over four
+    cards; the last line as the one-card run's, with the card count."""
+    import multiprocessing as mp
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
+                         "this script needs CUDA cards")
+    if n_cards != 4 or torch.cuda.device_count() < 4:
+        raise SystemExit(f"chip_smoke --cards {n_cards}: the mesh mode runs "
+                         f"on 4 cards; this machine has "
+                         f"{torch.cuda.device_count()}")
+    sys.path.insert(0, str(REPO))
+    from voicecraft_tpu_torch import PRESETS
+    from voicecraft_tpu_torch.data.phonemes import (build_vocab,
+                                                    make_text_tokenizer,
+                                                    phones_to_ids)
+    from voicecraft_tpu_torch.inference.loader import load_codec
+    from voicecraft_tpu_torch.models import encodec as ec
+    from voicecraft_tpu_torch.ops import _native
+    from voicecraft_tpu_torch.utils import audio as au
+    card = card_line()
+    log(f"[1 device] {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} "
+        f"x{torch.cuda.device_count()}")
+    t0 = time.time()
+    lib_path, _ = _native.build()
+    log(f"[2 build] {lib_path.relative_to(REPO)} in {time.time() - t0:.1f} s")
+    # (j)'s lanes and the engine's second texts, as the one-card run makes
+    # them; the codes from the seeded codec on card 0
+    tok = make_text_tokenizer("en-us", "grapheme")
+    demo = au.load_audio(str(REPO / "demo" / "demo.wav"), 16000)
+    long_wav = np.tile(demo, (1, LONG_TILES))
+    texts = serving_texts() + serving_texts(ENGINE_TEXT_START)
+    phones = [tok.phonemize(t) for t in texts]
+    vocab = build_vocab(phones)
+    ids = [np.asarray(phones_to_ids(p, vocab), np.int32) for p in phones]
+    cfg = PRESETS["giga830M"]()
+    _, codec = load_codec(None, random_init=True, seed=SEED, device="cuda:0",
+                          codebook_size=cfg.audio_vocab_size)
+    codes = [ec.encode_bucketed(codec, long_wav[:, :round(sec * 16000)])[0]
+             for sec in SERVE_SECONDS]
+    del codec
+    torch.cuda.empty_cache()
+    inputs = {"reqs": list(zip(ids[:len(codes)], codes)),
+              "texts2": ids[len(codes):]}
+    work = tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    try:
+        root = os.path.join(work, "data")
+        write_training_manifest(root, tok, texts)
+        t0 = time.time()
+        ctx = mp.get_context("spawn")
+        failed = ctx.Event()
+        port = free_port()
+        procs = [ctx.Process(target=cards_worker,
+                             args=(r, 4, port, inputs, root, failed))
+                 for r in range(4)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + CARDS_PHASE_S
+        while any(p.is_alive() for p in procs):
+            if failed.is_set() or time.time() > deadline or any(
+                    p.exitcode not in (None, 0) for p in procs):
+                time.sleep(5)         # the failing rank's traceback first
+                for p in procs:
+                    p.terminate()
+                break
+            time.sleep(1)
+        for p in procs:
+            p.join(30)
+        codes_ = [p.exitcode for p in procs]
+        if codes_ != [0, 0, 0, 0]:
+            raise AssertionError(f"[12 cards] rank exit codes {codes_}")
+        log(f"[12 cards] (A), (B), (D), (E) done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        server_phase(free_port())
+        log(f"[12 cards] (C) done in {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3710,6 +4523,13 @@ def main() -> None:
             launches = {name: n + run_launches[name]
                         for name, n in launches.items()}
         log(f"[10 toolbox] done in {time.time() - t0:.1f} s")
+
+        # ---- 11. the mesh on one card ----
+        t0 = time.time()
+        for run_launches in mesh_phase(model, serve, work):
+            launches = {name: n + run_launches[name]
+                        for name, n in launches.items()}
+        log(f"[11 mesh] done in {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3737,4 +4557,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cards"] and len(sys.argv) == 3:
+        cards_main(int(sys.argv[2]))
+    elif len(sys.argv) > 1:
+        raise SystemExit("usage: python3 chip_smoke.py [--cards 4]")
+    else:
+        main()

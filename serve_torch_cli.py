@@ -47,13 +47,24 @@ Endpoints:
 Lone requests decode through inference_tts / inference_tts_batch /
 inference_tts_spec / inference_edit; concurrent ones that share a sampling
 configuration ride one lockstep wave (serve_tts_batch / serve_edit_batch).
---mesh (several GPUs) and --asr-model (the Whisper paths) are not ported
-and are refused.
+
+Over several cards, one process per card under torchrun, with the model
+sharded over a DATA x MODEL mesh (lanes over DATA, heads and FFN columns
+over MODEL; voicecraft_tpu_torch/parallel/mesh.py):
+
+  python -m torch.distributed.run --nproc-per-node 4 serve_torch_cli.py \
+      --mesh 2x2 --model giga830M --random-init --port 8080
+
+Rank 0 runs the HTTP front and the micro-batch worker; it broadcasts each
+decode call (a wave's inputs, padded to a multiple of DATA, or a lone
+request or a stream) to the other ranks, and every rank runs it.
+--asr-model (the Whisper paths) is not ported and is refused.
 """
 
 import argparse
 import base64
 import collections
+import datetime
 import io
 import json
 import logging
@@ -72,10 +83,25 @@ import numpy as np
 log = logging.getLogger("voicecraft_tpu_torch.serve")
 
 
-class Engine:
-    """Model + codec + micro-batching scheduler + session store."""
+def _decode_fn(name: str):
+    """The decode functions that a mesh's ranks all run, by name."""
+    from voicecraft_tpu_torch.inference import (editing, serving, streaming,
+                                                tts)
+    return {"serve_tts_batch": serving.serve_tts_batch,
+            "serve_edit_batch": serving.serve_edit_batch,
+            "inference_tts": tts.inference_tts,
+            "inference_tts_batch": tts.inference_tts_batch,
+            "inference_tts_spec": tts.inference_tts_spec,
+            "inference_edit": editing.inference_edit,
+            "stream_tts": streaming.stream_tts}[name]
 
-    def __init__(self, args):
+
+class Engine:
+    """Model + codec + micro-batching scheduler + session store.  With a
+    ``mesh`` (parallel.mesh.Mesh) every rank builds one; rank 0 serves and
+    the others :meth:`follow` its decode calls."""
+
+    def __init__(self, args, mesh=None):
         import dataclasses
         import torch
         from voicecraft_tpu_torch.data.phonemes import make_text_tokenizer
@@ -113,6 +139,18 @@ class Engine:
                 quantize_decoder_fp8
             self.model = quantize_decoder_fp8(self.model, pack_qkv=True)
             log.info("serving with the weight-only fp8 decoder (packed qkv)")
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.rank == 0
+        if mesh is not None:
+            import torch.distributed as dist
+            from voicecraft_tpu_torch.parallel.mesh import shard_params
+            shard_params(self.model, mesh)
+            # the decode calls travel on a gloo group that waits as long as
+            # the server stays idle
+            self.control = dist.new_group(
+                backend="gloo", timeout=datetime.timedelta(days=365))
+            log.info("serving over a (%d data x %d model) mesh, rank %d",
+                     mesh.n_data, mesh.n_model, mesh.rank)
         self.ccfg, self.codec = load_codec(
             args.codec, args.random_init, args.seed, self.device,
             codebook_size=self.cfg.audio_vocab_size)
@@ -139,7 +177,56 @@ class Engine:
         # rerun sessions: sid -> {"codes", "scfg", "seed", "sentences",
         #                         "targets", "gen_wavs", ...}
         self.sessions = collections.OrderedDict()
-        threading.Thread(target=self._batch_worker, daemon=True).start()
+        if self.primary:
+            threading.Thread(target=self._batch_worker, daemon=True).start()
+
+    # ---- decode calls, on every rank of a mesh ----------------------------------
+
+    def _call(self, name, *args, stats=None, **kwargs):
+        """Run decode function ``name`` on the model with ``args`` /
+        ``kwargs`` (host values); over a mesh, broadcast the call to the
+        other ranks first, so that every rank runs it.  Hold ``self.lock``."""
+        if self.mesh is not None:
+            import torch.distributed as dist
+            dist.broadcast_object_list([(name, args, kwargs)], src=0,
+                                       group=self.control)
+        return self._local_call(name, args, kwargs, stats)
+
+    def _local_call(self, name, args, kwargs, stats=None):
+        kwargs = dict(kwargs)
+        if name in ("serve_tts_batch", "serve_edit_batch", "stream_tts"):
+            kwargs.update(mesh=self.mesh, stats=stats)
+        if name == "stream_tts":
+            kwargs.update(codec=self.codec if self.primary else None,
+                          lanes=self._n_data)
+        return _decode_fn(name)(self.model, *args, **kwargs)
+
+    @property
+    def _n_data(self) -> int:
+        return 1 if self.mesh is None else self.mesh.n_data
+
+    def _pad_wave(self, items: list, seeds: list):
+        """A wave padded to a multiple of the mesh's data axis by repeating
+        its last request (seed 0), as serve_cli.py pads."""
+        items, seeds = list(items), list(seeds)
+        while len(items) % self._n_data:
+            items.append(items[-1])
+            seeds.append(0)
+        return items, seeds
+
+    def follow(self):
+        """A follower rank's loop: run every decode call rank 0 broadcasts
+        (a stream to its end, its audio unused), until the process ends."""
+        import torch.distributed as dist
+        self._on_device()
+        while True:
+            job = [None]
+            dist.broadcast_object_list(job, src=0, group=self.control)
+            name, args, kwargs = job[0]
+            out = self._local_call(name, args, kwargs)
+            if name == "stream_tts":
+                for _ in out:
+                    pass
 
     # ---- request plumbing ---------------------------------------------------
 
@@ -310,7 +397,6 @@ class Engine:
         autospec arm its sample: the frames and producer seconds so far."""
         from voicecraft_tpu_torch.app import (normalize_transcript,
                                               split_sentences)
-        from voicecraft_tpu_torch.inference.streaming import stream_tts
         ccfg = self.ccfg
         target_text = normalize_transcript(req["target_transcript"])
         prompt_transcript = normalize_transcript(
@@ -349,9 +435,9 @@ class Engine:
                 # the consumer runs at the client's pace, which would make
                 # every arm look alike
                 stats: dict = {}
-                stream_it = stream_tts(
-                    self.model, x, codes, scfg, seed=seed + i,
-                    codec=self.codec, kv_dtype=self.kv_dtype, spec=smode,
+                stream_it = self._call(
+                    "stream_tts", x, codes, scfg, seed=seed + i,
+                    kv_dtype=self.kv_dtype, spec=smode,
                     burst=int(req.get("burst", 48)), stats=stats)
                 try:
                     for chunk in stream_it:
@@ -400,12 +486,6 @@ class Engine:
                 "latency_sec": time.time() - t0}
 
     def _batch_worker(self):
-        from voicecraft_tpu_torch.inference.editing import inference_edit
-        from voicecraft_tpu_torch.inference.serving import (serve_edit_batch,
-                                                            serve_tts_batch)
-        from voicecraft_tpu_torch.inference.tts import (inference_tts,
-                                                        inference_tts_batch,
-                                                        inference_tts_spec)
         self._on_device()
         while True:
             slots = [self.queue.get()]
@@ -430,8 +510,7 @@ class Engine:
                         groups.setdefault(k, []).append(s)
                     for (kind, scfg, sbs), group in groups.items():
                         if kind == "edit":
-                            self._edit_group(group, scfg, serve_edit_batch,
-                                             inference_edit)
+                            self._edit_group(group, scfg)
                         elif len(group) > 1 and sbs == 1:
                             # the bandit picks the wave's mode and learns
                             # from its measured throughput
@@ -439,10 +518,11 @@ class Engine:
                                     if self.autospec is not None
                                     else self.spec)
                             stats: dict = {}
-                            outs = serve_tts_batch(
-                                self.model, [(s["x"], s["codes"])
-                                             for s in group], scfg,
-                                seeds=[s["seed"] for s in group],
+                            reqs, seeds = self._pad_wave(
+                                [(s["x"], s["codes"]) for s in group],
+                                [s["seed"] for s in group])
+                            outs = self._call(
+                                "serve_tts_batch", reqs, scfg, seeds=seeds,
                                 kv_dtype=self.kv_dtype, spec=mode,
                                 stats=stats)
                             if self.autospec is not None:
@@ -455,17 +535,19 @@ class Engine:
                             for s in group:
                                 # best-of-N, or a lone request
                                 if sbs > 1:
-                                    s["result"] = inference_tts_batch(
-                                        self.model, s["x"], s["codes"], scfg,
-                                        batch_size=sbs, seed=s["seed"])
-                                elif self.spec > 1:
-                                    s["result"] = inference_tts_spec(
-                                        self.model, s["x"], s["codes"], scfg,
-                                        n_draft=self.spec, seed=s["seed"])
-                                else:
-                                    s["result"] = inference_tts(
-                                        self.model, s["x"], s["codes"], scfg,
+                                    s["result"] = self._call(
+                                        "inference_tts_batch", s["x"],
+                                        s["codes"], scfg, batch_size=sbs,
                                         seed=s["seed"])
+                                elif self.spec > 1:
+                                    s["result"] = self._call(
+                                        "inference_tts_spec", s["x"],
+                                        s["codes"], scfg, n_draft=self.spec,
+                                        seed=s["seed"])
+                                else:
+                                    s["result"] = self._call(
+                                        "inference_tts", s["x"], s["codes"],
+                                        scfg, seed=s["seed"])
             except Exception as e:  # surfaced to the waiters
                 log.exception("batch failed")
                 for s in slots:
@@ -474,22 +556,23 @@ class Engine:
             for s in slots:
                 s["done"].set()
 
-    def _edit_group(self, group, scfg, serve_edit_batch, inference_edit):
+    def _edit_group(self, group, scfg):
         """Edit slots sharing a SamplingConfig: one serve_edit_batch wave,
         or inference_edit for a lone one."""
         if len(group) == 1:
             s = group[0]
-            s["result"] = inference_edit(self.model, s["x"], s["codes"],
-                                         s["intervals"], scfg,
-                                         seed=s["seed"], spec=self.spec)
+            s["result"] = self._call("inference_edit", s["x"], s["codes"],
+                                     s["intervals"], scfg, seed=s["seed"],
+                                     spec=self.spec)
             return
         mode = (self.autospec_edit.next_mode()
                 if self.autospec_edit is not None else self.spec)
         stats: dict = {}
-        outs = serve_edit_batch(
-            self.model, [(s["x"], s["codes"], s["intervals"]) for s in group],
-            scfg, seeds=[s["seed"] for s in group], kv_dtype=self.kv_dtype,
-            spec=mode, stats=stats)
+        reqs, seeds = self._pad_wave(
+            [(s["x"], s["codes"], s["intervals"]) for s in group],
+            [s["seed"] for s in group])
+        outs = self._call("serve_edit_batch", reqs, scfg, seeds=seeds,
+                          kv_dtype=self.kv_dtype, spec=mode, stats=stats)
         if self.autospec_edit is not None:
             self.autospec_edit.observe(mode, stats["frames"],
                                        stats["seconds"],
@@ -821,18 +904,50 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; there is no automatic "
                          "fallback to the CPU")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="serve over a DATA x MODEL mesh of processes, one "
+                         "per card, under torchrun (python -m torch."
+                         "distributed.run --nproc-per-node DATA*MODEL): "
+                         "NCCL on cuda:LOCAL_RANK, gloo with --device cpu")
     # not ported (refused when given)
-    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL")
     ap.add_argument("--asr-model", default=None)
     return ap
+
+
+def init_mesh(ap: argparse.ArgumentParser, args):
+    """The process group and mesh of ``--mesh DATAxMODEL`` (None without
+    it), from torchrun's RANK / WORLD_SIZE / LOCAL_RANK; sets args.device
+    to this rank's card."""
+    if args.mesh is None:
+        return None
+    try:
+        n_data, n_model = (int(v) for v in args.mesh.lower().split("x"))
+    except ValueError:
+        ap.error(f"--mesh takes DATAxMODEL (e.g. 2x2), got {args.mesh!r}")
+    env = [os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")]
+    if None in env or int(env[1]) != n_data * n_model:
+        ap.error(f"--mesh {args.mesh} needs {n_data * n_model} processes "
+                 "under torchrun (python -m torch.distributed.run "
+                 f"--nproc-per-node {n_data * n_model}), one per card")
+    rank, world, local = (int(v) for v in env)
+    import torch
+    import torch.distributed as dist
+    from voicecraft_tpu_torch.parallel.mesh import make_mesh
+    if args.device == "cpu":
+        dist.init_process_group("gloo", rank=rank, world_size=world)
+    else:
+        if not torch.cuda.is_available():
+            ap.error("--device cuda, but no CUDA device is available (pass "
+                     "--device cpu to run on the CPU)")
+        torch.cuda.set_device(local)
+        args.device = f"cuda:{local}"
+        dist.init_process_group("nccl", rank=rank, world_size=world)
+    return make_mesh(n_data, n_model, args.device)
 
 
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        ap.error("--mesh is not yet ported to voicecraft_tpu_torch (the port "
-                 "serves on one device)")
     if args.asr_model is not None:
         ap.error("--asr-model is not yet ported to voicecraft_tpu_torch (it "
                  "needs a Whisper snapshot); alignments come from the "
@@ -842,10 +957,14 @@ def main(argv=None):
         ap.error(f"--spec takes an integer TAU or auto[:T1,T2..], got "
                  f"{args.spec!r}")
     logging.basicConfig(level=logging.INFO)
+    mesh = init_mesh(ap, args)
     try:
-        engine = Engine(args)
+        engine = Engine(args, mesh)
     except RuntimeError as e:
         ap.error(str(e))
+    if not engine.primary:
+        engine.follow()
+        return
     server = ThreadingHTTPServer((args.host, args.port), make_handler(engine))
     log.info("serving on http://%s:%d (%s)", args.host, args.port,
              engine.device)

@@ -5,6 +5,7 @@ the fp8 slab, wave against per-lane admission, and sampled output keyed on
 the admission.  Both packages run tiny_test in f32 on the same weights."""
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -235,6 +236,9 @@ def test_sampled_output_independent_of_lane_and_wave(setup):
 
 
 def test_engine_refuses_mesh(setup):
+    """A mesh whose data axis does not divide the lanes is refused (the
+    mesh runs: tests/test_torch_mesh_serving.py)."""
     _, _, model, _ = setup
-    with pytest.raises(NotImplementedError, match="mesh"):
-        eng_mod.ContinuousBatcher(model, lanes=2, mesh=object())
+    mesh = types.SimpleNamespace(n_data=3, data_rank=0)
+    with pytest.raises(ValueError, match="shard over data=3"):
+        eng_mod.ContinuousBatcher(model, lanes=2, mesh=mesh)

@@ -29,6 +29,11 @@ REPO = Path(__file__).resolve().parents[1]
 DEMO = REPO / "demo"
 PROMPT_TEXT = "the sound of birds over the river at dawn"
 TIMEOUT = 120
+# the micro-batch window: a /tts handler decodes and encodes its prompt
+# (the codec on the CPU) before it queues its slot, 1.0 s idle and up to
+# 2.1 s with the CPU shared among busy processes, so a window of twice the
+# slowest lets two concurrent posts meet in one wave
+WINDOW_MS = 4000
 COMMON = {"top_k": 15, "silence_tokens": [5, 7]}
 
 
@@ -50,7 +55,7 @@ def server(tmp_path_factory):
             [sys.executable, str(REPO / "serve_torch_cli.py"),
              "--model", "tiny_test", "--random-init", "--device", "cpu",
              "--text-backend", "grapheme", "--port", str(port),
-             "--batch-window-ms", "500"],
+             "--batch-window-ms", str(WINDOW_MS)],
             stdout=out, stderr=subprocess.STDOUT, cwd=REPO, env=env)
     base = f"http://127.0.0.1:{port}"
     try:
@@ -107,12 +112,14 @@ def test_healthz(server):
 
 def test_concurrent_tts_ride_one_wave(server):
     b64, results = _wav_b64(), [None, None]
+    gate = threading.Barrier(2)
 
     def run(i, text):
-        results[i] = _post(server.base, "/tts", {
-            "prompt_wav_b64": b64, "prompt_end_sec": 1.5,
-            "prompt_transcript": "the sound of",
-            "target_transcript": text, **COMMON})
+        payload = {"prompt_wav_b64": b64, "prompt_end_sec": 1.5,
+                   "prompt_transcript": "the sound of",
+                   "target_transcript": text, **COMMON}
+        gate.wait(timeout=TIMEOUT)      # both posts leave together
+        results[i] = _post(server.base, "/tts", payload)
 
     ths = [threading.Thread(target=run, args=(i, t))
            for i, t in enumerate(["hello world", "another request"])]
@@ -188,7 +195,7 @@ def test_tts_stream_length_equals_tts(server):
 
 def test_server_refusals(capsys):
     import serve_torch_cli
-    for flags, message in ((["--mesh", "2x1"], "--mesh is not yet ported"),
+    for flags, message in ((["--mesh", "2x1"], "--mesh 2x1 needs 2 processes"),
                            (["--asr-model", "w"], "--asr-model is not yet"),
                            (["--spec", "fast"], "--spec takes an integer")):
         with pytest.raises(SystemExit):

@@ -5,6 +5,7 @@ per-request seeds, frozen lanes).  Both packages run tiny_test in f32 on
 the same weights; each JAX serving loop is compiled once per module."""
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -563,7 +564,10 @@ def test_frozen_lane_is_untouched_by_the_rest_of_the_wave(setup):
 
 
 def test_serving_refuses_a_mesh(setup):
+    """A wave whose lanes do not shard over the mesh's data axis is refused
+    (the mesh runs: tests/test_torch_mesh_serving.py)."""
     _, _, model, reqs = setup
-    with pytest.raises(NotImplementedError, match="mesh"):
+    mesh = types.SimpleNamespace(n_data=len(reqs) + 1, data_rank=0)
+    with pytest.raises(ValueError, match="do not shard over data"):
         sv.serve_tts_batch(model, reqs, vc.SamplingConfig(**GREEDY),
-                           mesh=object())
+                           mesh=mesh)

@@ -7,6 +7,7 @@ refusals.  Both packages run tiny_test with 3 MTP head groups in f32 on the
 same weights; each JAX loop is compiled once."""
 
 import dataclasses
+import types
 
 import jax
 import numpy as np
@@ -223,8 +224,9 @@ def test_frozen_edit_lane_is_untouched_by_the_rest_of_the_wave(setup,
 def test_edit_serving_refusals(setup):
     cfg, _, model, reqs = setup
     g = vc.SamplingConfig(**GREEDY)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        sv.serve_edit_batch(model, reqs, g, mesh=object())
+    with pytest.raises(ValueError, match="do not shard over data"):
+        sv.serve_edit_batch(model, reqs, g, mesh=types.SimpleNamespace(
+            n_data=len(reqs) + 1, data_rank=0))
     bare = vc.VoiceCraft(dataclasses.replace(cfg, n_mtp=0), "cpu")
     with pytest.raises(ValueError, match="mtp_heads"):
         sv.serve_edit_batch(bare, reqs, g, spec=TAU)

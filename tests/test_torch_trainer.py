@@ -152,10 +152,17 @@ def test_train_mtp_only_freezes_the_base(data_root, tmp_path):
         Trainer(configs()[1], tt, train_mtp_only=True, device="cpu")
 
 
-def test_mesh_and_multi_process_are_refused(data_root, tmp_path):
+def test_mesh_and_multi_process_are_refused(data_root, tmp_path,
+                                            monkeypatch):
+    """A mesh must be a parallel.mesh.Mesh, and a multi-process run trains
+    over one (the mesh runs themselves: tests/test_torch_mesh_train.py)."""
     _, tt = _tcfg(data_root, tmp_path / "exp")
-    with pytest.raises(NotImplementedError, match="one card"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         Trainer(configs()[1], tt, mesh=object(), device="cpu")
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    with pytest.raises(ValueError, match="trains over a mesh"):
+        Trainer(configs()[1], tt, device="cpu")
 
 
 def test_init_from_fresh_initialises_missing_mtp_heads(data_root, tmp_path):

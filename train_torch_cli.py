@@ -11,6 +11,13 @@ On the CPU at test size:
   python train_torch_cli.py --exp-dir /tmp/exp --dataset-dir /tmp/data \\
       --preset tiny_test --device cpu --num-steps 4
 
+On several cards, one process per card under torchrun, over a
+(world / n_model) x n_model mesh (data x tensor parallel, ZeRO-1 unless
+--no-zero1):
+
+  python -m torch.distributed.run --nproc-per-node 4 train_torch_cli.py \
+      --distributed --n-model 2 --exp-dir exp/e830M ...
+
 The run writes <exp-dir>/ckpt_latest (and ckpt_best) with meta_*.json and
 vocab.txt beside them; tts_torch_cli.py --model <exp-dir>/ckpt_latest
 serves it.  Mid-run, a second call with the same --exp-dir resumes.
@@ -19,10 +26,7 @@ serves it.  Mid-run, a second call with the same --exp-dir resumes.
 import argparse
 import dataclasses
 import logging
-
-# flags of train_cli.py the port refuses: it trains on one card, and reads
-# no remote dataset
-NOT_YET_PORTED = ("n_model", "distributed", "no_zero1")
+import os
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,20 +68,51 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; there is no automatic "
                          "fallback to the CPU")
-    # not yet ported (refused when given)
-    ap.add_argument("--n-model", type=int, default=None)
-    ap.add_argument("--no-zero1", action="store_true", default=None)
-    ap.add_argument("--distributed", action="store_true", default=None)
+    ap.add_argument("--distributed", action="store_true",
+                    help="one process per card under torchrun (its RANK, "
+                         "WORLD_SIZE and LOCAL_RANK): NCCL on cuda:"
+                         "LOCAL_RANK, gloo with --device cpu")
+    ap.add_argument("--n-model", type=int, default=1,
+                    help="tensor-parallel width: the mesh is (world // "
+                         "n_model) x n_model (with --distributed)")
+    ap.add_argument("--no-zero1", action="store_true",
+                    help="keep the optimizer's moments replicated over the "
+                         "mesh's data axis")
     return ap
 
 
-def refuse_unported(ap: argparse.ArgumentParser, args) -> None:
-    given = [f"--{n.replace('_', '-')}" for n in NOT_YET_PORTED
-             if getattr(args, n) is not None]
-    if given:
-        ap.error(f"{', '.join(given)}: not yet ported (the port trains on "
-                 "one card: no tensor parallelism, optimizer sharding or "
-                 "multi-process run)")
+def init_distributed(ap: argparse.ArgumentParser, args):
+    """The process group and mesh of a --distributed run (None without
+    it): torchrun's RANK / WORLD_SIZE / LOCAL_RANK, the card set before any
+    other CUDA call."""
+    if not args.distributed:
+        if args.n_model != 1 or args.no_zero1:
+            ap.error("--n-model and --no-zero1 shape a mesh: they need "
+                     "--distributed (under torchrun)")
+        return None
+    env = [os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")]
+    if None in env:
+        ap.error("--distributed reads RANK, WORLD_SIZE and LOCAL_RANK: run "
+                 "it under torchrun (python -m torch.distributed.run)")
+    rank, world, local = (int(v) for v in env)
+    if args.n_model < 1 or world % args.n_model:
+        ap.error(f"--n-model {args.n_model} does not divide the world of "
+                 f"{world} processes")
+    import torch
+    import torch.distributed as dist
+    from voicecraft_tpu_torch.parallel.mesh import make_mesh
+    if args.device == "cpu":
+        dist.init_process_group("gloo", rank=rank, world_size=world)
+        device = torch.device("cpu")
+    else:
+        if not torch.cuda.is_available():
+            ap.error("--device cuda, but no CUDA device is available")
+        torch.cuda.set_device(local)
+        device = torch.device("cuda", local)
+        dist.init_process_group("nccl", rank=rank, world_size=world)
+    mesh = make_mesh(world // args.n_model, args.n_model, device)
+    logging.info("mesh: data=%d model=%d", mesh.n_data, mesh.n_model)
+    return mesh
 
 
 def tensorboard_writer(exp_dir: str):
@@ -92,10 +127,10 @@ def tensorboard_writer(exp_dir: str):
 def main():
     ap = build_parser()
     args = ap.parse_args()
-    refuse_unported(ap, args)
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    mesh = init_distributed(ap, args)
 
     from voicecraft_tpu_torch.config import PRESETS, TrainConfig
     from voicecraft_tpu_torch.training.trainer import Trainer
@@ -115,10 +150,17 @@ def main():
         optimizer_name=args.optimizer, lr=args.lr, num_steps=args.num_steps,
         max_num_tokens=args.max_num_tokens, num_buckets=args.num_buckets,
         seed=args.seed, drop_long=args.drop_long,
-        val_every_n_steps=args.val_every_n_steps)
-    tb = tensorboard_writer(args.exp_dir) if args.tb else None
-    Trainer(mcfg, tcfg, tb_writer=tb, init_from=args.init_from,
-            train_mtp_only=args.mtp_only, device=args.device).train()
+        val_every_n_steps=args.val_every_n_steps, zero1=not args.no_zero1)
+    primary = mesh is None or mesh.rank == 0
+    tb = tensorboard_writer(args.exp_dir) if args.tb and primary else None
+    try:
+        Trainer(mcfg, tcfg, mesh=mesh, tb_writer=tb,
+                init_from=args.init_from, train_mtp_only=args.mtp_only,
+                device=args.device).train()
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

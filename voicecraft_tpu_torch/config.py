@@ -194,6 +194,12 @@ class TrainConfig:
     profile_dir: Optional[str] = None
     profile_start_step: int = 10
 
+    # ZeRO-1: shard the optimizer moments over the mesh's data axis
+    # (parallel/mesh.py zero1_opt_shardings); semantics-identical, 1/dp the
+    # optimizer memory per chip.  Only takes effect with a mesh and a
+    # recognised optimizer state; set False to force DDP-style replication.
+    zero1: bool = True
+
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)
 

@@ -54,7 +54,8 @@ from ..models.voicecraft import (MAX_POS, SamplingConfig, VoiceCraft,
                                  prefill_lanes)
 from ..ops import patterns
 from ..ops.attention import _attend_one, _ring_valid
-from .serving import _no_mesh, _step_feed
+from ..parallel.mesh import all_gather_data, data_slice
+from .serving import _step_feed
 from .spec_common import (make_lane_sampler, seeded_generator,
                           spec_verify_pass, token_generators)
 
@@ -364,8 +365,17 @@ class ContinuousBatcher:
 
     ``kv_dtype="float8_e4m3fn"`` stores the slab in fp8.  ``spec`` = tau > 1
     decodes speculatively (the model needs tau - 1 MTP head groups);
-    ``spec_force_accept`` (measurement) accepts every draft.  ``mesh`` is
-    refused: the port runs the engine on one device.  ``stats`` counts
+    ``spec_force_accept`` (measurement) accepts every draft.
+
+    ``mesh`` (parallel.mesh.Mesh; every rank builds the same batcher, with
+    a model sharded by ``shard_params`` or a replicated one, and makes the
+    same calls) shards the lanes over its 'data' axis (lanes % n_data ==
+    0): the device state (LaneState, the slab, the row buffer) of lanes
+    [d * lanes / n_data, (d + 1) * lanes / n_data) lives on data rank d,
+    while the host scheduler (admission, retirement, the refill decisions)
+    is replicated on every rank over the global lanes: each burst's
+    status and rows are all-gathered over 'data' before the host reads
+    them, so every rank takes the same decisions.  ``stats`` counts
     bursts, device steps (speculative: passes), wave prefills and lane
     refills over the batcher's life.
     """
@@ -387,9 +397,11 @@ class ContinuousBatcher:
     pipeline: bool = True
 
     def __post_init__(self):
-        _no_mesh(self.mesh)
         model, cfg = self.model, self.cfg
         K, dev = cfg.n_codebooks, self.model.device
+        # this data rank's lanes [lo, lo + B)
+        sl = data_slice(self.lanes, self.mesh)
+        self._lo, B = sl.start, sl.stop - sl.start
         geom = dict(x_pad=self.x_pad, y_pad=self.y_pad, gen_max=self.gen_max,
                     burst=self.burst, scfg=self.scfg)
         if self.spec > 1:
@@ -398,30 +410,32 @@ class ContinuousBatcher:
             # compact per-lane offsets: one block of slack, not a ring
             s_max = self.x_pad + self.y_pad + self.gen_max + self.spec
             self._burst = make_spec_burst_fn(
-                cfg, batch_size=self.lanes, n_draft=self.spec,
+                cfg, batch_size=B, n_draft=self.spec,
                 force_accept=self.spec_force_accept, **geom)
             self._burst_steps = max(1, self.burst // self.spec)
         else:
             # ring width W = gen_max + burst > gen_max - 1 >= every live t
             s_max = self.x_pad + self.y_pad + self.gen_max + self.burst
-            self._burst = make_burst_fn(cfg, batch_size=self.lanes, **geom)
+            self._burst = make_burst_fn(cfg, batch_size=B, **geom)
             self._burst_steps = self.burst
         pads = dict(x_pad=self.x_pad, y_pad=self.y_pad, kv_dtype=self.kv_dtype)
         self._prefill = make_prefill_batch_fn(cfg, **pads)
         self._prefill_lane = make_prefill_lane_fn(cfg, **pads)
         self._cache = trm.init_kv_cache(
-            cfg.num_decoder_layers, self.lanes, s_max, cfg.nhead,
+            cfg.num_decoder_layers, B, s_max, model.decoder.nhead,
             cfg.head_dim, kv_cache_dtype(model, self.kv_dtype), dev)
-        self._lanes = _empty_lanes(self.lanes, K, cfg.card, cfg.d_model, dev)
-        self._gen_buf = torch.zeros(
-            (self.lanes, self.gen_max + max(self.spec, 0), K),
-            dtype=torch.long, device=dev)
+        self._lanes = _empty_lanes(B, K, cfg.card, cfg.d_model, dev)
+        rows = (self.gen_max + max(self.spec, 0), K)
+        self._gen_buf = torch.zeros((B,) + rows, dtype=torch.long, device=dev)
         # the plain engine's sampled noise: lane b's generator, made at its
         # admission; empty lanes draw from a shared idle one
         idle = torch.Generator(device=dev).manual_seed(self.seed)
-        self._gens: List[torch.Generator] = [idle] * self.lanes
-        self._snaps = [_Snapshot(_status(self._lanes), self._gen_buf)
-                       for _ in range(2)]
+        self._gens: List[torch.Generator] = [idle] * B
+        # the host reads every lane's status and rows
+        self._snaps = [_Snapshot(
+            torch.empty((self.lanes, 4), dtype=torch.long, device=dev),
+            torch.empty((self.lanes,) + rows, dtype=torch.long, device=dev))
+            for _ in range(2)]
         self._n_snap = 0
         self._queue: List[Tuple[int, np.ndarray, np.ndarray]] = []
         self._lane_req: List[Optional[int]] = [None] * self.lanes
@@ -451,10 +465,17 @@ class ContinuousBatcher:
 
     # ---- internals -----------------------------------------------------------
 
+    def _local(self, b: int) -> Optional[int]:
+        """Global lane b's index in this rank's device state, or None."""
+        i = b - self._lo
+        return i if 0 <= i < self._gen_buf.shape[0] else None
+
     def _admit(self) -> None:
         """Admit queued requests into free lanes: a wave of more than half
-        the lanes (in practice the startup wave) as ONE prefill forward,
-        fewer as single-lane refills."""
+        the lanes (in practice the startup wave) as ONE prefill forward
+        (over a mesh, each data rank's forward over its lanes of it), fewer
+        as single-lane refills (each on the data rank that holds the
+        lane)."""
         cfg = self.cfg
         K = cfg.n_codebooks
         shift = cfg.n_special if cfg.special_first else 0
@@ -479,40 +500,54 @@ class ContinuousBatcher:
         for i, (_, _, x, prefix) in enumerate(pending):
             xt[i, :len(x)] = x
             yt[i, :, :prefix.length] = prefix.tokens
+        mine = [i for i, p in enumerate(pending)
+                if self._local(p[0]) is not None]
         if n > self.lanes // 2:
-            self._cache, self._lanes = self._prefill(
-                self.model, self._cache, self._lanes, [p[0] for p in pending],
-                xt, [len(p[2]) for p in pending], yt,
-                [p[3].length for p in pending], [p[1] for p in pending])
+            if mine:
+                self._cache, self._lanes = self._prefill(
+                    self.model, self._cache, self._lanes,
+                    [self._local(pending[i][0]) for i in mine], xt[mine],
+                    [len(pending[i][2]) for i in mine], yt[mine],
+                    [pending[i][3].length for i in mine],
+                    [pending[i][1] for i in mine])
             self.stats["waves"] += 1
         else:
             for i, (b, rid, x, prefix) in enumerate(pending):
-                self._cache, self._lanes = self._prefill_lane(
-                    self.model, self._cache, self._lanes, b, xt[i:i + 1],
-                    len(x), yt[i:i + 1], prefix.length, rid)
+                if i in mine:
+                    self._cache, self._lanes = self._prefill_lane(
+                        self.model, self._cache, self._lanes, self._local(b),
+                        xt[i:i + 1], len(x), yt[i:i + 1], prefix.length, rid)
                 self.stats["refills"] += 1
         dev = self.model.device
         for b, rid, _, _ in pending:
             self._lane_req[b] = rid
-            if self.spec <= 1 and self.scfg.temperature > 0:
-                self._gens[b] = seeded_generator((self.seed, rid), dev)
+            if (self.spec <= 1 and self.scfg.temperature > 0
+                    and self._local(b) is not None):
+                self._gens[self._local(b)] = seeded_generator(
+                    (self.seed, rid), dev)
 
     def _dispatch_burst(self) -> _Snapshot:
         """Enqueue one burst and the copy of its snapshot; no host sync
         (sampled speculative passes excepted)."""
+        B = self._gen_buf.shape[0]
         if self.spec > 1:
             gens = token_generators(
-                self.scfg, self.seed, self.model.device, lanes=self.lanes,
-                lane_ids=[0 if r is None else r for r in self._lane_req])
+                self.scfg, self.seed, self.model.device, lanes=B,
+                lane_ids=[0 if r is None else r
+                          for r in self._lane_req[self._lo:self._lo + B]])
         else:
             gens = self._gens if self.scfg.temperature > 0 else None
         self._cache, self._lanes, self._gen_buf, status = self._burst(
             self.model, self._cache, self._lanes, self._gen_buf, gens)
         self.stats["bursts"] += 1
         self.stats["steps"] += self._burst_steps
+        gen_buf = self._gen_buf
+        if self.mesh is not None and self.mesh.n_data > 1:
+            status = all_gather_data(status, self.mesh, 0)
+            gen_buf = all_gather_data(gen_buf, self.mesh, 0)
         snap = self._snaps[self._n_snap % 2]
         self._n_snap += 1
-        return snap.take(status, self._gen_buf, self._lane_req)
+        return snap.take(status, gen_buf, self._lane_req)
 
     def _retire(self, status: np.ndarray, gen_src: np.ndarray,
                 lane_map: Sequence[Optional[int]]) -> None:
@@ -547,7 +582,8 @@ class ContinuousBatcher:
             self._stream_sent.pop(rid, None)
             if self._lane_req[b] == rid:
                 self._lane_req[b] = None
-                self._lanes.active[b] = False
+                if self._local(b) is not None:
+                    self._lanes.active[self._local(b)] = False
 
     def _emit_stream(self, status: np.ndarray, gen_src: np.ndarray,
                      lane_map: Sequence[Optional[int]]) -> None:

@@ -90,7 +90,9 @@ def load_model(path_or_preset: str, random_init: bool = False, seed: int = 0,
     None).  A checkpoint's config carries its norm family and FFN
     activation; a preset takes them (or any other field) from
     ``overrides``, e.g. {"norm": "basicnorm", "ffn_activation":
-    "doubleswish"}."""
+    "doubleswish"}.  Over a mesh every rank loads the whole model (a
+    preset from the same seed) and keeps its shard
+    (parallel.mesh.shard_params); checkpoints hold the whole state."""
     device = torch.device(device)
     if path_or_preset in PRESETS:
         if not random_init:

@@ -54,8 +54,9 @@ from ..models import transformer as trm
 from ..models.voicecraft import (SamplingConfig, VoiceCraft, _adjust_and_sample,
                                  apply_heads, check_mtp_heads,
                                  column_embedding, embed_audio_tokens,
-                                 prefill_lanes)
+                                 lookup, prefill_lanes)
 from ..ops import patterns
+from ..parallel.mesh import data_slice, gather_objects
 from .spec_common import (lane_generators, lane_seeds, make_lane_sampler,
                           spec_verify_pass, token_generators)
 from .tts import check_codes
@@ -72,11 +73,34 @@ class ServingResult:
     done: List[bool]                 # lanes that finished (else at budget)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (lanes spread over several GPUs) is not ported yet: the "
-            "port serves a wave on one device")
+def _wave_on_mesh(loop, model: VoiceCraft, args: tuple, mesh
+                  ) -> ServingResult:
+    """Run ``loop`` (a serving loop's decode, built for this rank's lanes)
+    over this data rank's lanes of the wave ``args`` (the per-lane inputs,
+    the seeds last); every rank gets the whole wave's ServingResult.
+
+    Lanes are sharded over the mesh's 'data' axis (the wave's B % n_data ==
+    0, as the JAX package asserts); each keeps its wave index b as the key
+    of its noise, so a lane draws what it draws in a one-device wave.  A
+    data row decodes its lanes on its own (only the model axis's
+    collectives run in a step) and stops when its lanes are done; the rows
+    recorded are then gathered, with the counts: steps is the longest
+    row's."""
+    if mesh is None or mesh.n_data == 1:
+        return loop(model, *args)
+    sl = data_slice(len(args[-1]), mesh)
+    res = loop(model, *(a[sl] for a in args),
+               lane_ids=range(sl.start, sl.stop))
+    parts = gather_objects((res.gen_buf.cpu().numpy(),
+                            None if res.span_buf is None
+                            else res.span_buf.cpu().numpy(),
+                            res.n_rows, res.steps, res.done), mesh)
+    cat = lambda i: torch.from_numpy(np.concatenate([p[i] for p in parts],
+                                                    axis=1))
+    return ServingResult(cat(0), None if res.span_buf is None else cat(1),
+                         [n for p in parts for n in p[2]],
+                         max(p[3] for p in parts),
+                         [d for p in parts for d in p[4]])
 
 
 def _lane_state(B: int, K: int, dev):
@@ -128,14 +152,16 @@ def make_serving_tts_loop(cfg: ModelConfig, *, batch_size: int, x_pad: int,
 
     @torch.inference_mode()
     def decode(model: VoiceCraft, x_tokens, x_lens, y_prefix, prefix_lens,
-               seeds: Sequence[int]) -> ServingResult:
+               seeds: Sequence[int],
+               lane_ids: Optional[Sequence[int]] = None) -> ServingResult:
         dev, dtype = model.device, model.dtype
         ltype = torch.long
         x_lens, prefix_lens, xl, pl = _lane_inputs(model, x_lens, prefix_lens)
         no_mask = torch.full((1, y_pad), -1, dtype=ltype, device=dev)
         _, logits, cache = prefill_lanes(model, x_tokens, x_lens, y_prefix,
                                          prefix_lens, no_mask, s_max, kv_dtype)
-        gens = (lane_generators(seeds, dev, B) if scfg.temperature > 0
+        gens = (lane_generators(seeds, dev, B, lane_ids)
+                if scfg.temperature > 0
                 else None)
         eog, _, consec, prev = _lane_state(B, K, dev)
         gen_buf = torch.zeros((gen_max, B, K), dtype=ltype, device=dev)
@@ -205,7 +231,8 @@ def make_spec_serving_loop(cfg: ModelConfig, *, batch_size: int, n_draft: int,
 
     @torch.inference_mode()
     def decode(model: VoiceCraft, x_tokens, x_lens, y_prefix, prefix_lens,
-               seeds: Sequence[int]) -> ServingResult:
+               seeds: Sequence[int],
+               lane_ids: Optional[Sequence[int]] = None) -> ServingResult:
         check_mtp_heads(model, tau)
         dev = model.device
         ltype = torch.long
@@ -214,7 +241,7 @@ def make_spec_serving_loop(cfg: ModelConfig, *, batch_size: int, n_draft: int,
         h, logits, cache = prefill_lanes(model, x_tokens, x_lens, y_prefix,
                                          prefix_lens, no_mask, s_max, kv_dtype)
         h = h.float()
-        gens = token_generators(scfg, seeds, dev, lanes=B)
+        gens = token_generators(scfg, seeds, dev, lanes=B, lane_ids=lane_ids)
         eog, cng, consec, prev = _lane_state(B, K, dev)
         t = torch.zeros((B,), dtype=ltype, device=dev)
         gen_buf = torch.zeros((gen_max + tau, B, K), dtype=ltype, device=dev)
@@ -291,14 +318,16 @@ def make_serving_edit_loop(cfg: ModelConfig, *, batch_size: int, x_pad: int,
     @torch.inference_mode()
     def decode(model: VoiceCraft, x_tokens, x_lens, y_prefix, prefix_lens,
                mask_emb_idx, queue_mask_ids, n_spans,
-               seeds: Sequence[int]) -> ServingResult:
+               seeds: Sequence[int],
+               lane_ids: Optional[Sequence[int]] = None) -> ServingResult:
         dev, dtype = model.device, model.dtype
         ltype = torch.long
         x_lens, prefix_lens, xl, pl = _lane_inputs(model, x_lens, prefix_lens)
         _, logits, cache = prefill_lanes(model, x_tokens, x_lens, y_prefix,
                                          prefix_lens, mask_emb_idx, s_max,
                                          kv_dtype)
-        gens = (lane_generators(seeds, dev, B) if scfg.temperature > 0
+        gens = (lane_generators(seeds, dev, B, lane_ids)
+                if scfg.temperature > 0
                 else None)
         n_spans = torch.as_tensor(n_spans, device=dev).long()
         queue_mask_ids = torch.as_tensor(queue_mask_ids, device=dev).long()
@@ -344,8 +373,9 @@ def make_serving_edit_loop(cfg: ModelConfig, *, batch_size: int, x_pad: int,
             start_next = span_complete & more
             next_id = queue_mask_ids[lanes, (span_idx + 1).clamp(
                 max=max_spans - 1)]
-            new_queue = torch.stack([model.mask_emb[next_id].to(dtype),
-                                     empty_emb.expand(B, D)], dim=1)
+            new_queue = torch.stack(
+                [lookup(model.mask_emb, next_id).to(dtype),
+                 empty_emb.expand(B, D)], dim=1)
             consume = feeding & active
             queue = torch.where(
                 start_next[:, None, None], new_queue,
@@ -422,7 +452,8 @@ def make_spec_serving_edit_loop(cfg: ModelConfig, *, batch_size: int,
     @torch.inference_mode()
     def decode(model: VoiceCraft, x_tokens, x_lens, y_prefix, prefix_lens,
                mask_emb_idx, queue_mask_ids, n_spans,
-               seeds: Sequence[int]) -> ServingResult:
+               seeds: Sequence[int],
+               lane_ids: Optional[Sequence[int]] = None) -> ServingResult:
         check_mtp_heads(model, tau)
         dev, dtype = model.device, model.dtype
         ltype = torch.long
@@ -431,7 +462,7 @@ def make_spec_serving_edit_loop(cfg: ModelConfig, *, batch_size: int,
                                          prefix_lens, mask_emb_idx, s_max,
                                          kv_dtype)
         h = h.float()
-        gens = token_generators(scfg, seeds, dev, lanes=B)
+        gens = token_generators(scfg, seeds, dev, lanes=B, lane_ids=lane_ids)
         n_spans = torch.as_tensor(n_spans, device=dev).long()
         queue_mask_ids = torch.as_tensor(queue_mask_ids, device=dev).long()
         empty_emb = column_embedding(
@@ -488,8 +519,9 @@ def make_spec_serving_edit_loop(cfg: ModelConfig, *, batch_size: int,
             start_next = span_complete & more
             next_id = queue_mask_ids[lanes, (span_idx + 1).clamp(
                 max=max_spans - 1)]
-            new_queue = torch.stack([model.mask_emb[next_id].to(dtype),
-                                     empty_emb.expand(B, D)], dim=1)
+            new_queue = torch.stack(
+                [lookup(model.mask_emb, next_id).to(dtype),
+                 empty_emb.expand(B, D)], dim=1)
             # a feed pass consumes both queued embeddings
             queue = torch.where(start_next[:, None, None], new_queue, queue)
             queue_len = torch.where(start_next, 2,
@@ -582,8 +614,12 @@ def serve_tts_batch(model: VoiceCraft,
     up to 32 and 64, and gen_max the longest length cap up to 128.
     ``kv_dtype="float8_e4m3fn"`` stores the slab in fp8.  ``spec`` = tau
     > 1 decodes speculatively (make_spec_serving_loop; the model needs tau
-    - 1 MTP head groups).  ``mesh`` is refused: the port serves a wave on
-    one device.  ``stats`` receives frames (rows recorded over all lanes),
+    - 1 MTP head groups).  ``mesh`` (parallel.mesh.Mesh; every rank of it
+    makes the same call, with a model sharded by ``shard_params`` or a
+    replicated one) shards the lanes over its 'data' axis (B % n_data ==
+    0) and, with a sharded model, each lane's heads and FFN columns over
+    'model'; every rank returns the whole wave's results.  ``stats``
+    receives frames (rows recorded over all lanes),
     seconds (the wave's wall time through the host readback), spec,
     tok_per_pass (speculative: mean rows per lane per pass), steps
     (forwards or passes) and done (per lane: finished, else stopped by the
@@ -592,25 +628,25 @@ def serve_tts_batch(model: VoiceCraft,
     Returns [(full_codes [K, T + Tg], generated [K, Tg])] per request, as
     inference_tts returns them.
     """
-    _no_mesh(mesh)
     cfg = model.cfg
     K, B = cfg.n_codebooks, len(requests)
     shift = cfg.n_special if cfg.special_first else 0
     (x_pad, y_pad, gen_max), args = tts_wave_inputs(model, requests, pads)
     args += (_seeds(seed, seeds, B),)
+    Bl = len(range(B)[data_slice(B, mesh)])
 
     t0 = time.perf_counter()
     if spec > 1:
         check_mtp_heads(model, spec, scfg)
-        loop = make_spec_serving_loop(cfg, batch_size=B, n_draft=spec,
+        loop = make_spec_serving_loop(cfg, batch_size=Bl, n_draft=spec,
                                       x_pad=x_pad, y_pad=y_pad,
                                       gen_max=gen_max, scfg=scfg,
                                       kv_dtype=kv_dtype)
     else:
-        loop = make_serving_tts_loop(cfg, batch_size=B, x_pad=x_pad,
+        loop = make_serving_tts_loop(cfg, batch_size=Bl, x_pad=x_pad,
                                      y_pad=y_pad, gen_max=gen_max, scfg=scfg,
                                      kv_dtype=kv_dtype)
-    res = loop(model, *args)
+    res = _wave_on_mesh(loop, model, args, mesh)
     gen_buf = res.gen_buf.cpu().numpy()
     if stats is not None:
         stats.update(frames=int(sum(res.n_rows)),
@@ -704,13 +740,13 @@ def serve_edit_batch(model: VoiceCraft,
 
     Returns [spliced_codes [K, T']] per request.
     """
-    _no_mesh(mesh)
     cfg = model.cfg
     K, B = cfg.n_codebooks, len(requests)
     shift = cfg.n_special if cfg.special_first else 0
     max_spans = cfg.max_n_spans
     (x_pad, y_pad, gen_max), args = edit_wave_inputs(model, requests, pads)
     args += (_seeds(seed, seeds, B),)
+    Bl = len(range(B)[data_slice(B, mesh)])
     intervals_l = [sorted((int(s), int(e)) for s, e in iv)
                    for _, _, iv in requests]
 
@@ -718,14 +754,14 @@ def serve_edit_batch(model: VoiceCraft,
     if spec > 1:
         check_mtp_heads(model, spec, scfg)
         loop = make_spec_serving_edit_loop(
-            cfg, batch_size=B, n_draft=spec, x_pad=x_pad, y_pad=y_pad,
+            cfg, batch_size=Bl, n_draft=spec, x_pad=x_pad, y_pad=y_pad,
             gen_max=gen_max, scfg=scfg, max_spans=max_spans,
             kv_dtype=kv_dtype)
     else:
-        loop = make_serving_edit_loop(cfg, batch_size=B, x_pad=x_pad,
+        loop = make_serving_edit_loop(cfg, batch_size=Bl, x_pad=x_pad,
                                       y_pad=y_pad, gen_max=gen_max, scfg=scfg,
                                       max_spans=max_spans, kv_dtype=kv_dtype)
-    res = loop(model, *args)
+    res = _wave_on_mesh(loop, model, args, mesh)
     gen_buf = res.gen_buf.cpu().numpy()
     span_buf = res.span_buf.cpu().numpy()
     out, span_frames = [], []

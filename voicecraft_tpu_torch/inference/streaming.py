@@ -88,7 +88,13 @@ def stream_tts(model: VoiceCraft, x_tokens: np.ndarray, y_codes: np.ndarray,
     or on cancellation those the producer handed over), ``t_decode`` (the
     producer's wall seconds so far) and ``cancelled``, so that a server can
     account a cancelled stream too.
-    ``mesh`` is refused (one device).
+    ``mesh`` and ``lanes`` pass through to the engine
+    (inference/engine.py:ContinuousBatcher): every rank of the mesh runs
+    the same stream, whose one request rides lane 0 of ``lanes`` (a
+    multiple of the mesh's data axis; the JAX server passes lanes =
+    n_data).  Over a mesh a closed generator does not cancel the engine,
+    whose bursts are collectives of every rank: the producer runs to its
+    end.
     """
     cfg = model.cfg
     K = cfg.n_codebooks
@@ -112,6 +118,8 @@ def stream_tts(model: VoiceCraft, x_tokens: np.ndarray, y_codes: np.ndarray,
 
     def on_rows(rows):
         if cancel.is_set():
+            if mesh is not None:
+                return      # every rank's engine runs to its end
             # the consumer abandoned the generator: stop at this burst
             raise _StreamCancelled()
         frames = frames_from_rows(rows, cfg)

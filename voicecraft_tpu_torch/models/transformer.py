@@ -46,6 +46,7 @@ from ..ops.attention import (decode_attention_multi,
                              decode_attention_self, decode_attention_self_block,
                              dropout)
 from ..ops import fused_decode
+from ..parallel.mesh import copy_to_model, reduce_model
 from . import scaling
 
 
@@ -102,7 +103,11 @@ def _init_norm(module: nn.Module, site: str) -> None:
 class DecoderLayer(nn.Module):
     """One layer's parameters.  ``norm`` is the pre-attention norm; the
     pre-FFN norm is the same family, except that the identity's is
-    balancedbasicnorm (reference transformer.py:245-252)."""
+    balancedbasicnorm (reference transformer.py:245-252).  ``mesh``: the
+    parallel.mesh.Mesh whose 'model' axis shards the layer (set by
+    ``shard_params``), else None."""
+
+    mesh = None
 
     def __init__(self, d_model: int, ffn_dim: int, dtype: torch.dtype, device,
                  norm: str = "layernorm", activation: str = "relu"):
@@ -149,7 +154,11 @@ class DecoderLayer(nn.Module):
 class Decoder(nn.Module):
     """The layer stack plus the final norm: ``norm``'s family, except
     layernorm after an identity stack (the reference always passes
-    LayerNorm there, voicecraft.py:175).  ``activation`` is the FFN's."""
+    LayerNorm there, voicecraft.py:175).  ``activation`` is the FFN's.
+    ``nhead`` is this rank's number of heads: nhead / n_model once
+    ``shard_params`` has sharded the stack over a mesh's 'model' axis."""
+
+    mesh = None
 
     def __init__(self, num_layers: int, d_model: int, nhead: int,
                  ffn_dim: int, dtype: torch.dtype, device,
@@ -238,9 +247,25 @@ def _proj(x: torch.Tensor, w, b: torch.Tensor) -> torch.Tensor:
     return y * w.scale.reshape(1, -1).to(x.dtype) + b.to(x.dtype)
 
 
+def row_proj(layer: DecoderLayer, x: torch.Tensor, w, b: torch.Tensor
+             ) -> torch.Tensor:
+    """A row-parallel x @ w + b (the attention's out projection, the FFN's
+    second): under a mesh's 'model' axis, each rank's partial product over
+    its rows, summed over 'model' in x's dtype (each rank's product rounded
+    once from cuBLAS's f32 accumulator, then the sum of the n_model
+    roundings: about one ulp a layer from one card's single rounding), then
+    the bias, once.  Without a model split, :func:`_proj`."""
+    mesh = getattr(layer, "mesh", None)
+    if mesh is None or mesh.n_model == 1:
+        return _proj(x, w, b)
+    return reduce_model(x @ w.to(x.dtype), mesh) + b.to(x.dtype)
+
+
 def qkv_proj(layer: DecoderLayer, h: torch.Tensor):
-    """q, k, v; one product split along its last axis for the packed
-    ``wqkv`` of ``quantize_decoder_fp8(pack_qkv=True)``."""
+    """q, k, v (this rank's heads under a mesh's 'model' axis); one
+    product split along its last axis for the packed ``wqkv`` of
+    ``quantize_decoder_fp8(pack_qkv=True)``."""
+    h = copy_to_model(h, getattr(layer, "mesh", None))
     if hasattr(layer, "wqkv"):
         return _proj(h, layer.wqkv, layer.bqkv).chunk(3, dim=-1)
     return (_proj(h, layer.wq, layer.bq), _proj(h, layer.wk, layer.bk),
@@ -248,13 +273,15 @@ def qkv_proj(layer: DecoderLayer, h: torch.Tensor):
 
 
 def ffn_hidden(layer: DecoderLayer, h: torch.Tensor) -> torch.Tensor:
-    """The FFN's hidden activation, act(lin1(h))."""
+    """The FFN's hidden activation, act(lin1(h)) (this rank's columns under
+    a mesh's 'model' axis)."""
+    h = copy_to_model(h, getattr(layer, "mesh", None))
     return FFN_ACTS[layer.activation](_proj(h, layer.w1, layer.b1))
 
 
 def ffn_block(layer: DecoderLayer, h: torch.Tensor) -> torch.Tensor:
-    """lin1 -> the layer's activation -> lin2."""
-    return _proj(ffn_hidden(layer, h), layer.w2, layer.b2)
+    """lin1 -> the layer's activation -> lin2 (row-parallel)."""
+    return row_proj(layer, ffn_hidden(layer, h), layer.w2, layer.b2)
 
 
 # ---- training forward --------------------------------------------------------------
@@ -306,15 +333,27 @@ def _ffn_in(layer: DecoderLayer, x: torch.Tensor, a: torch.Tensor,
     """The residual after the attention's out projection, and the FFN's
     hidden activation act(lin1(norm2(x))) ("ffn1"); the norm in its train
     form when ``seed`` is given."""
-    x = x + dropout(_proj(a, layer.wo, layer.bo), rate, fold_seed(seed, 1))
+    x = x + dropout(row_proj(layer, a, layer.wo, layer.bo), rate,
+                    fold_seed(seed, 1))
     h = apply_norm(layer, "ln2", x, train=seed is not None)
     return x, ffn_hidden(layer, h)
 
 
 def _ffn_out(layer: DecoderLayer, x: torch.Tensor, f: torch.Tensor,
              rate: float, seed: Optional[int]) -> torch.Tensor:
-    f = _proj(dropout(f, rate, fold_seed(seed, 2)), layer.w2, layer.b2)
+    f = row_proj(layer, dropout(f, rate, _local_seed(layer, seed, 2)),
+                 layer.w2, layer.b2)
     return x + dropout(f, rate, fold_seed(seed, 3))
+
+
+def _local_seed(layer: DecoderLayer, seed: Optional[int], site: int
+                ) -> Optional[int]:
+    """The seed of a dropout site over this rank's heads or FFN columns:
+    under a 'model' split each rank draws its own columns' mask."""
+    mesh = getattr(layer, "mesh", None)
+    if mesh is None or mesh.n_model == 1:
+        return fold_seed(seed, site)
+    return fold_seed(seed, site, mesh.model_rank)
 
 
 def _ffn_half(layer, x, a, rate, seed):
@@ -349,7 +388,7 @@ def apply_layer(layer: DecoderLayer, x: torch.Tensor, attn: Callable,
         return _checkpoint(apply_layer, layer, x, attn, rate, seed, "none")
     region = {"none": _call, "dots": _checkpoint_dots}.get(remat, _checkpoint)
     q, k, v = region(_attn_inputs, layer, x, seed is not None)
-    a = attn(q, k, v, fold_seed(seed, 0))
+    a = attn(q, k, v, _local_seed(layer, seed, 0))
     if remat == "attn_ffn1":
         x, f = _checkpoint(_ffn_in, layer, x, a, rate, seed)
         return _checkpoint(_ffn_out, layer, x, f, rate, seed)
@@ -376,7 +415,8 @@ def apply_stack(decoder: Decoder, x: torch.Tensor, attn: Callable,
 def init_kv_cache(num_layers: int, batch: int, s_max: int, nhead: int,
                   head_dim: int, dtype: torch.dtype, device) -> torch.Tensor:
     """Slab cache [L, 2, B, S_max, H, Dh] (k at index 0, v at index 1) in
-    ``dtype`` (the compute dtype, or torch.float8_e4m3fn)."""
+    ``dtype`` (the compute dtype, or torch.float8_e4m3fn).  Under a mesh,
+    B is this rank's lanes (B / n_data) and H its heads (H / n_model)."""
     return torch.zeros((num_layers, 2, batch, s_max, nhead, head_dim),
                        dtype=dtype, device=device)
 
@@ -416,14 +456,14 @@ def prefill(decoder: Decoder, x: torch.Tensor,
     x: [B, S, D]; ``attn(q, k, v)`` is the prefill attention (see
     ops.flash_attention.prefill_attention).  Returns (final-normed hidden
     [B, S, D], cache)."""
-    B, S, D = x.shape
+    B, S, _ = x.shape
     H = decoder.nhead
     for li, layer in enumerate(decoder.layers):
         q, k, v = qkv_proj(layer, apply_norm(layer, "ln1", x))
-        x = x + _proj(attn(q, k, v), layer.wo, layer.bo)
+        x = x + row_proj(layer, attn(q, k, v), layer.wo, layer.bo)
         x = x + ffn_block(layer, apply_norm(layer, "ln2", x))
-        cache[li, 0, :, :S] = k.view(B, S, H, D // H)
-        cache[li, 1, :, :S] = v.view(B, S, H, D // H)
+        cache[li, 0, :, :S] = k.view(B, S, H, -1)
+        cache[li, 1, :, :S] = v.view(B, S, H, -1)
     return apply_norm(decoder, "final_ln", x), cache
 
 
@@ -446,7 +486,7 @@ def _layer_stack(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
         v_new = v.reshape(B, T, H, Dh)
         k_slab, v_slab = _layer_slab(cache, li, q.dtype)
         a = attend(q, k_slab, v_slab, k_new, v_new)
-        x = x + _proj(a, layer.wo, layer.bo)
+        x = x + row_proj(layer, a, layer.wo, layer.bo)
         h2 = apply_norm(layer, "ln2", x)
         x = x + (ffn_block(layer, h2) if ffn is None else ffn(layer, h2))
         kv.append(torch.stack([k_new, v_new]))                  # [2,B,T,H,Dh]
@@ -467,6 +507,12 @@ def decode_step_fast(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
     x_t: [B, 1, D]; pos / x_len: 0-d integer tensors on the slab's device.
     Returns (final-normed hidden [B, 1, D], cache).
     """
+    mesh = getattr(decoder, "mesh", None)
+    if fused_ffn and mesh is not None and mesh.n_model > 1:
+        raise ValueError(
+            "fused_ffn under a 'model' split: the kernel adds lin2's bias in "
+            "its body, once per model rank (the JAX package's fused FFN "
+            "serves only the unsharded single-stream loop)")
     if fused_ffn and decoder.activation != "relu":
         raise ValueError(
             "fused_ffn supports the relu FFN only (the kernel hard-codes "

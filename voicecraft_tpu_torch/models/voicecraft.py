@@ -40,6 +40,8 @@ from ..config import ModelConfig
 from ..ops.attention import dropout, mha, segment_padding_bias
 from ..ops.flash_attention import chunked_attention, prefill_attention
 from ..ops.sampling import sample
+from ..parallel.mesh import (copy_to_model, gather_table_cols, reduce_data,
+                             reduce_model)
 from ..utils.quantize import dequant_dot
 from . import transformer as trm
 from .embedding import sine_table
@@ -58,7 +60,11 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 class Heads(nn.Module):
     """K prediction heads Linear(D, half) -> GELU -> Linear(half, card),
-    stacked along a leading K axis."""
+    stacked along a leading K axis.  ``mesh``: the parallel.mesh.Mesh whose
+    'model' axis shards the half columns (the main heads; the MTP heads
+    stay replicated, as in the JAX package), else None."""
+
+    mesh = None
 
     def __init__(self, K: int, d_model: int, half: int, card: int,
                  dtype: torch.dtype, device):
@@ -80,7 +86,10 @@ class Heads(nn.Module):
 class VoiceCraft(nn.Module):
     """``trainable``: weight matrices in ``cfg.param_dtype`` and every
     parameter requiring grad (the trainer's model); else matrices in the
-    compute dtype, frozen (inference)."""
+    compute dtype, frozen (inference).  ``mesh``: the parallel.mesh.Mesh
+    the model is sharded over (``shard_params``), else None."""
+
+    mesh = None
 
     def __init__(self, cfg: ModelConfig, device, trainable: bool = False):
         super().__init__()
@@ -174,21 +183,33 @@ def check_mtp_heads(model: "VoiceCraft", n_draft: int,
 
 def embed_audio_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Sum of per-codebook embeddings: table [K, card, D], tokens [B, K, T]
-    -> [B, T, D] in the table's dtype."""
+    -> [B, T, D] in the table's dtype (a D-sharded table's sum all-gathered
+    along D)."""
     out = table[0][tokens[:, 0]]
     for k in range(1, table.shape[0]):
         out = out + table[k][tokens[:, k]]
-    return out
+    return gather_table_cols(out, table)
+
+
+def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx], all-gathered along D when the table is D-sharded."""
+    return gather_table_cols(table[idx], table)
 
 
 def apply_heads(heads: Heads, h: torch.Tensor) -> torch.Tensor:
     """h [N, D] -> logits [N, K, card] in f32 (exact-erf GELU).  Both
     products come out in f32 (a weight-only fp8 head's scale applied in f32
     after its product); the hidden layer is rounded to h's dtype once,
-    after its bias and the GELU, as in the JAX package."""
-    h1 = dequant_dot(h.unsqueeze(0), heads.w1)                       # [K,N,half]
+    after its bias and the GELU, as in the JAX package.  Under a mesh's
+    'model' axis the first layer is column-parallel and the second
+    row-parallel: the f32 partial logits are summed over 'model', then b2
+    is added once."""
+    h1 = dequant_dot(copy_to_model(h, getattr(heads, "mesh", None))
+                     .unsqueeze(0),
+                     heads.w1)                                       # [K,N,half]
     h1 = F.gelu(h1 + heads.b1[:, None].float(), approximate="none")
-    logits = dequant_dot(h1.to(h.dtype), heads.w2)                   # [K,N,card]
+    logits = reduce_model(dequant_dot(h1.to(h.dtype), heads.w2),
+                          getattr(heads, "mesh", None))              # [K,N,card]
     return (logits + heads.b2[:, None].float()).transpose(0, 1)
 
 
@@ -202,10 +223,10 @@ def embed_prefix(model: VoiceCraft, x_tokens: torch.Tensor,
     dtype = model.dtype
     pe = model.pe.to(dtype)
     x_pad, y_pad = x_tokens.shape[1], y_prefix.shape[2]
-    x_in = (model.text_emb[x_tokens].to(dtype)
+    x_in = (lookup(model.text_emb, x_tokens).to(dtype)
             + model.alpha_text.to(dtype) * pe[:x_pad])
     y_emb = embed_audio_tokens(model.audio_emb, y_prefix).to(dtype)
-    mask_vecs = model.mask_emb[mask_emb_idx.clamp(min=0)].to(dtype)
+    mask_vecs = lookup(model.mask_emb, mask_emb_idx.clamp(min=0)).to(dtype)
     y_emb = torch.where((mask_emb_idx >= 0)[..., None], mask_vecs, y_emb)
     y_in = y_emb + model.alpha_audio.to(dtype) * pe[:y_pad]
     return torch.cat([x_in, y_in], dim=1)
@@ -264,13 +285,13 @@ def _head_logits(heads: Heads, h: torch.Tensor) -> torch.Tensor:
 def _mtp_group_stats(heads: Heads, h: torch.Tensor, tgt: torch.Tensor,
                      valid: torch.Tensor):
     """One MTP head group: (mean CE per codebook [K], target count per
-    codebook [K], micro top-1 accuracy)."""
+    codebook [K], top-1 hits, targets)."""
     logits = _head_logits(heads, h)
     tl = torch.log_softmax(logits, dim=-1).gather(-1, tgt[..., None])[..., 0]
     ntok = valid.sum(dim=(0, 2))
     loss_k = (-tl * valid).sum(dim=(0, 2)) / ntok.clamp(min=1)
     top1 = (logits.argmax(-1) == tgt) & valid
-    return loss_k, ntok, top1.sum() / valid.sum().clamp(min=1)
+    return loss_k, ntok, top1.sum(), valid.sum()
 
 
 def _shift(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -287,21 +308,32 @@ def forward_train(model: VoiceCraft, batch: TrainBatch,
     Returns loss (sum over codebooks of mean CE x weight x target count),
     top10acc (micro, a count), top10acc_by_codebook [K], effective_ntoken
     and, with MTP heads, mtp_loss (included in loss) and mtp_top1acc
-    [n_mtp]."""
+    [n_mtp].
+
+    On a sharded model (``model.mesh``) ``batch`` is this data rank's rows:
+    the loss, the counts and the MTP statistics are those of the global
+    batch, summed over 'data' (the loss's backward gives each rank the
+    gradient of its own rows), and the dropout masks of a data rank's rows
+    are drawn from the seed folded with its data rank."""
     cfg = model.cfg
     dtype = model.dtype
+    mesh = model.mesh
     B, Sx = batch.x.shape
     Sy = batch.y_tokens.shape[-1]
     pe = model.pe.to(dtype)
+    if mesh is not None and mesh.n_data > 1:
+        seed = trm.fold_seed(seed, mesh.n_data, mesh.data_rank)
     site = lambda i: trm.fold_seed(seed, i)
+    nhead = model.decoder.nhead
 
     # the text and audio embeddings (reference voicecraft.py:311-320, 497-500)
-    x_emb = dropout(model.text_emb[batch.x].to(dtype),
+    x_emb = dropout(lookup(model.text_emb, batch.x).to(dtype),
                     cfg.text_embedding_dropout, site(0))
     x_in = dropout(x_emb + model.alpha_text.to(dtype) * pe[:Sx],
                    cfg.text_positional_embedding_dropout, site(1))
     y_emb = embed_audio_tokens(model.audio_emb, batch.y_tokens).to(dtype)
-    mask_vecs = model.mask_emb[batch.mask_emb_idx.clamp(min=0)].to(dtype)
+    mask_vecs = lookup(model.mask_emb,
+                       batch.mask_emb_idx.clamp(min=0)).to(dtype)
     y_emb = torch.where((batch.mask_emb_idx >= 0)[..., None], mask_vecs, y_emb)
     y_in = dropout(y_emb + model.alpha_audio.to(dtype) * pe[:Sy],
                    cfg.audio_positional_embedding_dropout, site(2))
@@ -311,12 +343,12 @@ def forward_train(model: VoiceCraft, batch: TrainBatch,
     if cfg.train_attn == "chunked":
         def attn(q, k, v, s):
             return chunked_attention(q, k, v, batch.x_lens, batch.y_lens, Sx,
-                                     cfg.nhead)
+                                     nhead)
     else:
         bias = segment_padding_bias(Sx + Sy, Sx, batch.x_lens, batch.y_lens)
 
         def attn(q, k, v, s):
-            return mha(q, k, v, bias, cfg.nhead, cfg.trm_dropout, s)
+            return mha(q, k, v, bias, nhead, cfg.trm_dropout, s)
         if policy not in ("none", "full"):
             attn = functools.partial(checkpoint, attn, use_reentrant=False)
     h = trm.apply_stack(model.decoder, torch.cat([x_in, y_in], dim=1), attn,
@@ -340,9 +372,11 @@ def forward_train(model: VoiceCraft, batch: TrainBatch,
     tgt_logit = logits.gather(-1, targets[..., None])
     rank = (logits > tgt_logit).sum(dim=-1)
     acc_k = ((rank < 10) & valid).sum(dim=(0, 2)) / ntok_k.clamp(min=1)
-    out = {"loss": loss, "top10acc_by_codebook": acc_k * ntok_k,
-           "top10acc": (acc_k * ntok_k).sum(),
-           "effective_ntoken": ntok_k.sum()}
+    out = {"loss": reduce_data(loss, mesh),
+           "top10acc_by_codebook": reduce_data((acc_k * ntok_k).detach(),
+                                               mesh),
+           "effective_ntoken": reduce_data(ntok_k.sum(), mesh)}
+    out["top10acc"] = out["top10acc_by_codebook"].sum()
 
     # the MTP auxiliary loss: group j predicts offset j + 2; cell (k, p)
     # trains where the endpoint slot p + 2 + j holds a real token of the
@@ -354,17 +388,20 @@ def forward_train(model: VoiceCraft, batch: TrainBatch,
         not_mask = (batch.mask_emb_idx < 0)[:, None, :].expand_as(valid)
         win = torch.ones_like(valid)
         mtp_loss = torch.zeros((), dtype=torch.float32, device=h.device)
-        accs = []
+        hits, counts = [], []
         for j, heads_j in enumerate(mtp):
             win = win & _shift(not_mask, 1 + j)
             valid_j = _shift(valid, 1 + j) & win
-            loss_jk, ntok_j, acc_j = checkpoint(
+            loss_jk, ntok_j, hit_j, count_j = checkpoint(
                 _mtp_group_stats, heads_j, h_mtp, _shift(tokens, 2 + j),
                 valid_j, use_reentrant=False)
             mtp_loss = mtp_loss + (loss_jk * ntok_j.float() * w).sum()
-            accs.append(acc_j)
-        out["mtp_loss"] = cfg.mtp_weight * mtp_loss
-        out["mtp_top1acc"] = torch.stack(accs)
+            hits.append(hit_j)
+            counts.append(count_j)
+        out["mtp_loss"] = reduce_data(cfg.mtp_weight * mtp_loss, mesh)
+        hits = reduce_data(torch.stack(hits), mesh)
+        out["mtp_top1acc"] = hits / reduce_data(torch.stack(counts),
+                                                mesh).clamp(min=1)
         out["loss"] = out["loss"] + out["mtp_loss"]
     return out
 
@@ -546,9 +583,10 @@ def prefill_lanes(model: VoiceCraft, x_tokens, x_lens, y_prefix, prefix_lens,
     x_pad, y_pad = x_tokens.shape[1], y_prefix.shape[2]
     B = x_lens.shape[0]
     xy = embed_prefix(model, x_tokens, y_prefix, mask_emb_idx).expand(B, -1, -1)
-    attn = prefill_attention(x_lens, prefix_lens, x_pad, cfg.nhead,
+    attn = prefill_attention(x_lens, prefix_lens, x_pad, model.decoder.nhead,
                              x_pad + y_pad)
-    cache = trm.init_kv_cache(cfg.num_decoder_layers, B, s_max, cfg.nhead,
+    cache = trm.init_kv_cache(cfg.num_decoder_layers, B, s_max,
+                              model.decoder.nhead,
                               cfg.head_dim, kv_cache_dtype(model, kv_dtype),
                               model.device)
     h, cache = trm.prefill(model.decoder, xy, attn, cache)
@@ -678,7 +716,7 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
                 next_id = queue_mask_ids.index_select(
                     0, (span_idx + 1).clamp(max=cfg.max_n_spans - 1).view(1))
                 new_queue = torch.cat(
-                    [model.mask_emb.index_select(0, next_id).to(dtype),
+                    [lookup(model.mask_emb, next_id).to(dtype),
                      empty_emb[None]])
                 queue = torch.where(start_next, new_queue,
                                     torch.where(feeding, queue[1].expand(2, -1),
@@ -925,7 +963,7 @@ def make_spec_edit_loop(cfg: ModelConfig, *, x_pad: int, y_pad: int,
             next_id = queue_mask_ids.index_select(
                 0, (span_idx + 1).clamp(max=max_spans - 1))
             new_queue = torch.cat(
-                [model.mask_emb.index_select(0, next_id).to(dtype),
+                [lookup(model.mask_emb, next_id).to(dtype),
                  empty_emb[None]])
             queue = torch.where(start_next, new_queue, queue)
             done = span_complete & ~more

@@ -12,6 +12,17 @@ called (a skipped step leaves parameters and state untouched).
 The schedules are functions of the update count: Eden's epoch input is
 derived from it (the reference trainer drives step_epoch(step //
 pseudo_epoch_size + 1), steps/trainer.py:70-71).
+
+Over a mesh (``shard``, parallel/mesh.py) each optimizer runs on the
+tensor-parallel shards of its leaves: ScaledAdam's per-leaf sums (the
+parameter rms, the scale gradients, the clipping norm) are summed over
+'model' for a model-sharded leaf.  Under ZeRO-1 (``zero1_opt_shardings``)
+each data rank keeps only its piece of every moment: ``step`` reduce-
+scatters the gradients onto it over 'data' (the sums above are then also
+summed over 'data'), updates it and all-gathers the update.  Without
+ZeRO-1 the train step sums the gradients over 'data' before ``step``.
+``state_dict`` / ``load_state_dict`` gather and re-shard, so a checkpoint
+does not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 import torch
 
 from ..models.transformer import FFN_KEYS
+from ..parallel import mesh as pm
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -115,7 +127,8 @@ class ScaledAdam:
 
     ``step()`` applies one update from the parameters' gradients (a missing
     grad counts as zero); ``state_dict`` / ``load_state_dict`` carry the
-    update count and every tensor of the state."""
+    update count and every tensor of the state.  ``shard`` runs it over a
+    mesh (see the module's docstring)."""
 
     def __init__(self, params: Iterable, lr: Schedule,
                  betas=(0.9, 0.95), clipping_scale: Optional[float] = 2.0,
@@ -140,25 +153,74 @@ class ScaledAdam:
         self.model_norms = torch.zeros(clipping_update_period,
                                        dtype=torch.float32, device=dev)
         self.model_norm_threshold = torch.tensor(math.inf, device=dev)
-        self.leaves = [self._leaf_init(g) for g in self.groups]
+        self.mesh, self.layouts, self.zero1 = None, None, False
+        self._init_leaves()
+
+    def shard(self, mesh, layouts: List["pm.LeafLayout"]) -> None:
+        """Run over ``mesh``: ``layouts`` (one per leaf) are
+        parallel.mesh.leaf_layouts' (tensor parallelism only) or
+        zero1_opt_shardings' (ZeRO-1).  Re-initialises the state, so call
+        it on a fresh optimizer (and load a checkpoint after it)."""
+        if self.count:
+            raise ValueError("shard the optimizer before its first step")
+        self.mesh, self.layouts = mesh, list(layouts)
+        self.zero1 = any(l.data_axis is not None for l in self.layouts)
+        self._init_leaves()
 
     @staticmethod
     def _scalar(group) -> bool:
         return len(group) == 1 and group[0].numel() == 1
 
-    @staticmethod
-    def _rms(ps) -> torch.Tensor:
-        return (sum(p.square().sum() for p in ps)
-                / sum(p.numel() for p in ps)).sqrt()
+    def _pieces(self, i: int, tensors) -> list:
+        """This rank's pieces of leaf i's tensors: all of them, but under
+        ZeRO-1 its data piece."""
+        if not self.zero1:
+            return list(tensors)
+        return pm.owned_pieces(self.layouts[i], tensors, self.mesh)
 
-    def _leaf_init(self, group) -> dict:
-        ps = [p.detach().float() for p in group]
-        rms = (torch.zeros((), device=ps[0].device) if self._scalar(group)
-               else self._rms(ps))
-        return {"delta": [torch.zeros_like(p) for p in ps],
-                "exp_avg_sq": [torch.zeros_like(p) for p in ps],
-                "param_rms": rms, "scale_exp_avg_sq": torch.zeros_like(rms),
-                "scale_grads": rms.new_zeros(self.size_update_period)}
+    def _leaf_sums(self, sums: list, idx: list, over_data: bool) -> list:
+        """Partial sums of leaves ``idx`` completed over the mesh: over
+        'model' for a model-sharded leaf and, ``over_data`` (sums over
+        ZeRO-1 pieces), over 'data' for a data-sharded one."""
+        mesh = self.mesh
+        if mesh is None or not sums:
+            return sums
+        v = torch.stack(sums)
+        for axis, split, reduce in (
+                ("model", mesh.n_model > 1, pm.all_reduce_model_),
+                ("data", over_data and self.zero1, pm.all_reduce_data_)):
+            if split:
+                on = torch.tensor([axis in self.layouts[i].spec for i in idx],
+                                  device=v.device)
+                v = torch.where(on, reduce(torch.where(on, v, 0.0), mesh), v)
+        return list(v.unbind(0))
+
+    def _rms(self, params: list, idx: list) -> list:
+        """The parameter rms of leaves ``idx`` (params: every leaf's whole
+        local f32 tensors)."""
+        sums = self._leaf_sums([sum(p.square().sum() for p in params[i])
+                                for i in idx], idx, over_data=False)
+        out = []
+        for i, s in zip(idx, sums):
+            n = sum(p.numel() for p in params[i])
+            if self.mesh is not None and self.layouts[i].model_axis is not None:
+                n *= self.mesh.n_model
+            out.append((s / n).sqrt())
+        return out
+
+    def _init_leaves(self) -> None:
+        params = [[p.detach().float() for p in g] for g in self.groups]
+        idx = [i for i, g in enumerate(self.groups) if not self._scalar(g)]
+        rms = dict(zip(idx, self._rms(params, idx)))
+        self.leaves = []
+        for i, ps in enumerate(params):
+            r = rms.get(i, torch.zeros((), device=ps[0].device))
+            mine = self._pieces(i, ps)
+            self.leaves.append({
+                "delta": [torch.zeros_like(p) for p in mine],
+                "exp_avg_sq": [torch.zeros_like(p) for p in mine],
+                "param_rms": r, "scale_exp_avg_sq": torch.zeros_like(r),
+                "scale_grads": r.new_zeros(self.size_update_period)})
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -172,17 +234,23 @@ class ScaledAdam:
         grads = [[p.grad.float() if p.grad is not None
                   else torch.zeros_like(p, dtype=torch.float32) for p in g]
                  for g in self.groups]
-        params = [[p.detach().float() for p in g] for g in self.groups]
+        full = [[p.detach().float() for p in g] for g in self.groups]
+        if self.zero1:  # each rank keeps its data piece of the summed grads
+            grads = [pm.scatter_grads(l, gs, self.mesh)
+                     for l, gs in zip(self.layouts, grads)]
+        params = [self._pieces(i, ps) for i, ps in enumerate(full)]
+        every = list(range(len(self.groups)))
 
         # adaptive clipping (reference optim.py:316-412): the clip factor
         # scales only the scale-gradient record
         clip = 1.0
         if self.clipping_scale is not None:
             C = self.clipping_update_period
-            tot_sumsq = sum(
+            tot_sumsq = sum(self._leaf_sums([
                 sum((g * (1.0 if self._scalar(grp) else st["param_rms"]))
                     .square().sum() for g in gs)
-                for grp, gs, st in zip(self.groups, grads, self.leaves))
+                for grp, gs, st in zip(self.groups, grads, self.leaves)],
+                every, over_data=True))
             tot_norm = tot_sumsq.sqrt()
             slot = step % C
             self.model_norms[slot] = tot_norm
@@ -201,7 +269,16 @@ class ScaledAdam:
         bc2_main = 1.0 - beta2 ** (step + 1)
         lr_s = -lr * self.scalar_lr_scale
 
-        for grp, gs, ps, st in zip(self.groups, grads, params, self.leaves):
+        # the scale gradient of this step (optim.py:506-510) and, every P
+        # steps, the parameter rms (optim.py:511-517), of each tensor leaf
+        idx = [i for i, g in enumerate(self.groups) if not self._scalar(g)]
+        scale_grads = dict(zip(idx, self._leaf_sums(
+            [sum((pf * (g * clip)).sum() for pf, g in zip(params[i], grads[i]))
+             for i in idx], idx, over_data=True)))
+        new_rms = dict(zip(idx, self._rms(full, idx))) if is_rms_step else {}
+
+        for i, (grp, gs, ps, st) in enumerate(zip(self.groups, grads, params,
+                                                   self.leaves)):
             if self._scalar(grp):  # the scalar path (reference optim.py:639-661)
                 (p,), (g,), (pf,) = grp, gs, ps
                 eas = st["exp_avg_sq"][0] * beta2 + (1 - beta2) * g * g
@@ -212,11 +289,9 @@ class ScaledAdam:
                 p.add_((new_p - pf).to(p.dtype))
                 continue
 
-            # the scale gradient of this step (optim.py:506-510)
-            st["scale_grads"][slot4] = sum((pf * (g * clip)).sum()
-                                           for pf, g in zip(ps, gs))
-            if is_rms_step:  # optim.py:511-517
-                st["param_rms"] = self._rms(ps)
+            st["scale_grads"][slot4] = scale_grads[i]
+            if is_rms_step:
+                st["param_rms"] = new_rms[i]
             rms = st["param_rms"]
             scale_step = None
             if do_size:  # the size update (optim.py:531-596)
@@ -233,21 +308,43 @@ class ScaledAdam:
 
             # the main step (optim.py:598-637)
             alpha = -lr * (1 - beta1) * rms.clamp(min=self.param_min_rms)
-            for i, (p, g, pf) in enumerate(zip(grp, gs, ps)):
-                delta = st["delta"][i] * beta1
+            deltas = []
+            for j, (g, pf) in enumerate(zip(gs, ps)):
+                delta = st["delta"][j] * beta1
                 if scale_step is not None:
                     delta = delta + pf * scale_step * (1 - beta1)
-                eas = st["exp_avg_sq"][i] * beta2 + (1 - beta2) * g * g
+                eas = st["exp_avg_sq"][j] * beta2 + (1 - beta2) * g * g
                 denom = (eas / bc2_main if bc2_main < 0.99 else eas).sqrt() + eps
                 delta = delta + (g / denom) * alpha
-                st["delta"][i], st["exp_avg_sq"][i] = delta, eas
+                st["delta"][j], st["exp_avg_sq"][j] = delta, eas
+                deltas.append(delta)
+            if self.zero1:  # every rank adds the whole update
+                deltas = pm.gather_pieces(self.layouts[i], deltas, self.mesh)
+            for p, delta in zip(grp, deltas):
                 p.add_(delta.to(p.dtype))
         self.count += 1
 
+    def _leaf_state(self, i: int, key: str, to_mesh: bool) -> list:
+        """Leaf i's ``key`` moments re-laid: from this rank's pieces to the
+        global tensors, or (``to_mesh``) back."""
+        layout, v = self.layouts[i], self.leaves[i][key]
+        if to_mesh:
+            return self._pieces(i, pm.slice_model_pieces(layout, v, self.mesh))
+        if self.zero1:
+            v = pm.gather_pieces(layout, v, self.mesh)
+        return pm.gather_model_pieces(layout, v, self.mesh)
+
     def state_dict(self) -> dict:
+        """The update count and the state; over a mesh, the moments
+        gathered to their global shapes (every rank must call it)."""
+        leaves = self.leaves
+        if self.mesh is not None:
+            leaves = [dict(leaf, **{k: self._leaf_state(i, k, False)
+                                    for k in ("delta", "exp_avg_sq")})
+                      for i, leaf in enumerate(self.leaves)]
         return {"count": self.count, "model_norms": self.model_norms,
                 "model_norm_threshold": self.model_norm_threshold,
-                "leaves": self.leaves}
+                "leaves": leaves}
 
     def load_state_dict(self, sd: dict) -> None:
         dev = self.model_norms.device
@@ -260,32 +357,128 @@ class ScaledAdam:
                              f"leaves, the model {len(self.groups)}")
         self.leaves = [{k: to(v) for k, v in leaf.items()}
                        for leaf in sd["leaves"]]
+        if self.mesh is not None:
+            for i, leaf in enumerate(self.leaves):
+                for k in ("delta", "exp_avg_sq"):
+                    leaf[k] = [t.clone() for t in
+                               self._leaf_state(i, k, True)]
 
 
 class AdamW:
     """The reference's AdamW (steps/trainer.py:436): torch.optim.AdamW with
     betas (0.9, 0.999), eps 1e-8, decoupled weight decay, and the lr of
-    ``lr(update count)`` at each step (optax.adamw's schedule)."""
+    ``lr(update count)`` at each step (optax.adamw's schedule).
+
+    ``groups``: the parameters as the JAX package's optimizer leaves
+    (:func:`stacked_leaves`), which ZeRO-1 shards (default: one leaf per
+    tensor).  Under ZeRO-1 (``shard``) torch's AdamW runs over copies of
+    this rank's pieces of the parameters, which the update all-gathers
+    into them."""
 
     def __init__(self, params: Iterable[torch.Tensor], lr: Schedule,
-                 weight_decay: float = 1e-2):
+                 weight_decay: float = 1e-2, groups: Optional[Iterable] = None):
         self.lr_fn = _schedule(lr)
         self.count = 0
-        self.opt = torch.optim.AdamW(list(params), lr=0.0, betas=(0.9, 0.999),
-                                     eps=1e-8, weight_decay=weight_decay)
+        self.params = list(params)
+        self.groups = ([tuple(g) for g in groups] if groups is not None
+                       else [(p,) for p in self.params])
+        self.hyper = dict(lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                          weight_decay=weight_decay)
+        self.opt = torch.optim.AdamW(self.params, **self.hyper)
+        self.mesh, self.layouts, self.zero1 = None, None, False
+        self.pieces = [list(g) for g in self.groups]
+
+    def shard(self, mesh, layouts: List["pm.LeafLayout"]) -> None:
+        """Run over ``mesh`` with ``layouts``, one per group (see
+        ScaledAdam.shard); a fresh optimizer only."""
+        if self.count:
+            raise ValueError("shard the optimizer before its first step")
+        self.mesh, self.layouts = mesh, list(layouts)
+        self.zero1 = any(l.data_axis is not None for l in self.layouts)
+        if self.zero1:
+            self.pieces = [[t.detach().clone() for t in
+                            pm.owned_pieces(l, g, mesh)]
+                           for l, g in zip(self.layouts, self.groups)]
+            self.opt = torch.optim.AdamW(
+                [t for ps in self.pieces for t in ps], **self.hyper)
 
     def zero_grad(self) -> None:
-        self.opt.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
 
+    @torch.no_grad()
     def step(self) -> None:
         for group in self.opt.param_groups:
             group["lr"] = float(self.lr_fn(self.count))
+        if not self.zero1:
+            self.opt.step()
+            self.count += 1
+            return
+        for l, g, ps in zip(self.layouts, self.groups, self.pieces):
+            grads = [p.grad.float() if p.grad is not None
+                     else torch.zeros_like(p, dtype=torch.float32) for p in g]
+            for t, gr in zip(ps, pm.scatter_grads(l, grads, self.mesh)):
+                t.grad = gr.to(t.dtype)
         self.opt.step()
+        for l, g, ps in zip(self.layouts, self.groups, self.pieces):
+            for p, new in zip(g, pm.gather_pieces(l, ps, self.mesh)):
+                p.copy_(new)
         self.count += 1
 
+    def _moments(self) -> list:
+        """[(param index, {exp_avg, exp_avg_sq, step})] of every parameter
+        over the mesh, global shapes (collective)."""
+        index = {id(p): i for i, p in enumerate(self.params)}
+        out = []
+        for l, g, ps in zip(self.layouts, self.groups, self.pieces):
+            states = [self.opt.state.get(t, {}) for t in ps]
+            if not all(states):
+                continue
+            st = {}
+            for k in ("exp_avg", "exp_avg_sq"):
+                v = [s[k] for s in states]
+                if self.zero1:
+                    v = pm.gather_pieces(l, v, self.mesh)
+                st[k] = pm.gather_model_pieces(l, v, self.mesh)
+            for j, p in enumerate(g):
+                out.append((index[id(p)], {"step": states[0]["step"],
+                                           "exp_avg": st["exp_avg"][j],
+                                           "exp_avg_sq": st["exp_avg_sq"][j]}))
+        return out
+
     def state_dict(self) -> dict:
-        return {"count": self.count, "adamw": self.opt.state_dict()}
+        """The update count and torch's AdamW state over the parameters in
+        order; over a mesh, gathered to global shapes (every rank must call
+        it)."""
+        sd = self.opt.state_dict()
+        if self.mesh is not None:
+            sd = {"state": dict(sorted(self._moments())),
+                  "param_groups": [dict(sd["param_groups"][0],
+                                        params=list(range(len(self.params))))]}
+        return {"count": self.count, "adamw": sd}
 
     def load_state_dict(self, sd: dict) -> None:
         self.count = int(sd["count"])
-        self.opt.load_state_dict(sd["adamw"])
+        if self.mesh is None:
+            self.opt.load_state_dict(sd["adamw"])
+            return
+        state, pg = sd["adamw"]["state"], sd["adamw"]["param_groups"][0]
+        for group in self.opt.param_groups:
+            group.update({k: v for k, v in pg.items() if k != "params"})
+        index = {id(p): i for i, p in enumerate(self.params)}
+        for l, g, ps in zip(self.layouts, self.groups, self.pieces):
+            if index[id(g[0])] not in state:
+                continue
+            moments = {}
+            for k in ("exp_avg", "exp_avg_sq"):
+                v = pm.slice_model_pieces(
+                    l, [state[index[id(p)]][k].to(p.device) for p in g],
+                    self.mesh)
+                if self.zero1:
+                    v = pm.owned_pieces(l, v, self.mesh)
+                moments[k] = v
+            for j, t in enumerate(ps):
+                self.opt.state[t] = {
+                    "step": state[index[id(g[0])]]["step"].clone(),
+                    "exp_avg": moments["exp_avg"][j].clone(),
+                    "exp_avg_sq": moments["exp_avg_sq"][j].clone()}

@@ -1,8 +1,13 @@
 """Training runtime: the loop, metrics, checkpoints and resume, validation
 and early stop (PyTorch port of voicecraft_tpu/training/trainer.py).
 
-  * one card: ``mesh=`` and multi-process runs are refused (the JAX
-    package's dp x tp mesh and ZeRO-1 are not ported);
+  * one card, or a (data, model) mesh of processes (parallel/mesh.py), one
+    per card: each data row reads its own batches (the batcher's host split
+    over 'data'), its model ranks hold the tensor-parallel shards, the
+    gradients are summed over 'data' and, with ``tcfg.zero1``, the
+    optimizer's moments are sharded over 'data'.  Rank 0 alone writes the
+    vocabulary, the checkpoints and the meta, of the gathered state (a
+    checkpoint does not depend on the mesh);
   * checkpoints are ``torch.save`` files: ``<exp>/ckpt_<tag>/model.pt``
     holds the model's state (f32 master weights) and ``train_state.pt`` the
     optimizer's, the step-seed generator's and the progress, beside
@@ -36,6 +41,8 @@ from ..config import ModelConfig, TrainConfig
 from ..data.manifest import DynamicBatcher, ManifestDataset, collate_train
 from ..inference.loader import CKPT_MODEL, load_state
 from ..models.voicecraft import TrainBatch, VoiceCraft, forward_train
+from ..parallel.mesh import (Mesh, gather_params, leaf_layouts, shard_batch,
+                             shard_params, shard_state, zero1_opt_shardings)
 from ..utils.profiling import AverageMeter, StepProfiler
 from .optim import (AdamW, ScaledAdam, eden_schedule, linear_warmup_decay,
                     stacked_leaves)
@@ -72,17 +79,22 @@ class Trainer:
         checkpoint directory of this trainer) instead of random weights;
         MTP heads it lacks are freshly initialised.  ``train_mtp_only``
         trains only ``mtp_heads``, leaving the base model bit-identical
-        (grafting speculative-decoding heads onto a frozen model)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): the port trains on one card; the JAX "
-                "package's dp x tp mesh and ZeRO-1 are not yet ported")
-        if (torch.distributed.is_available()
+        (grafting speculative-decoding heads onto a frozen model).
+        ``mesh``: a parallel.mesh.Mesh over every process of the run (each
+        calls the same methods); the model runs on the mesh's device."""
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
+        if (mesh is None and torch.distributed.is_available()
                 and torch.distributed.is_initialized()
                 and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError("multi-process training is not yet "
-                                      "ported: run one process on one card")
-        self.device = torch.device(device)
+            raise ValueError("a multi-process run trains over a mesh: pass "
+                             "mesh=parallel.mesh.make_mesh(n_data, n_model)")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
+        self.primary = mesh is None or mesh.rank == 0
+        self.data_rank = 0 if mesh is None else mesh.data_rank
+        n_hosts = 1 if mesh is None else mesh.n_data
         if self.device.type == "cpu" and mcfg.compute_dtype == "bfloat16":
             mcfg = dataclasses.replace(mcfg, compute_dtype="float32")
             log.info("cpu: compute dtype bfloat16 -> float32")
@@ -97,16 +109,19 @@ class Trainer:
             self.valid_ds = None
         # the phoneme vocabulary beside the checkpoints, for inference
         src_vocab = os.path.join(tcfg.dataset_dir, "vocab.txt")
-        if os.path.exists(src_vocab):
+        if self.primary and os.path.exists(src_vocab):
             shutil.copy(src_vocab, os.path.join(tcfg.exp_dir, "vocab.txt"))
+        # the model ranks of one data row read the same batches
         self.batcher = DynamicBatcher(
             self.train_ds.lengths, tcfg.max_num_tokens,
-            num_buckets=tcfg.num_buckets, seed=tcfg.seed)
+            num_buckets=tcfg.num_buckets, seed=tcfg.seed,
+            num_hosts=n_hosts, host=self.data_rank)
         if self.valid_ds is not None:
             self.valid_batcher = DynamicBatcher(
                 self.valid_ds.lengths,
                 tcfg.val_max_num_tokens or tcfg.max_num_tokens,
-                num_buckets=tcfg.num_buckets, seed=tcfg.seed)
+                num_buckets=tcfg.num_buckets, seed=tcfg.seed,
+                num_hosts=n_hosts, host=self.data_rank)
 
         self.model = VoiceCraft(mcfg, self.device, trainable=True).init_weights(
             torch.Generator(device=self.device).manual_seed(tcfg.seed))
@@ -125,6 +140,8 @@ class Trainer:
                 raise ValueError("train_mtp_only needs n_mtp > 0")
             for name, p in self.model.named_parameters():
                 p.requires_grad_(name.startswith("mtp_heads."))
+        if mesh is not None:
+            shard_params(self.model, mesh)
 
         self.total_step = tcfg.num_steps or 50000
         if tcfg.optimizer_name == "ScaledAdam":
@@ -140,7 +157,20 @@ class Trainer:
                 tcfg.lr, self.total_step, self.total_step * tcfg.warmup_fraction)
             self.optimizer = AdamW(
                 [p for p in self.model.parameters() if p.requires_grad],
-                self.lr_fn, tcfg.weight_decay)
+                self.lr_fn, tcfg.weight_decay,
+                groups=stacked_leaves(self.model))
+        if mesh is not None:
+            layouts = (zero1_opt_shardings(self.model, self.optimizer, mesh)
+                       if tcfg.zero1 else None)
+            if layouts is not None:
+                log.info("ZeRO-1: optimizer moments sharded over data=%d",
+                         mesh.n_data)
+            elif tcfg.zero1 and mesh.n_data > 1:
+                log.warning("ZeRO-1 requested but the optimizer state layout "
+                            "is unsupported (%s): moments stay replicated per "
+                            "data shard", type(self.optimizer).__name__)
+            self.optimizer.shard(mesh, layouts or leaf_layouts(
+                self.model, self.optimizer.groups))
         # the reference backprops loss / effective_ntoken for every optimizer
         # but ScaledAdam (steps/trainer.py:139-141)
         self.step_fn = make_train_step(
@@ -178,7 +208,19 @@ class Trainer:
         old one deleted; a save cut anywhere leaves a whole directory that
         _maybe_resume finds.  ``same_as``: the tag of a checkpoint saved
         since the last step, whose files are linked (or copied) instead of
-        written again."""
+        written again.  Over a mesh every rank calls it: the parameters and
+        the optimizer's state are gathered, rank 0 writes them, and the
+        ranks meet at a barrier after."""
+        model_state = opt_state = None
+        if same_as is None:
+            model_state = gather_params(self.model)
+            opt_state = self.optimizer.state_dict()
+        if self.primary:
+            self._write(tag, same_as, model_state, opt_state)
+        if self.mesh is not None:
+            torch.distributed.barrier()
+
+    def _write(self, tag, same_as, model_state, opt_state) -> None:
         path = self._ckpt_dir(tag)
         tmp, old = path + ".tmp", path + ".old"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -192,9 +234,9 @@ class Trainer:
                 except OSError:
                     shutil.copy2(src, part)
             elif name == CKPT_MODEL:
-                torch.save(self.model.state_dict(), part)
+                torch.save(model_state, part)
             else:
-                torch.save({"optimizer": self.optimizer.state_dict(),
+                torch.save({"optimizer": opt_state,
                             "generator": self.seed_gen.get_state(),
                             "progress": self.progress}, part)
             os.rename(part, os.path.join(tmp, name))
@@ -221,9 +263,10 @@ class Trainer:
                 break
         else:
             return
-        self.model.load_state_dict(torch.load(
-            os.path.join(d, CKPT_MODEL), map_location=self.device,
-            weights_only=True))
+        state = torch.load(os.path.join(d, CKPT_MODEL),
+                           map_location=self.device, weights_only=True)
+        self.model.load_state_dict(
+            state if self.mesh is None else shard_state(state, self.mesh))
         state = torch.load(os.path.join(d, CKPT_TRAIN),
                            map_location=self.device, weights_only=True)
         self.optimizer.load_state_dict(state["optimizer"])
@@ -236,7 +279,27 @@ class Trainer:
     # ---- loops -----------------------------------------------------------------
 
     def _host_rng(self, epoch: int, batch_idx: int) -> np.random.Generator:
-        return np.random.default_rng((self.tcfg.seed, epoch, batch_idx, 0))
+        """A batch's host rng, keyed on its data rank too (JAX keys on its
+        process index)."""
+        return np.random.default_rng((self.tcfg.seed, epoch, batch_idx,
+                                      self.data_rank))
+
+    def _empty_batch(self) -> TrainBatch:
+        """A fully-masked batch (no target: it adds nothing to the loss, the
+        counts or the gradients) that a data rank steps on when its batch
+        composed to nothing, so that the ranks meet at every collective.
+        Unlike JAX's global array, SPMD ranks need not share batch shapes:
+        no rank is padded to fixed dims."""
+        m = self.mcfg
+        K, Sx, Sy = m.n_codebooks, 16, 64
+        full = lambda shape, v, dt: torch.full(shape, v, dtype=dt,
+                                               device=self.device)
+        i32 = torch.int32
+        return TrainBatch(
+            x=full((1, Sx), m.text_pad_token, i32), x_lens=full((1,), 1, i32),
+            y_tokens=full((1, K, Sy), m.audio_pad_token, i32),
+            y_lens=full((1,), 1, i32), mask_emb_idx=full((1, Sy), -1, i32),
+            target_valid=full((1, K, Sy), False, torch.bool))
 
     def _prefetch(self, epoch: int, batches, start_b: int, depth: int = 2):
         """Collate in a background thread (numpy composition overlaps the
@@ -300,9 +363,14 @@ class Trainer:
                     flag = False
                     break
                 data_time = time.time() - data_t0
-                if batch is None:
+                if batch is None and (self.mesh is None
+                                      or self.mesh.n_data == 1):
                     self.progress["batch_in_epoch"] = bi + 1
                     continue
+                if batch is None:   # the other data rows step: join them
+                    batch = self._empty_batch()
+                elif self.mesh is not None:
+                    batch = shard_batch(batch, self.mesh)
                 gas = t.gradient_accumulation_steps
                 if gas > 1 and batch.x.shape[0] % gas:
                     batch = _pad_batch(batch, -(-batch.x.shape[0] // gas) * gas)
@@ -372,7 +440,8 @@ class Trainer:
     @torch.no_grad()
     def validate(self) -> float:
         """Loss per target token over the first 50 validation batches, with
-        no dropout and no recompute (NaN without a validation split)."""
+        no dropout and no recompute (NaN without a validation split); over
+        a mesh, of the global batches (every rank calls it)."""
         if self.valid_ds is None:
             return float("nan")
         losses, ntoks, accs = [], [], []
@@ -381,6 +450,9 @@ class Trainer:
             batch = collate_train(self.valid_ds, idxs,
                                   self._host_rng(10 ** 6, bi),
                                   device=self.device)
+            if batch is None and self.mesh is not None \
+                    and self.mesh.n_data > 1:
+                batch = self._empty_batch()
             if batch is None:
                 continue
             out = forward_train(self.model, batch, seed=None, remat=False)
