@@ -6,7 +6,8 @@ heads) equals JAX's ``param_pspecs``; ``_extend_with_data`` and
 ``batch_pspec`` are JAX's; ZeRO-1 of a state it does not support is None.
 Over 4 gloo processes (tests/torch_mesh_helpers.py, spawned once), against
 JAX's steps on conftest's 8-device CPU mesh: shard -> gather bit for bit;
-forward_train's loss (1e-5 relative) and gradients (1e-4) at 2 x 2; 3
+forward_train's loss (1e-5 relative) and gradients (1e-4) at 2 x 2, and
+with dropout on the model ranks in step; 3
 ScaledAdam steps with ZeRO-1 at 4 x 1 and 2 x 2 (1e-5, but for the few
 elements whose gradient sums to within rounding of zero: see FLIP_SHARE),
 the two-phase step and train_mtp_only; ZeRO-1 against replicated moments
@@ -151,7 +152,8 @@ def runs():
     except BaseException:
         handle.kill()
         raise
-    return handle.results()[0], want, state
+    ranks = handle.results()
+    return ranks[0], want, state, ranks
 
 
 def _jax_side(jcfg, tcfg, jcfg_m, tcfg_m, batch):
@@ -201,7 +203,7 @@ def _assert_params_close(got: dict, want: dict, atol: float, rtol: float):
 
 
 def test_shard_then_gather_is_bit_equal(runs):
-    port, _, _ = runs
+    port = runs[0]
     assert port["round_trip"]
 
 
@@ -209,7 +211,7 @@ def test_tp_loss_and_grads_match_jax(runs):
     """forward_train at 2 x 2 (each data rank's rows, heads and FFN columns
     over 'model'): the global loss within 1e-5 and the gradients, summed
     over 'data' and gathered over 'model', within 1e-4 of JAX's."""
-    port, want, _ = runs
+    port, want = runs[:2]
     assert port["effective_ntoken"] == want["effective_ntoken"]
     assert abs(port["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
     assert_grad_dicts_close({k: torch.from_numpy(v)
@@ -219,7 +221,7 @@ def test_tp_loss_and_grads_match_jax(runs):
 
 @pytest.mark.parametrize("name", ["4x1 zero1", "2x2 zero1"])
 def test_zero1_trajectory_matches_jax(runs, name):
-    port, want, _ = runs
+    port, want = runs[:2]
     np.testing.assert_allclose(port[name]["losses"], want[name]["losses"],
                                rtol=1e-5)
     _assert_params_close(port[name]["params"], want[name]["params"],
@@ -229,7 +231,7 @@ def test_zero1_trajectory_matches_jax(runs, name):
 def test_zero1_matches_replicated(runs):
     """The same 3 steps at 2 x 2 with the moments sharded over 'data' and
     replicated: the parameters and the gathered moments within 1e-6."""
-    port, _, _ = runs
+    port = runs[0]
     a, b = port["2x2 zero1"], port["2x2 replicated"]
     np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-6)
     _assert_params_close(a["params"], {k: torch.from_numpy(v) for k, v in
@@ -243,7 +245,7 @@ def test_two_phase_step_matches_jax(runs):
     """The port's two-phase step is its fused one (an eager step computes
     every gradient before the update): the 2 x 2 ZeRO-1 trajectory against
     JAX's two-phase step."""
-    port, want, _ = runs
+    port, want = runs[:2]
     np.testing.assert_allclose(port["2x2 zero1"]["losses"],
                                want["2x2 two-phase"]["losses"], rtol=1e-5)
     _assert_params_close(port["2x2 zero1"]["params"],
@@ -254,17 +256,29 @@ def test_two_phase_step_matches_jax(runs):
 def test_zero1_state_reloads(runs):
     """The ZeRO-1 state gathered (mesh-independent) loads into a fresh
     sharded optimizer and gathers back bit for bit."""
-    port, _, _ = runs
+    port = runs[0]
     assert port["reload"]
 
 
 def test_mtp_only_with_zero1_matches_jax(runs):
     """train_mtp_only at 4 x 1: ZeRO-1 shards the trained heads' moments;
     the base stays bit for bit, the heads follow JAX's masked ScaledAdam."""
-    port, want, _ = runs
+    port, want = runs[:2]
     res = port["mtp_only"]
     assert any(a is not None for a in res["sharded"])
     np.testing.assert_allclose(res["losses"], want["mtp_only"]["losses"],
                                rtol=1e-5)
     _assert_params_close(res["params"], want["mtp_only"]["params"],
                          atol=1e-5, rtol=1e-5)
+
+
+def test_dropout_keeps_model_ranks_in_step(runs):
+    """With dropout on at 2 x 2, ranks 0 and 1 (one data row's model
+    ranks) draw the same residual masks: a finite global loss, and the
+    replicated parameters' gradients bit for bit alike on both."""
+    ranks = runs[3]
+    a, b = ranks[0]["dropout"], ranks[1]["dropout"]
+    assert np.isfinite(a["loss"]) and a["loss"] == b["loss"]
+    assert a["grads"].keys() == b["grads"].keys() and a["grads"]
+    for k, g in a["grads"].items():
+        np.testing.assert_array_equal(g, b["grads"][k], err_msg=k)

@@ -146,7 +146,8 @@ def train_worker(rank, state, mtp_state, batch):
     from voicecraft_tpu_torch.models.voicecraft import TrainBatch, forward_train
     from voicecraft_tpu_torch.parallel.mesh import (all_reduce_data_,
                                                     data_slice, gather_params,
-                                                    make_mesh, shard_params)
+                                                    make_mesh, param_spec,
+                                                    shard_params)
     from voicecraft_tpu_torch.training.optim import ScaledAdam, stacked_leaves
     cfg = tiny()
     meshes = {"2x2": make_mesh(2, 2), "4x1": make_mesh(4, 1)}
@@ -165,6 +166,20 @@ def train_worker(rank, state, mtp_state, batch):
     out["loss"] = float(res["loss"])
     out["effective_ntoken"] = float(res["effective_ntoken"])
     out["grads"] = numpy_state(gather_params(m, grads))
+
+    # dropout on: each rank's replicated activations must stay its model
+    # peers' (the residual masks drawn from the same seed), so the
+    # gradients of the replicated parameters agree bit for bit
+    drop = tiny(text_embedding_dropout=0.1, trm_dropout=0.1,
+                audio_positional_embedding_dropout=0.1)
+    m = shard_params(model_from(state, drop), meshes["2x2"])
+    res = forward_train(m, TrainBatch(*(torch.from_numpy(a[sl])
+                                        for a in batch)), seed=123)
+    res["loss"].backward()
+    dropout = {"loss": float(res["loss"].detach()),
+               "grads": {n: p.grad.numpy().copy()
+                         for n, p in m.named_parameters()
+                         if "model" not in param_spec(n)}}
 
     for name, mesh, zero1 in (("4x1 zero1", "4x1", True),
                               ("2x2 zero1", "2x2", True),
@@ -194,7 +209,7 @@ def train_worker(rank, state, mtp_state, batch):
     losses, params, opt = _train(model, meshes["4x1"], batch, zero1=True)
     out["mtp_only"] = dict(losses=losses, params=params,
                            sharded=[l.data_axis for l in opt.layouts])
-    return out if rank == 0 else None
+    return dict(out, dropout=dropout) if rank == 0 else {"dropout": dropout}
 
 
 # ---- the serving worker ----------------------------------------------------------
