@@ -24,8 +24,9 @@ finds the words):
 
 The edited word span comes from a diff of the transcripts
 (``inference/editing.py:get_span``), its seconds from the word rows (an MFA
-CSV, or ``align.py``'s energy aligner, whose margins are widened to its p90
-boundary error), widened by --left/right-margin, clamped to [one codec
+CSV, or ``align.py``'s: Whisper's word timestamps with --asr-model, else
+the energy aligner, whose margins are widened to its p90 boundary error),
+widened by --left/right-margin, clamped to [one codec
 frame, the audio's end] and rounded to codec frames.  --spec TAU decodes
 speculatively, TAU tokens per verified pass through the model's MTP heads
 (a checkpoint trained with them, or the tiny_test_mtp preset with
@@ -38,10 +39,6 @@ import csv
 import logging
 
 import numpy as np
-
-# flags of edit_cli.py whose machinery the port does not have yet; each is
-# refused, never silently ignored
-NOT_YET_PORTED = ("asr_model",)
 
 
 def read_mfa_csv(path):
@@ -64,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["substitution", "insertion", "deletion"])
     ap.add_argument("--mfa-csv", default=None,
                     help="word-alignment CSV (Begin,End,Label,Type rows); "
-                         "without it the energy aligner finds the words")
+                         "without it Whisper (--asr-model) or the energy "
+                         "aligner finds the words")
     ap.add_argument("--out", required=True)
     ap.add_argument("--left-margin", type=float, default=0.08)
     ap.add_argument("--right-margin", type=float, default=0.08)
@@ -92,8 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "greedy output equals plain decoding's")
     ap.add_argument("--spec-sampling", default="exact",
                     choices=["exact", "stochastic"])
-    # not yet ported (refused when given)
-    ap.add_argument("--asr-model", default=None)
+    ap.add_argument("--asr-model", default=None,
+                    help="local Whisper snapshot dir: word timestamps for "
+                         "the edit span when no --mfa-csv is given")
     return ap
 
 
@@ -119,10 +118,6 @@ def edit_interval(words, orig_transcript, target_transcript, edit_type,
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    for name in NOT_YET_PORTED:
-        if getattr(args, name) != ap.get_default(name):
-            ap.error(f"--{name.replace('_', '-')} is not yet ported to "
-                     "voicecraft_tpu_torch")
     logging.basicConfig(level=logging.INFO)
 
     import torch
@@ -160,8 +155,10 @@ def main(argv=None):
         words = read_mfa_csv(args.mfa_csv)
     else:
         words = align_words(wav, ccfg.sample_rate,
-                            args.orig_transcript.strip().lower())
-        logging.info("energy alignment: %s",
+                            args.orig_transcript.strip().lower(),
+                            asr_model_path=args.asr_model, device=args.device)
+        logging.info("%s alignment: %s",
+                     words[0].get("Source", "whisper") if words else "no",
                      [(r["Label"], r["Begin"], r["End"]) for r in words])
     interval = edit_interval(words, args.orig_transcript,
                              args.target_transcript, args.edit_type,

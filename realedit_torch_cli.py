@@ -10,7 +10,9 @@ CSVs named <wav_fn stem>.csv in --align-dir.  Writes
 
 With --lanes N > 1 the rows are decoded in lockstep waves of N distinct
 edits (inference/serving.py serve_edit_batch); with --lanes 1 one at a time
-(inference_edit).  --spec TAU decodes speculatively either way.
+(inference_edit).  --spec TAU decodes speculatively either way.  --wer
+transcribes each output with a local Whisper snapshot (--asr-model) and
+logs its word error rate against the new transcript, and the mean.
 
   python realedit_torch_cli.py --manifest RealEdit.txt --audio-dir wavs/ \\
       --align-dir alignments/ --model giga830M --random-init \\
@@ -29,10 +31,6 @@ import logging
 import os
 
 import numpy as np
-
-# flags of realedit_cli.py whose machinery the port does not have yet; each
-# is refused, never silently ignored
-NOT_YET_PORTED = ("wer", "asr_model")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,9 +70,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; there is no automatic "
                          "fallback to the CPU")
-    # not yet ported (refused when given)
-    ap.add_argument("--wer", action="store_true")
-    ap.add_argument("--asr-model", default=None)
+    ap.add_argument("--wer", action="store_true",
+                    help="transcribe each output and report its WER against "
+                         "the new transcript (needs --asr-model)")
+    ap.add_argument("--asr-model", default=None,
+                    help="local Whisper snapshot dir for --wer")
     return ap
 
 
@@ -99,10 +99,6 @@ def main(argv=None):
     """Returns {(row index, seed): edited codes [K, T']}."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    for name in NOT_YET_PORTED:
-        if getattr(args, name) != ap.get_default(name):
-            ap.error(f"--{name.replace('_', '-')} is not yet ported to "
-                     "voicecraft_tpu_torch (it needs a Whisper snapshot)")
     if args.lanes < 1:
         ap.error("--lanes must be >= 1")
     logging.basicConfig(level=logging.INFO)
@@ -162,7 +158,7 @@ def main(argv=None):
                          np.asarray(phones_to_ids(phones, phn2num), np.int32),
                          codes, intervals))
 
-    results = {}
+    results, wers = {}, []
     for s in range(args.seed, args.seed + args.num_seeds):
         for lo in range(0, len(prepared), args.lanes):
             chunk = prepared[lo:lo + args.lanes]
@@ -184,7 +180,20 @@ def main(argv=None):
                              "(wave of %d)", i + 1, len(rows),
                              rows[i]["wav_fn"], s, iv, res.shape[1],
                              len(chunk))
+                if args.wer:
+                    from tts_batch_torch_cli import word_error_rate
+                    from voicecraft_tpu_torch.utils.transcribe import \
+                        make_transcriber
+                    hyp = make_transcriber(args.asr_model,
+                                           args.device).transcribe(
+                        out, ccfg.sample_rate)
+                    w = word_error_rate(rows[i]["new_transcript"], hyp)
+                    wers.append(w)
+                    logging.info("  seed %d WER %.3f", s, w)
     logging.info("done: %d/%d rows edited", len(prepared), len(rows))
+    if wers:
+        logging.info("mean WER over %d outputs: %.4f", len(wers),
+                     float(np.mean(wers)))
     return results
 
 

@@ -58,7 +58,11 @@ over MODEL; voicecraft_tpu_torch/parallel/mesh.py):
 Rank 0 runs the HTTP front and the micro-batch worker; it broadcasts each
 decode call (a wave's inputs, padded to a multiple of DATA, or a lone
 request or a stream) to the other ranks, and every rank runs it.
---asr-model (the Whisper paths) is not ported and is refused.
+
+--asr-model (a local Whisper snapshot) gives the word rows of a request
+without "alignment" (the smart transcripts' words_info and /edit's span)
+from Whisper's word timestamps, else the energy aligner's; over a mesh
+rank 0 aligns, before the decode call it broadcasts.
 """
 
 import argparse
@@ -289,15 +293,21 @@ class Engine:
             spec_draft_temperature=float(
                 req.get("spec_draft_temperature", -1.0)))
 
+    def _align(self, wav, transcript):
+        """Word rows of ``wav`` (align.py:align_words: Whisper's with
+        --asr-model, on the model's device, else the energy aligner's)."""
+        from voicecraft_tpu_torch.align import align_words
+        return align_words(wav, self.ccfg.sample_rate, transcript,
+                           asr_model_path=self.args.asr_model,
+                           device=self.device)
+
     def _words_info(self, req, wav, transcript):
         """Whisper-style words_info of the prompt: the request's alignment
-        rows, else the energy aligner's."""
-        from voicecraft_tpu_torch.align import align_words
+        rows, else the aligner's."""
         from voicecraft_tpu_torch.app import words_info_from_rows
         if req.get("alignment"):
             return words_info_from_rows(req["alignment"])
-        return words_info_from_rows(align_words(wav, self.ccfg.sample_rate,
-                                                transcript))
+        return words_info_from_rows(self._align(wav, transcript))
 
     def _decode_sentences(self, slots):
         """Queue sentence slots through the micro-batcher, wait for all."""
@@ -583,8 +593,7 @@ class Engine:
     # ---- editing ------------------------------------------------------------
 
     def edit(self, req: dict) -> dict:
-        from voicecraft_tpu_torch.align import (align_words,
-                                                widen_margins_for_aligner)
+        from voicecraft_tpu_torch.align import widen_margins_for_aligner
         from voicecraft_tpu_torch.app import (morph_edit_span,
                                               normalize_transcript,
                                               smart_transcript_edit)
@@ -652,15 +661,15 @@ class Engine:
                     wi, start_sec, end_sec, target_text))
         else:
             # the transcript diff (edit_torch_cli.py's path); word rows from
-            # the request or the energy aligner, whose margins widen to its
-            # p90 boundary error
+            # the request or the aligner (the energy aligner's margins widen
+            # to its p90 boundary error)
             if not orig_text:
                 raise ValueError("need orig_transcript (or edit_*_sec times)")
             if req.get("alignment"):
                 rows = [r for r in req["alignment"]
                         if r.get("Type", "words") == "words"]
             else:
-                rows = align_words(wav, ccfg.sample_rate, orig_text.lower())
+                rows = self._align(wav, orig_text.lower())
             orig_span, _ = get_span(orig_text.lower(), target_text.lower(),
                                     req["edit_type"])
             start_sec, end_sec = get_mask_interval(rows, tuple(orig_span),
@@ -909,8 +918,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "per card, under torchrun (python -m torch."
                          "distributed.run --nproc-per-node DATA*MODEL): "
                          "NCCL on cuda:LOCAL_RANK, gloo with --device cpu")
-    # not ported (refused when given)
-    ap.add_argument("--asr-model", default=None)
+    ap.add_argument("--asr-model", default=None,
+                    help="local Whisper snapshot dir for alignment (else "
+                         "the energy aligner is used)")
     return ap
 
 
@@ -948,10 +958,6 @@ def init_mesh(ap: argparse.ArgumentParser, args):
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.asr_model is not None:
-        ap.error("--asr-model is not yet ported to voicecraft_tpu_torch (it "
-                 "needs a Whisper snapshot); alignments come from the "
-                 "request or the energy aligner")
     spec = str(args.spec).strip().lower()
     if not (spec.startswith("auto") or spec.isdigit()):
         ap.error(f"--spec takes an integer TAU or auto[:T1,T2..], got "

@@ -61,23 +61,19 @@ def test_cpu_pipeline_preprocess_train_eval_tts(tmp_path):
     assert phn2num and not any(p.requires_grad for p in model.parameters())
 
 
-# what each refusal says: --hf-dataset is not ported; the mesh flags are,
-# and are refused outside a torchrun world that fits them (their runs:
-# tests/test_torch_mesh_train.py)
+# what each refusal says: the mesh flags are refused outside a torchrun
+# world that fits them (their runs: tests/test_torch_mesh_train.py)
 REFUSALS = {"--distributed": "run it under torchrun",
             "--n-model": "need --distributed",
-            "--no-zero1": "need --distributed",
-            "--hf-dataset": "not yet ported"}
+            "--no-zero1": "need --distributed"}
 
 
 @pytest.mark.parametrize("cli,flag", [
     ("train_torch_cli.py", ["--distributed"]),
     ("train_torch_cli.py", ["--n-model", "2"]),
-    ("train_torch_cli.py", ["--no-zero1"]),
-    ("preprocess_torch_cli.py", ["--hf-dataset", "speechcolab/gigaspeech"])])
+    ("train_torch_cli.py", ["--no-zero1"])])
 def test_cli_refuses_unported_flags(tmp_path, cli, flag):
-    base = {"train_torch_cli.py": ["--exp-dir", "e", "--dataset-dir", "d"],
-            "preprocess_torch_cli.py": ["--audio-dir", "a", "--out-dir", "o"]}
+    base = {"train_torch_cli.py": ["--exp-dir", "e", "--dataset-dir", "d"]}
     env = dict(os.environ, PYTHONPATH=str(REPO))
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         env.pop(k, None)

@@ -288,12 +288,6 @@ def test_widen_margins_for_aligner_matches_jax():
     assert align.widen_margins_for_aligner(energy_rows, 0.08, 0.08)[2]
 
 
-def test_align_words_refuses_an_asr_model():
-    wav = load_audio(str(DEMO_WAV), 16000)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        align.align_words(wav, 16000, DEMO_TEXT, asr_model_path="whisper")
-
-
 # ---- edit_torch_cli.py --------------------------------------------------------
 
 @pytest.mark.parametrize("aligner", ["mfa_csv", "energy"])
@@ -322,15 +316,3 @@ def test_edit_cli_writes_finite_wav(tmp_path, aligner):
     assert sr == 16000 and wav.shape[1] > 16000
     assert np.isfinite(wav).all() and np.abs(wav).max() > 0
     assert ("widening edit margins" in res.stderr) == (aligner == "energy")
-
-
-@pytest.mark.parametrize("flag", [["--asr-model", "m"]])
-def test_edit_cli_refuses_flags_not_yet_ported(flag, capsys):
-    import edit_torch_cli
-    with pytest.raises(SystemExit):
-        edit_torch_cli.main(["--model", "tiny_test", "--random-init",
-                             "--device", "cpu", "--wav", "w.wav",
-                             "--orig-transcript", "a b", "--target-transcript",
-                             "a c", "--edit-type", "substitution",
-                             "--out", "o.wav", *flag])
-    assert "not yet ported" in capsys.readouterr().err

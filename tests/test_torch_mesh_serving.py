@@ -7,7 +7,8 @@ package's serving on conftest's make_mesh(2, 2) and the port's
 one-process wave (f32 on both sides: the tie-aware rule in its strict
 form); sampled lanes equal the one-process wave's (a lane keeps its wave
 index as its noise key); the engine's requests and a stream equal their
-single streams; a weight-only fp8 decoder is refused over model = 2, as
+single streams, and a stream closed on rank 0 stops all four ranks at one
+burst; a weight-only fp8 decoder is refused over model = 2, as
 the JAX package cannot place its scales there."""
 
 import dataclasses
@@ -153,3 +154,20 @@ def test_engine_requests_equal_single_streams(setup):
 def test_fp8_decoder_refused_over_model(setup):
     ranks, _, _ = setup
     assert "fp8" in ranks[0]["fp8_refused"]
+
+
+def test_closed_stream_stops_every_rank(setup):
+    """Rank 0's consumer closes the stream after its first chunk: the
+    flag reaches its model peer (rank 1, which shares no data gather with
+    it) and the other data row, and all four ranks stop at the same burst,
+    within one burst (8) of the close, with no last chunk on the ranks
+    that drained."""
+    ranks, _, _ = setup
+    closed = [r["closed"] for r in ranks]
+    for c in closed:
+        assert c["stats"]["cancelled"] and c["first"] == closed[0]["first"]
+        assert c["stats"]["frames"] == closed[0]["stats"]["frames"]
+    assert all(c["frames"] == c["stats"]["frames"] and not c["last"]
+               for c in closed[1:])
+    assert closed[0]["stats"]["frames"] <= closed[0]["first"] + 8
+    assert closed[0]["stats"]["frames"] < ranks[0]["stream"][1].shape[1]

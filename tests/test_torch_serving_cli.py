@@ -135,13 +135,11 @@ def test_tts_batch_cli_wave_options_equal_serve_tts_batch(tmp_path, flags,
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--spec", "fast"], "--spec takes an integer TAU or auto"),
-    (["--wer"], "--wer is not yet ported"),
-    (["--asr-model", "whisper"], "--asr-model is not yet ported")])
+    (["--spec", "fast"], "--spec takes an integer TAU or auto")])
 def test_tts_batch_cli_refuses_flags_not_yet_ported(tmp_path, capsys, flags,
                                                     message):
-    """The Whisper flags, and a --spec that is neither TAU nor auto (--spec
-    auto itself runs: tests/test_torch_autospec.py)."""
+    """A --spec that is neither TAU nor auto (--spec auto itself runs:
+    tests/test_torch_autospec.py)."""
     with pytest.raises(SystemExit):
         _tts_cli(tmp_path, *flags)
     assert message in capsys.readouterr().err
@@ -233,13 +231,3 @@ def test_realedit_cli_equals_serve_edit_batch(tmp_path):
             np.testing.assert_array_equal(got[(i, seed)], w)
             stem = Path(EDIT_ROWS[i][0]).stem
             assert (tmp_path / "out" / f"{stem}_new_seed{seed}.wav").exists()
-
-
-@pytest.mark.parametrize("flags,message", [
-    (["--wer"], "--wer is not yet ported"),
-    (["--asr-model", "whisper"], "--asr-model is not yet ported")])
-def test_realedit_cli_refuses_flags_not_yet_ported(tmp_path, capsys, flags,
-                                                   message):
-    with pytest.raises(SystemExit):
-        _edit_cli(tmp_path, *flags)
-    assert message in capsys.readouterr().err

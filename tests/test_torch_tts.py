@@ -121,17 +121,6 @@ def test_cli_writes_finite_wav(tmp_path):
     assert np.isfinite(wav).all() and np.abs(wav).max() > 0
 
 
-@pytest.mark.parametrize("flag", [["--asr-model", "m"]])
-def test_cli_refuses_flags_not_yet_ported(flag, capsys):
-    import tts_torch_cli
-    with pytest.raises(SystemExit):
-        tts_torch_cli.main(["--model", "tiny_test", "--random-init",
-                            "--device", "cpu", "--prompt-wav", "w.wav",
-                            "--prompt-transcript", "a", "--target-transcript",
-                            "b", "--out", "o.wav", *flag])
-    assert "not yet ported" in capsys.readouterr().err
-
-
 def _cli_args(tmp_path, *extra):
     return ["--model", "tiny_test", "--random-init", "--device", "cpu",
             "--text-backend", "grapheme", "--top-k", "15",

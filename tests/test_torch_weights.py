@@ -117,12 +117,15 @@ def test_fp8_and_bf16_arrays_cross_bit_exact():
 def test_port_imports_without_jax():
     """Every module of the port, its CLIs and chip_smoke.py import with JAX
     and the JAX package unavailable (the machine with the card has no JAX,
-    and the port stands alone)."""
+    and the port stands alone), and without transformers and datasets,
+    which only the Whisper and --hf-dataset paths import, when they run."""
     code = (
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['jaxlib'] = None\n"
         "sys.modules['voicecraft_tpu'] = None\n"
+        "sys.modules['transformers'] = None\n"
+        "sys.modules['datasets'] = None\n"
         "import voicecraft_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
@@ -158,11 +161,13 @@ def test_port_imports_without_jax():
                                     "scaled_dot_product_attention",
                                     "torch.compile"])
 def test_port_source_has_no(banned):
-    """Neither the port nor its scripts (which import inside main()) name
-    JAX, the JAX package, a library attention or the compiler.  chip_smoke.py
-    names the library attention once, as the yardstick it times
-    (library_ms) beside the attention kernel."""
-    files = [*PORT.rglob("*.py"), REPO / "tts_torch_cli.py",
+    """Neither the port nor its scripts (which import inside main()), its
+    recipe twins and its notebook twins name JAX, the JAX package, a
+    library attention or the compiler.  chip_smoke.py names the library
+    attention once, as the yardstick it times (library_ms) beside the
+    attention kernel."""
+    files = [*PORT.rglob("*.py"), *REPO.glob("recipes/*_torch.sh"),
+             *REPO.glob("notebooks/*_torch.ipynb"), REPO / "tts_torch_cli.py",
              REPO / "edit_torch_cli.py", REPO / "tts_batch_torch_cli.py",
              REPO / "realedit_torch_cli.py", REPO / "serve_torch_cli.py",
              REPO / "train_torch_cli.py", REPO / "eval_torch_cli.py",

@@ -115,17 +115,17 @@ def numpy_state(state: dict) -> dict:
 
 # ---- the training worker -------------------------------------------------------------
 
-def _train(model, mesh, batch, zero1: bool, steps: int = 3):
-    """``steps`` ScaledAdam (lr 0.05) steps of the port's train step on this
-    rank's rows of ``batch``; (losses, gathered parameters, the optimizer's
-    mesh-independent state)."""
+def _train(model, mesh, batch, zero1: bool, steps: int = 3, **opt_kw):
+    """``steps`` ScaledAdam (lr 0.05, ``opt_kw``) steps of the port's train
+    step on this rank's rows of ``batch``; (losses, gathered parameters,
+    the optimizer's mesh-independent state)."""
     from voicecraft_tpu_torch.models.voicecraft import TrainBatch
     from voicecraft_tpu_torch.parallel.mesh import (data_slice, gather_params,
                                                     leaf_layouts,
                                                     zero1_opt_shardings)
     from voicecraft_tpu_torch.training.optim import ScaledAdam, stacked_leaves
     from voicecraft_tpu_torch.training.step import make_train_step_two_phase
-    opt = ScaledAdam(stacked_leaves(model), lr=0.05)
+    opt = ScaledAdam(stacked_leaves(model), lr=0.05, **opt_kw)
     layouts = zero1_opt_shardings(model, opt, mesh) if zero1 else None
     if zero1 and layouts is None:
         raise AssertionError("ZeRO-1 unsupported for ScaledAdam")
@@ -135,6 +135,34 @@ def _train(model, mesh, batch, zero1: bool, steps: int = 3):
     local = TrainBatch(*(torch.from_numpy(a[sl]) for a in batch))
     losses = [float(step(local, None)["loss"]) for _ in range(steps)]
     return losses, numpy_state(gather_params(model)), opt
+
+
+def moments_of(sd: dict) -> list:
+    """ScaledAdam's gathered moments (``delta``, ``exp_avg_sq``), one flat
+    array per leaf and moment."""
+    return [np.concatenate([t.flatten().numpy() for t in leaf[k]])
+            for leaf in sd["leaves"] for k in ("delta", "exp_avg_sq")]
+
+
+def closed_stream(rank, model, mesh, x, y, burst, lanes):
+    """stream_tts over ``mesh``, greedy: rank 0's consumer closes the
+    generator after the first chunk (a client that hangs up), the other
+    ranks drain theirs (as serve_torch_cli.py's followers do).  Returns
+    (frames of the first chunk, every chunk's frames on this rank, its
+    stats, whether a last chunk came)."""
+    from voicecraft_tpu_torch.inference.streaming import stream_tts
+    from voicecraft_tpu_torch.models.voicecraft import SamplingConfig
+    stats = {}
+    it = stream_tts(model, x, y, SamplingConfig(**GREEDY), seed=0,
+                    mesh=mesh, lanes=lanes, burst=burst, stats=stats)
+    chunks = [next(it)]
+    if rank == 0:
+        it.close()
+    else:
+        chunks += list(it)
+    return dict(first=chunks[0]["frames"].shape[1],
+                frames=sum(c["frames"].shape[1] for c in chunks),
+                stats=stats, last="gen" in chunks[-1])
 
 
 def train_worker(rank, state, mtp_state, batch):
@@ -188,9 +216,7 @@ def train_worker(rank, state, mtp_state, batch):
         losses, params, opt = _train(model, meshes[mesh], batch, zero1)
         sd = opt.state_dict()
         out[name] = dict(losses=losses, params=params,
-                         moments=[np.concatenate([t.flatten().numpy()
-                                                  for t in leaf["exp_avg_sq"]])
-                                  for leaf in sd["leaves"]])
+                         moments=moments_of(sd))
         if name == "2x2 zero1":   # the gathered state loads and re-gathers
             fresh = ScaledAdam(stacked_leaves(model), lr=0.05)
             fresh.shard(meshes[mesh], opt.layouts)
@@ -224,7 +250,8 @@ def serving_worker(rank, state, tts_reqs, edit_reqs, engine_reqs):
     """The serving scenarios of tests/test_torch_mesh_serving.py on a world
     of 4, at 2 x 2 (tiny_test with 3 MTP head groups, f32): serve_tts_batch
     and serve_edit_batch, greedy plain and speculative (tau TAU) and TTS
-    sampled; the engine over 2 lanes (one a data rank) and a stream.
+    sampled; the engine over 2 lanes (one a data rank), a stream, and a
+    stream that rank 0's consumer closes.
     Every rank returns its results (each holds the whole wave's)."""
     from voicecraft_tpu_torch.inference.engine import ContinuousBatcher
     from voicecraft_tpu_torch.inference.serving import (serve_edit_batch,
@@ -260,12 +287,47 @@ def serving_worker(rank, state, tts_reqs, edit_reqs, engine_reqs):
                              burst=16))
     out["stream"] = (np.concatenate([c["frames"] for c in chunks], axis=1),
                      chunks[-1]["gen"])
+    out["closed"] = closed_stream(rank, model, mesh, x, y, burst=8, lanes=2)
     try:
         quantize_decoder_fp8(model)
         shard_params(quantize_decoder_fp8(model_from(
             state, tiny(n_mtp=3), trainable=False)), mesh)
     except ValueError as e:
         out["fp8_refused"] = str(e)
+    return out
+
+
+# ---- the two mesh faults at 2 x 1 ------------------------------------------------
+
+# ScaledAdam's per-leaf sums steer its size update from the 4th step
+# (size_update_period 4) and the clipping from the 2nd period's first step
+FAULT_STEPS = 6
+
+def faults_worker(rank, state, batch, x, y, burst):
+    """tests/test_torch_mesh_faults.py on a world of 2, a 2 x 1 mesh (f32):
+    FAULT_STEPS ScaledAdam steps with ZeRO-1 and replicated (losses,
+    gathered parameters and moments), the size update and the clipping
+    record in play, and a stream that rank 0's consumer closes after its
+    first chunk, beside the same stream run to its end."""
+    from voicecraft_tpu_torch.inference.streaming import stream_tts
+    from voicecraft_tpu_torch.models.voicecraft import SamplingConfig
+    from voicecraft_tpu_torch.parallel.mesh import make_mesh, shard_params
+    mesh = make_mesh(2, 1)
+    out = {}
+    for name, zero1 in (("zero1", True), ("replicated", False)):
+        model = shard_params(model_from(state, tiny()), mesh)
+        losses, params, opt = _train(model, mesh, batch, zero1,
+                                     steps=FAULT_STEPS,
+                                     clipping_update_period=2)
+        out[name] = dict(losses=losses, params=params,
+                         moments=moments_of(opt.state_dict()),
+                         sharded=sum(l.data_axis is not None
+                                     for l in opt.layouts))
+    model = shard_params(model_from(state, tiny(), trainable=False), mesh)
+    out["full"] = sum(c["frames"].shape[1] for c in stream_tts(
+        model, x, y, SamplingConfig(**GREEDY), seed=0, mesh=mesh, lanes=2,
+        burst=burst))
+    out["closed"] = closed_stream(rank, model, mesh, x, y, burst, lanes=2)
     return out
 
 

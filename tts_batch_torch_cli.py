@@ -16,11 +16,15 @@ Each row's prompt is its audio up to the prompt end; the whole transcript is
 phonemized.  Writes gen_<name>_<i>_seed<seed>.wav and
 concat_<name>_<i>_seed<seed>.wav.  Every lane of a wave is keyed on
 (--seed, its lane); a lone plain request (a last wave of one row, without
---spec or --kv-fp8) decodes as tts_torch_cli.py would, with --seed.
+--spec or --kv-fp8) decodes as tts_torch_cli.py would, with --seed.  --wer
+transcribes each generated wav with a local Whisper snapshot (--asr-model)
+and logs its word error rate against the row's words from the start index,
+and the mean.
 
   python tts_batch_torch_cli.py --model giga830M --random-init \\
       --text-backend grapheme --manifest m.tsv --audio-root /data \\
-      --output-dir out/ --lanes 8 [--kv-fp8] [--fp8] [--spec 4 | auto]
+      --output-dir out/ --lanes 8 [--kv-fp8] [--fp8] [--spec 4 | auto] \
+      [--wer --asr-model D]
 
 Smoke mode (no checkpoints, CPU):
 
@@ -38,10 +42,6 @@ import numpy as np
 
 log = logging.getLogger("voicecraft_tpu_torch.tts_batch")
 
-# flags of tts_batch_cli.py whose machinery the port does not have yet; each
-# is refused, never silently ignored
-NOT_YET_PORTED = ("wer", "asr_model")
-
 
 def parse_manifest(path):
     """The manifest's rows: audio, out_name, text, prompt_end, start_ind."""
@@ -51,6 +51,19 @@ def parse_manifest(path):
              "prompt_end": float(r[3]),
              "start_ind": int(r[5].split(",")[0])}
             for r in rows if len(r) >= 6 and r[0]]
+
+
+def word_error_rate(ref: str, hyp: str) -> float:
+    """Levenshtein WER between two transcripts (dependency-free)."""
+    r, h = ref.lower().split(), hyp.lower().split()
+    d = np.zeros((len(r) + 1, len(h) + 1), np.int32)
+    d[:, 0] = np.arange(len(r) + 1)
+    d[0, :] = np.arange(len(h) + 1)
+    for i in range(1, len(r) + 1):
+        for j in range(1, len(h) + 1):
+            d[i, j] = min(d[i - 1, j] + 1, d[i, j - 1] + 1,
+                          d[i - 1, j - 1] + (r[i - 1] != h[j - 1]))
+    return float(d[-1, -1]) / max(len(r), 1)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,9 +107,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; there is no automatic "
                          "fallback to the CPU")
-    # not yet ported (refused when given)
-    ap.add_argument("--wer", action="store_true")
-    ap.add_argument("--asr-model", default=None)
+    ap.add_argument("--wer", action="store_true",
+                    help="transcribe each output and report its WER "
+                         "(needs --asr-model)")
+    ap.add_argument("--asr-model", default=None,
+                    help="local Whisper snapshot dir for --wer")
     return ap
 
 
@@ -104,10 +119,6 @@ def main(argv=None):
     """Returns [(full_codes, generated_codes)] per manifest row."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    for name in NOT_YET_PORTED:
-        if getattr(args, name) != ap.get_default(name):
-            ap.error(f"--{name.replace('_', '-')} is not yet ported to "
-                     "voicecraft_tpu_torch (it needs a Whisper snapshot)")
     auto = str(args.spec).strip().lower().startswith("auto")
     try:
         spec = 0 if auto else int(args.spec)
@@ -178,9 +189,10 @@ def main(argv=None):
             phn2num = build_vocab([phones])
         reqs.append((np.asarray(phones_to_ids(phones, phn2num), np.int32),
                      codes))
-        metas.append((i, row, prompt_wav))
+        metas.append((i, row, prompt_wav,
+                      " ".join(row["text"].split(" ")[row["start_ind"]:])))
 
-    outs_all = []
+    outs_all, wers = [], []
     t0 = time.time()
     for lo in range(0, len(reqs), args.lanes):
         wave = reqs[lo:lo + args.lanes]
@@ -209,7 +221,7 @@ def main(argv=None):
                  "passes" if mode > 1 else "steps",
                  f", {stats['tok_per_pass']:.2f} tokens/pass per lane"
                  if mode > 1 else "")
-        for (full, gen), (i, row, prompt_wav) in zip(
+        for (full, gen), (i, row, prompt_wav, to_syn) in zip(
                 outs, metas[lo:lo + args.lanes]):
             name = row["out_name"]
             base = name[:-4] if name.endswith(".wav") else name
@@ -221,10 +233,22 @@ def main(argv=None):
             au.write_wav(os.path.join(
                 args.output_dir, f"concat_{base}_{i}_seed{args.seed}.wav"),
                 np.concatenate([prompt_wav[0], gen_wav]), ccfg.sample_rate)
+            if args.wer:
+                from voicecraft_tpu_torch.utils.transcribe import \
+                    make_transcriber
+                hyp = make_transcriber(args.asr_model, args.device).transcribe(
+                    gen_wav, ccfg.sample_rate)
+                w = word_error_rate(to_syn, hyp)
+                wers.append(w)
+                log.info("row %d WER %.3f (%r vs %r)", i, w, to_syn[:60],
+                         hyp[:60])
         outs_all += outs
     if autospec is not None:
         log.info("autospec: %s", autospec.snapshot())
     log.info("%d rows in %.1fs", len(rows), time.time() - t0)
+    if wers:
+        log.info("mean WER over %d rows: %.4f", len(wers),
+                 float(np.mean(wers)))
     return outs_all
 
 

@@ -19,7 +19,9 @@ Smoke mode (no checkpoints, CPU):
 
 --prompt-end-sec with --mfa-csv (or --snap-cutoff, which aligns the prompt
 with the energy aligner) snaps the cut to a word boundary and cuts the
-prompt transcript there; --long synthesizes the target sentence by
+prompt transcript there (with --asr-model, from Whisper's word timestamps);
+without --prompt-transcript, --asr-model (a local Whisper snapshot)
+transcribes the prompt; --long synthesizes the target sentence by
 sentence against the prompt.  --sample-batch-size N decodes N sampling
 paths and keeps the first to finish (best-of-N); --spec TAU decodes
 speculatively with TAU tokens per verified pass through the model's MTP
@@ -32,10 +34,6 @@ import time
 
 import numpy as np
 
-# flags of tts_cli.py whose machinery the port does not have yet; each is
-# refused, never silently ignored
-NOT_YET_PORTED = ("asr_model",)
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
@@ -44,7 +42,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help=".pth bundle, HF snapshot dir, or preset name")
     ap.add_argument("--codec", default=None, help="audiocraft .th checkpoint")
     ap.add_argument("--prompt-wav", required=True)
-    ap.add_argument("--prompt-transcript", default=None)
+    ap.add_argument("--prompt-transcript", default=None,
+                    help="transcript of the prompt; omit to transcribe with "
+                         "--asr-model (reference gradio_app.py whisper path)")
+    ap.add_argument("--asr-model", default=None,
+                    help="local Whisper snapshot dir for auto-transcription "
+                         "and --snap-cutoff's word boundaries")
     ap.add_argument("--target-transcript", required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--prompt-end-sec", type=float, default=-1.0,
@@ -55,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "prompt transcript there")
     ap.add_argument("--snap-cutoff", action="store_true",
                     help="snap --prompt-end-sec to a word boundary found by "
-                         "the energy aligner (no MFA CSV needed)")
+                         "the in-process aligner (Whisper with --asr-model, "
+                         "else the energy aligner; no MFA CSV needed)")
     ap.add_argument("--margin", type=float, default=0.04)
     ap.add_argument("--cutoff-tolerance", type=float, default=1.0)
     ap.add_argument("--long", action="store_true",
@@ -91,16 +95,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="speculative verification: 'exact' (draws keyed "
                          "per token, greedy speed-up) or 'stochastic' "
                          "(speculative sampling, exact in distribution)")
-    # not yet ported (refused when given)
-    ap.add_argument("--asr-model", default=None)
     return ap
 
 
 def snap_prompt_cutoff(args, sample_rate: int):
     """(prompt_end_sec, prompt_transcript) with the cut snapped to a word
     boundary of the --mfa-csv rows (every row, in file order) or of the
-    energy aligner's rows, and the transcript cut after that row's word;
-    unchanged when no boundary lies at or after the cut."""
+    in-process aligner's rows (align.py:align_words: Whisper's with
+    --asr-model, else the energy aligner's), and the transcript cut after
+    that row's word; unchanged when no boundary lies at or after the
+    cut."""
     from voicecraft_tpu_torch.inference.tts import find_closest_word_boundary
     if args.mfa_csv:
         import csv
@@ -112,7 +116,9 @@ def snap_prompt_cutoff(args, sample_rate: int):
         wav = au.load_audio(args.prompt_wav, sample_rate)
         rows = [(r["Begin"], r["End"]) for r in
                 align_words(wav, sample_rate,
-                            args.prompt_transcript.strip().lower())]
+                            args.prompt_transcript.strip().lower(),
+                            asr_model_path=args.asr_model,
+                            device=args.device)]
     snapped, idx = find_closest_word_boundary(
         rows, args.prompt_end_sec, args.margin, args.cutoff_tolerance)
     if snapped is None:
@@ -126,13 +132,6 @@ def snap_prompt_cutoff(args, sample_rate: int):
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    for name in NOT_YET_PORTED:
-        if getattr(args, name) != ap.get_default(name):
-            ap.error(f"--{name.replace('_', '-')} is not yet ported to "
-                     "voicecraft_tpu_torch")
-    if args.prompt_transcript is None:
-        ap.error("--prompt-transcript is required (transcription is not yet "
-                 "ported)")
     if args.fused_ffn and (args.spec > 1 or args.sample_batch_size > 1):
         ap.error("--fused-ffn applies to plain decoding; best-of-N and "
                  "speculative decoding run the unfused FFN")
@@ -169,6 +168,13 @@ def main(argv=None):
             torch.Generator(device=device).manual_seed(args.seed)).eval()
     ccfg, codec = load_codec(args.codec, args.random_init, args.seed, device,
                              codebook_size=cfg.audio_vocab_size)
+
+    if args.prompt_transcript is None:
+        from voicecraft_tpu_torch.utils.transcribe import make_transcriber
+        args.prompt_transcript = make_transcriber(
+            args.asr_model, args.device).transcribe(
+                au.load_audio(args.prompt_wav, 16000), 16000)
+        logging.info("transcribed prompt: %s", args.prompt_transcript)
 
     if args.prompt_end_sec > 0 and (args.mfa_csv or args.snap_cutoff):
         args.prompt_end_sec, args.prompt_transcript = snap_prompt_cutoff(

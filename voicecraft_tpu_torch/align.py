@@ -1,5 +1,5 @@
 """Word-level alignment for editing from a raw wav (PyTorch port of
-voicecraft_tpu/align.py, the energy path).
+voicecraft_tpu/align.py).
 
 ``energy_align`` is a dependency-free energy/VAD aligner: voiced segments
 from adaptive log-energy thresholding, words spread over voiced time in
@@ -10,16 +10,21 @@ word-boundary error of median 35 ms / p90 97 ms
 [{"Label", "Begin", "End", "Type": "words", "Source": "energy"}], the rows
 ``inference/editing.py:get_mask_interval`` reads.
 
-The JAX package's Whisper aligner (a local transformers snapshot) is not
-yet ported: ``align_words`` refuses an ASR model instead of falling back.
+``WhisperWordAligner`` takes word timestamps from transformers' Whisper (a
+local snapshot) through its cross-attention token timestamps, and
+``align_words`` prefers it when a snapshot is given.
 """
 
 from __future__ import annotations
 
 import logging
+from functools import lru_cache
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
+
+log = logging.getLogger(__name__)
 
 
 # ==============================================================================
@@ -127,7 +132,7 @@ def widen_margins_for_aligner(rows: Sequence[Dict], left: float,
         return left, right, False
     wl, wr = max(left, ENERGY_P90_SEC), max(right, ENERGY_P90_SEC)
     if (wl, wr) != (left, right):
-        logging.getLogger(__name__).warning(
+        log.warning(
             "energy-aligner timestamps: widening edit margins %.3f/%.3f -> "
             "%.3f/%.3f s (p90 boundary error %.0f ms; pass an MFA CSV for "
             "tighter spans)", left, right, wl, wr, ENERGY_P90_SEC * 1000)
@@ -135,13 +140,97 @@ def widen_margins_for_aligner(rows: Sequence[Dict], left: float,
     return left, right, False
 
 
+# ==============================================================================
+# Whisper cross-attention word timestamps (local snapshot only)
+# ==============================================================================
+
+def merge_word_pieces(pieces: Sequence[str], times: Sequence[float]
+                      ) -> List[Dict]:
+    """The JAX aligner's merge rule (voicecraft_tpu/align.py:193-211):
+    decoded token ``pieces`` with their timestamps into word rows, skipping
+    empty and ``<|...|>`` pieces and starting a word at a piece with a
+    leading space."""
+    rows: List[Dict] = []
+    cur, t0, t1 = "", 0.0, 0.0
+    for piece, t in zip(pieces, times):
+        if not piece or piece.startswith("<|"):
+            continue
+        if piece.startswith(" ") and cur:
+            rows.append({"Label": cur.strip(), "Begin": t0, "End": t1,
+                         "Type": "words"})
+            cur, t0 = "", t
+        if not cur:
+            t0 = t
+        cur += piece
+        t1 = t
+    if cur.strip():
+        rows.append({"Label": cur.strip(), "Begin": t0, "End": t1,
+                     "Type": "words"})
+    return rows
+
+
+class WhisperWordAligner:
+    """Word timestamps from transformers' Whisper ``return_token_timestamps``
+    (DTW over the cross-attention of the snapshot's alignment heads, what
+    whisperx builds on), the model on ``device``.  Needs a local snapshot
+    dir (e.g. openai/whisper-base) whose generation config names its
+    ``alignment_heads``."""
+
+    def __init__(self, model_path: str, device="cuda"):
+        from transformers import (WhisperForConditionalGeneration,
+                                  WhisperProcessor)
+        self.device = torch.device(device)
+        self.processor = WhisperProcessor.from_pretrained(model_path)
+        self.model = WhisperForConditionalGeneration.from_pretrained(
+            model_path).to(self.device).eval()
+
+    def align(self, wav: np.ndarray, sr: int = 16000) -> List[Dict]:
+        """The word rows of ``wav``'s transcript."""
+        wav = np.asarray(wav, np.float32).reshape(-1)
+        inputs = self.processor(wav, sampling_rate=sr, return_tensors="pt")
+        with torch.no_grad():
+            out = self.model.generate(
+                inputs.input_features.to(self.device),
+                return_token_timestamps=True, return_dict_in_generate=True)
+        # a ModelOutput or (transformers 4.57) a plain dict: both index
+        ids = out["sequences"][0].tolist()
+        decode = self.processor.tokenizer.decode
+        return merge_word_pieces([decode([i]) for i in ids],
+                                 out["token_timestamps"][0].tolist())
+
+
+@lru_cache(maxsize=2)
+def make_aligner(model_path: str, device="cuda") -> WhisperWordAligner:
+    """The aligner of ``model_path`` on ``device``, memoized (a server
+    aligns every /edit)."""
+    return WhisperWordAligner(model_path, device)
+
+
+# ==============================================================================
+# dispatcher
+# ==============================================================================
+
 def align_words(wav: np.ndarray, sr: int, transcript: str,
                 asr_model_path: Optional[str] = None,
-                weights: Optional[Sequence[float]] = None) -> List[Dict]:
-    """Word alignment rows for ``transcript`` against ``wav`` from the
-    energy aligner.  An ASR model (the JAX package's Whisper aligner) is not
-    yet ported and is refused."""
+                weights: Optional[Sequence[float]] = None,
+                device="cuda") -> List[Dict]:
+    """Word alignment rows for ``transcript`` against ``wav``: Whisper's
+    (``asr_model_path``, on ``device``) when the snapshot loads and yields
+    rows, else the dependency-free energy aligner's, so that editing never
+    needs an external MFA CSV (reference predict.py:209-215).  Only a
+    snapshot that does not load (OSError or ValueError from
+    ``from_pretrained``) or rows that Whisper does not yield fall back, with
+    a warning; an error inside the aligner propagates."""
     if asr_model_path:
-        raise NotImplementedError("the Whisper aligner (asr_model_path) is "
-                                  "not yet ported to voicecraft_tpu_torch")
+        try:
+            aligner = make_aligner(asr_model_path, device)
+        except (OSError, ValueError) as e:
+            log.warning("the Whisper snapshot %s did not load (%s): word "
+                        "rows from the energy aligner", asr_model_path, e)
+        else:
+            rows = aligner.align(wav, sr)
+            if rows:
+                return rows
+            log.warning("Whisper (%s) yielded no words: word rows from the "
+                        "energy aligner", asr_model_path)
     return energy_align(wav, sr, transcript.split(), weights=weights)

@@ -17,7 +17,9 @@ history is index arithmetic (ops.attention.decode_attention_ring: slot age
       ring of W generated slots, valid where age <= t_b ]
 
 A burst enqueues its steps with no host sync; the host reads one [B, 4]
-status (active, t, finish_t, all-eog) and the recorded rows per burst.  The
+status (active, t, finish_t, all-eog) and the recorded rows per burst, and
+with the status the caller's cancel flag (``cancel``), so that every rank
+of a mesh stops at the same burst.  The
 speculative engine (``spec`` = tau) keeps each lane's accepted tokens
 COMPACT at its own offset instead of a ring (transformer.
 decode_step_multi_block), and runs burst // tau verified passes a burst.
@@ -54,7 +56,7 @@ from ..models.voicecraft import (MAX_POS, SamplingConfig, VoiceCraft,
                                  prefill_lanes)
 from ..ops import patterns
 from ..ops.attention import _attend_one, _ring_valid
-from ..parallel.mesh import all_gather_data, data_slice
+from ..parallel.mesh import all_gather_data, data_slice, stack_ranks
 from .serving import _step_feed
 from .spec_common import (make_lane_sampler, seeded_generator,
                           spec_verify_pass, token_generators)
@@ -313,8 +315,14 @@ def make_prefill_lane_fn(cfg: ModelConfig, *, x_pad: int, y_pad: int,
     return prefill
 
 
+class StreamCancelled(Exception):
+    """Raised by ContinuousBatcher.run at the burst whose snapshot carries a
+    set cancel flag (on every rank of a mesh at the same burst)."""
+
+
 class _Snapshot:
-    """One burst's status [B, 4] and recorded rows, copied to the host
+    """One burst's status [lanes, 5] (the [B, 4] status of every lane and,
+    in column 4, the cancel flag) and recorded rows, copied to the host
     after the burst on the device's stream (pinned buffers, non_blocking,
     and an event to wait on, on CUDA), with the lane -> request map at the
     burst's dispatch."""
@@ -336,10 +344,12 @@ class _Snapshot:
         self.lane_map = list(lane_map)
         return self
 
-    def read(self) -> Tuple[np.ndarray, np.ndarray]:
+    def read(self) -> Tuple[np.ndarray, np.ndarray, bool]:
+        """(status [lanes, 4], rows, whether any rank's flag was set)."""
         if self.event is not None:
             self.event.synchronize()
-        return self.status.numpy(), self.gen.numpy()
+        status = self.status.numpy()
+        return status[:, :4], self.gen.numpy(), bool(status[:, 4].any())
 
 
 @dataclasses.dataclass
@@ -375,7 +385,15 @@ class ContinuousBatcher:
     while the host scheduler (admission, retirement, the refill decisions)
     is replicated on every rank over the global lanes: each burst's
     status and rows are all-gathered over 'data' before the host reads
-    them, so every rank takes the same decisions.  ``stats`` counts
+    them, so every rank takes the same decisions.
+
+    ``cancel`` (a threading.Event, or None) is the consumer's flag: its
+    state when a burst is enqueued rides in that burst's status, which a
+    mesh all-gathers over every rank (the one collective each burst makes
+    on every rank, whatever the mesh's shape), and :meth:`run` raises
+    :class:`StreamCancelled` when it reads a snapshot whose flag is set on
+    any rank.  So every rank stops at the same burst, however many of them
+    see the consumer; the batcher is not reused after.  ``stats`` counts
     bursts, device steps (speculative: passes), wave prefills and lane
     refills over the batcher's life.
     """
@@ -395,6 +413,7 @@ class ContinuousBatcher:
     spec_force_accept: bool = False
     mesh: object = None
     pipeline: bool = True
+    cancel: object = None
 
     def __post_init__(self):
         model, cfg = self.model, self.cfg
@@ -431,9 +450,9 @@ class ContinuousBatcher:
         # admission; empty lanes draw from a shared idle one
         idle = torch.Generator(device=dev).manual_seed(self.seed)
         self._gens: List[torch.Generator] = [idle] * B
-        # the host reads every lane's status and rows
+        # the host reads every lane's status, the cancel flag and the rows
         self._snaps = [_Snapshot(
-            torch.empty((self.lanes, 4), dtype=torch.long, device=dev),
+            torch.empty((self.lanes, 5), dtype=torch.long, device=dev),
             torch.empty((self.lanes,) + rows, dtype=torch.long, device=dev))
             for _ in range(2)]
         self._n_snap = 0
@@ -541,10 +560,20 @@ class ContinuousBatcher:
             self.model, self._cache, self._lanes, self._gen_buf, gens)
         self.stats["bursts"] += 1
         self.stats["steps"] += self._burst_steps
+        flag = int(self.cancel is not None and self.cancel.is_set())
+        status = torch.cat([status, status.new_full((B, 1), flag)], 1)
         gen_buf = self._gen_buf
-        if self.mesh is not None and self.mesh.n_data > 1:
-            status = all_gather_data(status, self.mesh, 0)
-            gen_buf = all_gather_data(gen_buf, self.mesh, 0)
+        mesh = self.mesh
+        if mesh is not None and mesh.n_data * mesh.n_model > 1:
+            # every rank's status and flag: the lanes of each data rank
+            # from its model rank 0, the flag set if any rank's is
+            every = stack_ranks(status, mesh).view(mesh.n_data,
+                                                    mesh.n_model, B, 5)
+            status = torch.cat([every[:, 0, :, :4].reshape(-1, 4),
+                                every[..., 4].amax().expand(self.lanes, 1)],
+                               1)
+            if mesh.n_data > 1:
+                gen_buf = all_gather_data(gen_buf, mesh, 0)
         snap = self._snaps[self._n_snap % 2]
         self._n_snap += 1
         return snap.take(status, gen_buf, self._lane_req)
@@ -606,7 +635,9 @@ class ContinuousBatcher:
     def _process_burst(self, snap: _Snapshot) -> None:
         """The host's side of one finished burst: waiting for its snapshot
         is what blocks on the device."""
-        status, gen_src = snap.read()
+        status, gen_src, cancelled = snap.read()
+        if cancelled:
+            raise StreamCancelled()
         self._emit_stream(status, gen_src, snap.lane_map)
         self._retire(status, gen_src, snap.lane_map)
 

@@ -29,12 +29,8 @@ from ..config import ModelConfig
 from ..models import encodec as ec
 from ..models.voicecraft import SamplingConfig, VoiceCraft
 from ..ops import patterns
-from .engine import ContinuousBatcher
+from .engine import ContinuousBatcher, StreamCancelled
 from .serving import _ceil
-
-
-class _StreamCancelled(Exception):
-    """Raised inside the engine's row callback to abort an abandoned run."""
 
 
 def frames_from_rows(rows: np.ndarray, cfg: ModelConfig) -> np.ndarray:
@@ -82,19 +78,20 @@ def stream_tts(model: VoiceCraft, x_tokens: np.ndarray, y_codes: np.ndarray,
     whole engine run (independent of how fast the consumer drains).
 
     A producer thread runs the engine, on the model's device.  Closing the
-    generator early (a client that hangs up) cancels the engine at its next
-    burst boundary and waits for the producer to end.  ``stats`` receives,
-    when the generator ends either way, ``frames`` (the generated frames,
-    or on cancellation those the producer handed over), ``t_decode`` (the
-    producer's wall seconds so far) and ``cancelled``, so that a server can
-    account a cancelled stream too.
-    ``mesh`` and ``lanes`` pass through to the engine
-    (inference/engine.py:ContinuousBatcher): every rank of the mesh runs
-    the same stream, whose one request rides lane 0 of ``lanes`` (a
-    multiple of the mesh's data axis; the JAX server passes lanes =
-    n_data).  Over a mesh a closed generator does not cancel the engine,
-    whose bursts are collectives of every rank: the producer runs to its
-    end.
+    generator early (a client that hangs up) sets the engine's cancel flag
+    and waits for the producer to end: the engine stops at the first burst
+    whose snapshot carries the flag (ContinuousBatcher(cancel=)), so after
+    the close it hands over at most the frames of the burst in flight.
+    ``stats`` receives, when the generator ends either way, ``frames`` (the
+    generated frames, or on cancellation those the producer handed over),
+    ``t_decode`` (the producer's wall seconds so far) and ``cancelled``, so
+    that a server can account a cancelled stream too.
+    ``mesh`` and ``lanes`` pass through to the engine: every rank of the
+    mesh runs the same stream, whose one request rides lane 0 of ``lanes``
+    (a multiple of the mesh's data axis; the JAX server passes lanes =
+    n_data).  The flag of the one rank whose consumer closed reaches every
+    rank in the burst's snapshot, so every rank's engine stops at the same
+    burst, and the other ranks' generators end there without a last chunk.
     """
     cfg = model.cfg
     K = cfg.n_codebooks
@@ -109,19 +106,13 @@ def stream_tts(model: VoiceCraft, x_tokens: np.ndarray, y_codes: np.ndarray,
         model, lanes=lanes, x_pad=_ceil(len(x_tokens), 32),
         y_pad=_ceil(prefix_len, 64), gen_max=gen_max, burst=burst, scfg=scfg,
         seed=seed, kv_dtype=kv_dtype, spec=spec, mesh=mesh,
-        pipeline=pipeline)
+        pipeline=pipeline, cancel=threading.Event())
 
     q: "queue.Queue" = queue.Queue()
     sent = {"n": 0}
-    cancel = threading.Event()
     progress = {"t_decode": 0.0, "done": False}
 
     def on_rows(rows):
-        if cancel.is_set():
-            if mesh is not None:
-                return      # every rank's engine runs to its end
-            # the consumer abandoned the generator: stop at this burst
-            raise _StreamCancelled()
         frames = frames_from_rows(rows, cfg)
         if frames.shape[1] > sent["n"]:
             new = frames[:, sent["n"]:]
@@ -144,8 +135,9 @@ def stream_tts(model: VoiceCraft, x_tokens: np.ndarray, y_codes: np.ndarray,
             progress["done"] = True
             progress["frames"] = res[rid][1].shape[1]
             q.put(("done", (res[rid], progress["t_decode"])))
-        except _StreamCancelled:
+        except StreamCancelled:
             progress["t_decode"] = time.perf_counter() - t0
+            q.put(("cancelled", None))
         except Exception as e:  # surfaced to the consumer
             progress["t_decode"] = time.perf_counter() - t0
             q.put(("error", e))
@@ -158,6 +150,8 @@ def stream_tts(model: VoiceCraft, x_tokens: np.ndarray, y_codes: np.ndarray,
             kind, payload = q.get()
             if kind == "error":
                 raise payload
+            if kind == "cancelled":     # another rank's consumer closed
+                return
             if kind == "frames":
                 chunk = {"frames": payload}
                 if streamer is not None:
@@ -174,7 +168,7 @@ def stream_tts(model: VoiceCraft, x_tokens: np.ndarray, y_codes: np.ndarray,
             yield chunk
             return
     finally:
-        cancel.set()
+        eng.cancel.set()
         producer.join()
         if stats is not None:
             stats.update(frames=progress.get("frames", sent["n"]),

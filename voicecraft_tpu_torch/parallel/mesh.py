@@ -477,14 +477,26 @@ def zero1_opt_shardings(model: torch.nn.Module, optimizer, mesh: Mesh
     dp = mesh.n_data
     if dp <= 1 or not isinstance(optimizer, (ScaledAdam, AdamW)):
         return None
+    return with_data_axes(leaf_layouts(model, optimizer.groups),
+                          optimizer.groups, dp)
+
+
+def with_data_axes(layouts: Sequence[LeafLayout],
+                   groups: Sequence[Sequence[torch.Tensor]], dp: int
+                   ) -> List[LeafLayout]:
+    """Each leaf's layout with 'data' at the axis ZeRO-1 shards over ``dp``
+    data ranks (:func:`_extend_with_data` on its stacked shape; the 'model'
+    axis holds local widths, which it skips); a layout that has a 'data'
+    axis already stays as it is.  The optimizers sum over these pieces in
+    both layouts, so that ZeRO-1 changes no bit."""
     out = []
-    for layout, g in zip(leaf_layouts(model, optimizer.groups),
-                         optimizer.groups):
-        shape = ((len(g),) + tuple(g[0].shape)) if layout.stacked \
-            else tuple(g[0].shape)
-        # the 'model' axis holds local widths; _extend_with_data skips it
-        out.append(LeafLayout(_extend_with_data(layout.spec, shape, dp),
-                              layout.stacked))
+    for layout, g in zip(layouts, groups):
+        if layout.data_axis is None:
+            shape = ((len(g),) + tuple(g[0].shape)) if layout.stacked \
+                else tuple(g[0].shape)
+            layout = LeafLayout(_extend_with_data(layout.spec, shape, dp),
+                                layout.stacked)
+        out.append(layout)
     return out
 
 
@@ -496,18 +508,20 @@ def _tensor_axis(layout: LeafLayout, axis: int) -> int:
 
 
 def owned_pieces(layout: LeafLayout, tensors: Sequence[torch.Tensor],
-                 mesh: Optional[Mesh]) -> List[torch.Tensor]:
-    """This data rank's pieces of a leaf's tensors: all of them when the
-    leaf is not sharded over 'data'; layers [r n / dp, (r + 1) n / dp) of n
-    when its layer axis is; else slice r of each tensor along the sharded
-    axis (views)."""
+                 mesh: Optional[Mesh], rank: Optional[int] = None
+                 ) -> List[torch.Tensor]:
+    """Data rank ``rank``'s (default: this rank's) pieces of a leaf's
+    tensors: all of them when the leaf is not sharded over 'data'; layers
+    [r n / dp, (r + 1) n / dp) of n when its layer axis is; else slice r of
+    each tensor along the sharded axis (views)."""
     a = layout.data_axis
     if a is None or not _data_split(mesh):
         return list(tensors)
+    r, dp = mesh.data_rank if rank is None else rank, mesh.n_data
     if layout.stacked and a == 0:
-        return list(tensors[data_slice(len(tensors), mesh)])
-    return [_slice(t, _tensor_axis(layout, a), mesh.data_rank, mesh.n_data)
-            for t in tensors]
+        w = len(tensors) // dp
+        return list(tensors[r * w:(r + 1) * w])
+    return [_slice(t, _tensor_axis(layout, a), r, dp) for t in tensors]
 
 
 def scatter_grads(layout: LeafLayout, grads: Sequence[torch.Tensor],
@@ -523,6 +537,29 @@ def scatter_grads(layout: LeafLayout, grads: Sequence[torch.Tensor],
                                         0).unbind(0))
     return [reduce_scatter_data(g, mesh, _tensor_axis(layout, a))
             for g in grads]
+
+
+def sum_grads(layout: LeafLayout, grads: Sequence[torch.Tensor],
+              mesh: Mesh) -> List[torch.Tensor]:
+    """A leaf's gradients summed over 'data', whole: :func:`scatter_grads`'
+    reduce-scatter, then its pieces all-gathered, so that a replicated
+    layout holds bit for bit the sums that ZeRO-1's pieces hold."""
+    return gather_pieces(layout, scatter_grads(layout, grads, mesh), mesh)
+
+
+def stack_ranks(t: torch.Tensor, mesh: Mesh,
+                axis: Optional[str] = None) -> torch.Tensor:
+    """``t`` of every rank of the mesh's ``axis`` ("data", "model", or None:
+    every rank, d * n_model + m) stacked in rank order along a new leading
+    axis."""
+    n, group = {"data": (mesh.n_data, mesh.data_group),
+                "model": (mesh.n_model, mesh.model_group),
+                None: (mesh.n_data * mesh.n_model, None)}[axis]
+    if n == 1:
+        return t[None]
+    out = t.new_empty((n * t.numel(),))
+    _all_gather_flat(out, t.reshape(-1).contiguous(), group=group)
+    return out.view((n,) + tuple(t.shape))
 
 
 def gather_pieces(layout: LeafLayout, pieces: Sequence[torch.Tensor],

@@ -14,15 +14,17 @@ derived from it (the reference trainer drives step_epoch(step //
 pseudo_epoch_size + 1), steps/trainer.py:70-71).
 
 Over a mesh (``shard``, parallel/mesh.py) each optimizer runs on the
-tensor-parallel shards of its leaves: ScaledAdam's per-leaf sums (the
-parameter rms, the scale gradients, the clipping norm) are summed over
-'model' for a model-sharded leaf.  Under ZeRO-1 (``zero1_opt_shardings``)
-each data rank keeps only its piece of every moment: ``step`` reduce-
-scatters the gradients onto it over 'data' (the sums above are then also
-summed over 'data'), updates it and all-gathers the update.  Without
-ZeRO-1 the train step sums the gradients over 'data' before ``step``.
-``state_dict`` / ``load_state_dict`` gather and re-shard, so a checkpoint
-does not depend on the mesh.
+tensor-parallel shards of its leaves, and ``step`` sums the gradients over
+'data' itself.  Under ZeRO-1 (``zero1_opt_shardings``) each data rank
+keeps only its piece of every moment: ``step`` reduce-scatters the
+gradients onto it, updates it and all-gathers the update.  The replicated
+layout sums the gradients through the same reduce-scatter, then gathers
+the pieces; and ScaledAdam forms each per-leaf sum (the scale gradients,
+the clipping norm) from the partial sums of the same ZeRO-1 pieces, added
+in data-rank order, and over 'model' from the model ranks' partial sums in
+rank order.  So ZeRO-1 changes no bit of the trajectory, as in the JAX
+package.  ``state_dict`` / ``load_state_dict`` gather and re-shard, so a
+checkpoint does not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -71,6 +73,20 @@ def linear_warmup_decay(base_lr: float, total_steps: int,
 
 def _schedule(lr: Schedule) -> Callable[[int], float]:
     return lr if callable(lr) else (lambda _: lr)
+
+
+def _grads(group) -> List[torch.Tensor]:
+    """A leaf's f32 gradients (a missing one counts as zero)."""
+    return [p.grad.float() if p.grad is not None
+            else torch.zeros_like(p, dtype=torch.float32) for p in group]
+
+
+def _in_order(v: torch.Tensor) -> torch.Tensor:
+    """v[0] + v[1] + ... in that order."""
+    out = v[0]
+    for row in v[1:]:
+        out = out + row
+    return out
 
 
 # the JAX package's tree paths of a decoder layer's parameters: its layers
@@ -165,6 +181,9 @@ class ScaledAdam:
             raise ValueError("shard the optimizer before its first step")
         self.mesh, self.layouts = mesh, list(layouts)
         self.zero1 = any(l.data_axis is not None for l in self.layouts)
+        # the pieces every sum over 'data' runs on, in both layouts
+        self.sum_layouts = pm.with_data_axes(self.layouts, self.groups,
+                                             mesh.n_data)
         self._init_leaves()
 
     @staticmethod
@@ -178,28 +197,54 @@ class ScaledAdam:
             return list(tensors)
         return pm.owned_pieces(self.layouts[i], tensors, self.mesh)
 
-    def _leaf_sums(self, sums: list, idx: list, over_data: bool) -> list:
-        """Partial sums of leaves ``idx`` completed over the mesh: over
-        'model' for a model-sharded leaf and, ``over_data`` (sums over
-        ZeRO-1 pieces), over 'data' for a data-sharded one."""
+    def _leaf_sums(self, fn, idx: list, leaves: list,
+                   over_data: bool = False) -> list:
+        """The sums fn(i, *tensors of leaf i) (0-d) of leaves ``idx``, each
+        a list of per-leaf tensor lists in ``leaves``, completed over the
+        mesh.  ``over_data`` (the tensors are the gradients and parameters
+        of the step: ZeRO-1's pieces, or whole): a data-sharded leaf's sum
+        is its pieces' partial sums added in data-rank order, the partials
+        gathered under ZeRO-1 and all computed here in the replicated
+        layout, each on contiguous copies.  A model-sharded leaf's sum is
+        its model ranks' added in rank order.  So both layouts make the same
+        additions, and no scalar is all-reduced (NCCL fixes no order)."""
         mesh = self.mesh
-        if mesh is None or not sums:
-            return sums
-        v = torch.stack(sums)
-        for axis, split, reduce in (
-                ("model", mesh.n_model > 1, pm.all_reduce_model_),
-                ("data", over_data and self.zero1, pm.all_reduce_data_)):
-            if split:
-                on = torch.tensor([axis in self.layouts[i].spec for i in idx],
-                                  device=v.device)
-                v = torch.where(on, reduce(torch.where(on, v, 0.0), mesh), v)
+        whole = lambda i: [l[i] for l in leaves]
+        if mesh is None or not idx:
+            return [fn(i, *whole(i)) for i in idx]
+        if over_data and mesh.n_data > 1:
+            ranks = [mesh.data_rank] if self.zero1 else range(mesh.n_data)
+            rows = {r: [] for r in ranks}
+            for i in idx:
+                lay = self.sum_layouts[i]
+                if lay.data_axis is None:   # whole on every rank: once
+                    v = fn(i, *whole(i))
+                    for r in ranks:
+                        rows[r].append(v if r == 0 else torch.zeros_like(v))
+                    continue
+                for r in ranks:
+                    ts = (whole(i) if self.zero1 else
+                          [pm.owned_pieces(lay, l[i], mesh, r) for l in leaves])
+                    rows[r].append(fn(i, *[[t.contiguous() for t in l]
+                                           for l in ts]))
+            v = torch.stack([torch.stack(rows[r]) for r in ranks])
+            if self.zero1:
+                v = pm.stack_ranks(v[0], mesh, "data")
+            v = _in_order(v)
+        else:
+            v = torch.stack([fn(i, *whole(i)) for i in idx])
+        if mesh.n_model > 1:
+            on = torch.tensor([self.layouts[i].model_axis is not None
+                               for i in idx], device=v.device)
+            v = torch.where(on, _in_order(pm.stack_ranks(v, mesh, "model")),
+                            v)
         return list(v.unbind(0))
 
     def _rms(self, params: list, idx: list) -> list:
         """The parameter rms of leaves ``idx`` (params: every leaf's whole
         local f32 tensors)."""
-        sums = self._leaf_sums([sum(p.square().sum() for p in params[i])
-                                for i in idx], idx, over_data=False)
+        sums = self._leaf_sums(lambda i, ps: sum(p.square().sum() for p in ps),
+                               idx, [params])
         out = []
         for i, s in zip(idx, sums):
             n = sum(p.numel() for p in params[i])
@@ -231,13 +276,14 @@ class ScaledAdam:
         step, P = self.count, self.size_update_period
         lr = float(self.lr_fn(step))
         beta1, beta2, eps = self.beta1, self.beta2, self.eps
-        grads = [[p.grad.float() if p.grad is not None
-                  else torch.zeros_like(p, dtype=torch.float32) for p in g]
-                 for g in self.groups]
+        grads = [_grads(g) for g in self.groups]
         full = [[p.detach().float() for p in g] for g in self.groups]
-        if self.zero1:  # each rank keeps its data piece of the summed grads
-            grads = [pm.scatter_grads(l, gs, self.mesh)
-                     for l, gs in zip(self.layouts, grads)]
+        if self.mesh is not None and self.mesh.n_data > 1:
+            # the sum over 'data': ZeRO-1 keeps its piece of it, the
+            # replicated layout gathers the pieces
+            summed = pm.scatter_grads if self.zero1 else pm.sum_grads
+            grads = [summed(l, gs, self.mesh)
+                     for l, gs in zip(self.sum_layouts, grads)]
         params = [self._pieces(i, ps) for i, ps in enumerate(full)]
         every = list(range(len(self.groups)))
 
@@ -246,11 +292,12 @@ class ScaledAdam:
         clip = 1.0
         if self.clipping_scale is not None:
             C = self.clipping_update_period
-            tot_sumsq = sum(self._leaf_sums([
-                sum((g * (1.0 if self._scalar(grp) else st["param_rms"]))
-                    .square().sum() for g in gs)
-                for grp, gs, st in zip(self.groups, grads, self.leaves)],
-                every, over_data=True))
+            def sumsq(i, gs):
+                w = 1.0 if self._scalar(self.groups[i]) else \
+                    self.leaves[i]["param_rms"]
+                return sum((g * w).square().sum() for g in gs)
+            tot_sumsq = sum(self._leaf_sums(sumsq, every, [grads],
+                                            over_data=True))
             tot_norm = tot_sumsq.sqrt()
             slot = step % C
             self.model_norms[slot] = tot_norm
@@ -273,8 +320,9 @@ class ScaledAdam:
         # steps, the parameter rms (optim.py:511-517), of each tensor leaf
         idx = [i for i, g in enumerate(self.groups) if not self._scalar(g)]
         scale_grads = dict(zip(idx, self._leaf_sums(
-            [sum((pf * (g * clip)).sum() for pf, g in zip(params[i], grads[i]))
-             for i in idx], idx, over_data=True)))
+            lambda i, ps, gs: sum((pf * (g * clip)).sum()
+                                  for pf, g in zip(ps, gs)),
+            idx, [params, grads], over_data=True)))
         new_rms = dict(zip(idx, self._rms(full, idx))) if is_rms_step else {}
 
         for i, (grp, gs, ps, st) in enumerate(zip(self.groups, grads, params,
@@ -395,6 +443,8 @@ class AdamW:
             raise ValueError("shard the optimizer before its first step")
         self.mesh, self.layouts = mesh, list(layouts)
         self.zero1 = any(l.data_axis is not None for l in self.layouts)
+        self.sum_layouts = pm.with_data_axes(self.layouts, self.groups,
+                                             mesh.n_data)
         if self.zero1:
             self.pieces = [[t.detach().clone() for t in
                             pm.owned_pieces(l, g, mesh)]
@@ -411,13 +461,16 @@ class AdamW:
         for group in self.opt.param_groups:
             group["lr"] = float(self.lr_fn(self.count))
         if not self.zero1:
+            if self.mesh is not None and self.mesh.n_data > 1:
+                # the sum over 'data' through ZeRO-1's reduce-scatter
+                for l, g in zip(self.sum_layouts, self.groups):
+                    for p, gr in zip(g, pm.sum_grads(l, _grads(g), self.mesh)):
+                        p.grad = gr.to(p.dtype)
             self.opt.step()
             self.count += 1
             return
         for l, g, ps in zip(self.layouts, self.groups, self.pieces):
-            grads = [p.grad.float() if p.grad is not None
-                     else torch.zeros_like(p, dtype=torch.float32) for p in g]
-            for t, gr in zip(ps, pm.scatter_grads(l, grads, self.mesh)):
+            for t, gr in zip(ps, pm.scatter_grads(l, _grads(g), self.mesh)):
                 t.grad = gr.to(t.dtype)
         self.opt.step()
         for l, g, ps in zip(self.layouts, self.groups, self.pieces):

@@ -10,8 +10,8 @@ On a model sharded over a mesh (parallel/mesh.py) each rank steps on its
 data rank's rows: forward_train's loss and metrics are those of the global
 batch, and the gradients are SUMMED over 'data' (ScaledAdam differentiates
 the un-normalised loss; every other optimizer loss / the global
-effective_ntoken), by an all-reduce here or, under ZeRO-1, by the
-optimizer's reduce-scatter.
+effective_ntoken) by the optimizer, which runs over the mesh (``shard``:
+ZeRO-1's reduce-scatter in both layouts).
 """
 
 from __future__ import annotations
@@ -22,7 +22,6 @@ import torch
 
 from ..models.transformer import fold_seed
 from ..models.voicecraft import TrainBatch, VoiceCraft, forward_train
-from ..parallel.mesh import all_reduce_data_
 
 
 def make_train_step(model: VoiceCraft, optimizer, remat: bool = True,
@@ -41,8 +40,11 @@ def make_train_step(model: VoiceCraft, optimizer, remat: bool = True,
     params = [p for p in model.parameters() if p.requires_grad]
     mtp = getattr(model, "mtp_heads", None) is not None
     mesh = model.mesh
-    sync = (mesh is not None and mesh.n_data > 1
-            and not getattr(optimizer, "zero1", False))
+    if (mesh is not None and mesh.n_data > 1
+            and getattr(optimizer, "mesh", None) is not mesh):
+        raise ValueError("the model is sharded over a mesh with data > 1: "
+                         "shard the optimizer over the same mesh (it sums "
+                         "the gradients over 'data')")
 
     def backward(batch: TrainBatch, seed: Optional[int]) -> dict:
         out = forward_train(model, batch, seed=seed, remat=remat)
@@ -69,11 +71,6 @@ def make_train_step(model: VoiceCraft, optimizer, remat: bool = True,
             out = {k: sum(o[k] for o in outs) for k in outs[0]}
             if mtp:
                 out["mtp_top1acc"] = out["mtp_top1acc"] / grad_accum
-        if sync:  # the sum over 'data' (ZeRO-1's optimizer scatters it)
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-                all_reduce_data_(p.grad, mesh)
         ok = bool(torch.isfinite(out["loss"]))
         if ok:
             optimizer.step()

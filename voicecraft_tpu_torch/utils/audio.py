@@ -8,6 +8,7 @@ scipy polyphase resampling.  Reads 8/16/24/32-bit PCM and IEEE float WAV.
 
 from __future__ import annotations
 
+import contextlib
 import struct
 import wave
 from fractions import Fraction
@@ -16,10 +17,12 @@ from typing import Tuple
 import numpy as np
 
 
-def _read_riff(path: str):
-    """(fmt_code, n_ch, sr, bits, data) of a RIFF/WAVE file; stdlib
-    ``wave`` rejects IEEE-float files, which the demo wavs are."""
-    with open(path, "rb") as f:
+def _read_riff(path):
+    """(fmt_code, n_ch, sr, bits, data) of a RIFF/WAVE file (a path, or a
+    binary file object); stdlib ``wave`` rejects IEEE-float files, which
+    the demo wavs are."""
+    with (contextlib.nullcontext(path) if hasattr(path, "read")
+          else open(path, "rb")) as f:
         hdr = f.read(12)
         assert hdr[:4] == b"RIFF" and hdr[8:12] == b"WAVE", path
         fmt = data = None
@@ -40,8 +43,9 @@ def _read_riff(path: str):
         return code, n_ch, sr, bits, data
 
 
-def read_wav(path: str) -> Tuple[np.ndarray, int]:
-    """A WAV file -> (float32 [channels, T] in [-1, 1], sample_rate)."""
+def read_wav(path) -> Tuple[np.ndarray, int]:
+    """A WAV file (a path or a binary file object) -> (float32 [channels, T]
+    in [-1, 1], sample_rate)."""
     code, n_ch, sr, bits, raw = _read_riff(path)
     if code == 3:  # IEEE float
         dt = "<f4" if bits == 32 else "<f8"
@@ -100,7 +104,7 @@ def convert_audio(wav: np.ndarray, sr: int, target_sr: int,
     return resample(wav, sr, target_sr)
 
 
-def load_audio(path: str, target_sr: int, offset: int = -1,
+def load_audio(path, target_sr: int, offset: int = -1,
                num_frames: int = -1) -> np.ndarray:
     """Load, downmix to mono and resample, with an optional window in
     source-rate samples (reference tokenize_audio, data/tokenizer.py:137-149)."""
