@@ -87,18 +87,19 @@ Phases, in order; any failure raises and the script exits non-zero:
               with 3 random MTP head groups, tau 4: the 8 TTS lanes greedy
               against (j)'s under ties, force_accept at 4 tokens a pass a
               lane, and the 4 edit lanes; (n) bench_mode at bench.py's
-              single-stream geometry, bf16 and fp8 with the fp8 slab (frames/s
-              best of 3), and the speculative loop (one run): exactly gen_max
-              rows each.
+              single-stream geometry at 128 frames, bf16 and fp8 with the fp8
+              slab, and the speculative loop (one run each; phase 14 times
+              the bench at 500): exactly gen_max rows each.
   8. engine   the same model and codec through inference/engine.py,
               inference/streaming.py and serve_torch_cli.py, each run's
               launch counts set to 0 just before it and read just after (the
               attention kernel L times per prefill call from 1024 columns:
               the startup wave at B=8 and every refill at B=1): (o) the
               continuous-batching engine, 16 requests ((j)'s 8 prompts, two
-              texts each) over 8 lanes in bursts of 48, greedy (each request
-              against its own single-stream decode under the tie-aware rule,
-              its rows and draws kept by EngineRecorder) and sampled, device
+              texts each) over 8 lanes in bursts of 48, greedy (four requests,
+              ENGINE_COMPARED, against their own single-stream decodes under
+              the tie-aware rule, the rows and draws kept by EngineRecorder)
+              and sampled, device
               operations and ms per engine step (step_profile over one
               burst); 64 requests over 32 lanes at bench.py's engine
               geometry with fp8 weights and the fp8 slab; the speculative
@@ -181,6 +182,27 @@ Phases, in order; any failure raises and the script exits non-zero:
               and ``python`` on the PATH: its acceptance.json parses, with
               tokens a pass and frames/s for taus 2, 4 and 8 in the
               single-stream, serving and engine sections.
+ 14. bench    bench_torch.main in-process at giga830M width with bench.py's
+              geometry (120 phones, 150 prompt frames, 500 frames), --iters
+              1, each run's launch counts set to 0 just before it and read
+              just after, and its decode forwards counted: (A) the default
+              run, fp8 single stream (500 frames) then 32 lanes with the
+              fp8 slab, both lines; (B) --fused-ffn and --bf16 --fused-ffn
+              at 128 frames: 16 FFN launches a forward, all on sm90/fp8,
+              then sm90/bf16;
+              (C) --bf16 at 256 frames with --steps-per-iter 4 beside 1:
+              forwards/s and
+              the device operations and ms a step (torch.profiler over 16
+              steps); (D) outside the bench, inference_tts at request (b)'s
+              greedy geometry with steps_per_iter 4 against 1 under the
+              tie-aware rule, and edit (d) greedy with the eog bias raised
+              at steps_per_iter 3 against 1: every span done, kept frames
+              verbatim, equal; (E) --spec 4 --spec-accept: 4 tokens a pass;
+              (F) --edit-serve 8: every lane to its budget; (G) --engine 8,
+              and --steady at 64 frames a request; (H) --stream with the
+              pipeline on and off at 40 phones; (I) --train and
+              --train-profile: the bf16 GEMM probe's TFLOP/s positive and
+              at most the dense bf16 peak, the fp8 probe's not null.
 
     python3 chip_smoke.py --cards 4
 
@@ -331,7 +353,9 @@ PROFILE_STEPS = 16                   # serving steps in a profiled window
 # single-stream one (bench.py:190-209)
 BENCH_LANES, BENCH_X_PAD, BENCH_Y_PAD, BENCH_PROMPT = 32, 128, 192, 150
 BENCH_PHONES, BENCH_FRAMES = 120, 500
-BENCH_RUNS = 3                       # (n): frames/s is the best of these
+# (n): one run of N_FRAMES rows each (phase 14 runs and times bench.py's
+# 500 frames through bench_torch.py)
+N_FRAMES = 128
 # the fp8 KV slab against a bf16 slab, logits relative in norm, 16 teacher-
 # forced steps of the fp8 decoder: e4m3 keeps 3 mantissa bits, so each k/v
 # is off by up to 2^-4 of itself (~1.8% rms), as each fp8 weight is; the
@@ -351,6 +375,9 @@ EDIT_SERVE = (("d", [(200, 240), (520, 570), (860, 900)]),
 # random prompts, y_pad 192, targets 60-100% of the frames), its 500 frames
 # cut to BENCH_ENGINE_FRAMES
 ENGINE_LANES, ENGINE_BURST, ENGINE_TEXT_START = 8, 48, 11
+# (o): the greedy requests held against their single streams (the shortest
+# and the longest prompt with each text)
+ENGINE_COMPARED = (0, 7, 8, 15)
 BENCH_ENGINE_FRAMES = GEN_MAX
 # phase 9: training at giga830M with the e830M recipe (recipes/e830M.sh:
 # ScaledAdam lr 0.05, codebook weights 5 1 0.5 0.1, chunked attention,
@@ -407,10 +434,24 @@ MESH_NO_DROPOUT = dict(text_embedding_dropout=0.0,
 MESH_TIMEOUT_S, CARDS_PHASE_S, SERVER_START_S = 600, 780, 240
 # phase 13: recipes/spec_acceptance_torch.sh on the card at its default
 # preset (proc50M, 7 MTP head groups: taus 2, 4, 8), cut by its own
-# overrides to a run of about two minutes
-RECIPE_ENV = dict(STEPS="20", N_TRAIN="32", N_EVAL="4", N_SINGLE="2",
+# overrides to a run of about a minute and a half
+RECIPE_ENV = dict(STEPS="10", N_TRAIN="16", N_EVAL="4", N_SINGLE="1",
                   LANES="2")
 RECIPE_TAUS, RECIPE_TIMEOUT_S = (2, 4, 8), 300
+# phase 14: bench_torch.py in-process at bench.py's geometry (bench.py:32-36
+# defaults: 120 phones, 150 prompt frames, 500 frames) at one timed run;
+# steps_per_iter BENCH_K in (C) and (D), BENCH_EDIT_K for (D)'s edit; (B)'s
+# fused FFN at BENCH_FUSED_FRAMES, (C) at BENCH_K_FRAMES (to stay inside
+# the script's time limit); the engine's steady variant at BENCH_STEADY_FRAMES a request (8 waves of
+# BENCH_ENGINE_LANES); the stream at BENCH_STREAM_PHONES phones (random
+# weights stop at the length cap, ~10 frames a phone past the prompt)
+BENCH_ARGS = ["--iters", "1"]
+BENCH_K, BENCH_EDIT_K = 4, 3
+BENCH_EDIT_LANES = BENCH_ENGINE_LANES = 8
+BENCH_STEADY_FRAMES = 64
+BENCH_FUSED_FRAMES = 128             # (B): launches, at fewer frames
+BENCH_K_FRAMES = 256                 # (C): k = 4 beside 1
+BENCH_STREAM_PHONES = 40
 # phase 10: the icefall toolbox (models/scaling.py).  (v) each scaling
 # Function's forward and backward on the card against the CPU in f32, on an
 # activation of the e830M batch's shape (phase 9 (t): 8 rows of 400 + 1,024
@@ -436,7 +477,7 @@ X_STEPS, Z_STEPS = 4, 4                       # (x) and (z) Trainer steps
 # steps, so the words set its length; one engine burst (16) for both taus
 CORPUS_ARGS = ("--train", "8", "--eval", "2", "--min-words", "2",
                "--max-words", "3")
-CLI_PROMPT_SEC, CLI_N = "0.6", "2"
+CLI_PROMPT_SEC, CLI_N = "0.6", "1"
 QUALITY_MODES = ("resynth", "plain", "spec", "stream", "fp8", "edit",
                  "edit_spec")
 
@@ -2169,39 +2210,36 @@ def serving_phase(model, codec, ccfg, serve, edits):
     nx, ny, _ = decode_geometry(cfg, len(x), prefix.length, gen_max=16)
     xt, yt, mi, qm = pad_inputs(cfg, x, prefix, nx, ny, "cuda")
     log(f"  (n) bench_mode at bench.py's geometry: {BENCH_PHONES} phones, "
-        f"{BENCH_PROMPT} prompt frames, {BENCH_FRAMES} frames, Sp {nx + ny}, "
+        f"{BENCH_PROMPT} prompt frames, {N_FRAMES} frames, Sp {nx + ny}, "
         f"fused FFN")
     for label, m, kv in (("bf16", model, None), ("fp8, fp8 slab", qmodel, f8)):
         loop = make_decode_loop(cfg, is_tts=True, x_pad=nx, y_pad=ny,
-                                gen_max=BENCH_FRAMES, scfg=bench_scfg,
+                                gen_max=N_FRAMES, scfg=bench_scfg,
                                 bench_mode=True, fused_ffn=True, kv_dtype=kv)
         _native.reset_launch_counts()
-        times, forwards = [], 0
-        for i in range(BENCH_RUNS):
-            t0 = time.time()
-            res = loop(m, xt, len(x), yt, prefix.length, mi, qm, 1,
-                       torch.Generator(device="cuda").manual_seed(i))
-            times.append(time.time() - t0)
-            forwards += res.forwards
-            if res.gen_cnt != BENCH_FRAMES:
-                raise AssertionError(f"(n) {label}: {res.gen_cnt} rows, not "
-                                     f"{BENCH_FRAMES}")
+        t0 = time.time()
+        res = loop(m, xt, len(x), yt, prefix.length, mi, qm, 1,
+                   torch.Generator(device="cuda").manual_seed(0))
+        wall = time.time() - t0
+        if res.gen_cnt != N_FRAMES:
+            raise AssertionError(f"(n) {label}: {res.gen_cnt} rows, not "
+                                 f"{N_FRAMES}")
         launches = dict(_native.LAUNCHES)
         check_launches(f"n {label}", launches, {
-            "flash_prefix_attention": 0, "fused_ffn": L * forwards})
+            "flash_prefix_attention": 0, "fused_ffn": L * res.forwards})
         out.append(launches)
-        log(f"  (n) {label}: {BENCH_FRAMES} rows each of {BENCH_RUNS} runs, best "
-            f"{min(times):.3f} s = {BENCH_FRAMES / min(times):.1f} frames/s")
+        log(f"  (n) {label}: {N_FRAMES} rows in {wall:.3f} s = "
+            f"{N_FRAMES / wall:.1f} frames/s (one run)")
     # one run: with random MTP heads nearly every sampled draft is rejected,
     # so it takes ~1 pass a row
-    loop = make_spec_decode_loop(cfg, x_pad=nx, y_pad=ny, gen_max=BENCH_FRAMES,
+    loop = make_spec_decode_loop(cfg, x_pad=nx, y_pad=ny, gen_max=N_FRAMES,
                                  scfg=bench_scfg, n_draft=TAU, bench_mode=True)
     res, wall = counted("n speculative", lambda: loop(
         model, xt, len(x), yt, prefix.length, mi, SEED), nx + ny)
     log(f"  (n) speculative, tau {TAU}, bench_mode: {res.gen_cnt} rows in "
         f"{res.passes} passes, {wall:.3f} s = {res.gen_cnt / wall:.1f} "
         f"frames/s (one run)")
-    if res.gen_cnt != BENCH_FRAMES:
+    if res.gen_cnt != N_FRAMES:
         raise AssertionError(f"(n) speculative: {res.gen_cnt} rows")
     del model.mtp_heads, qmodel
     return out
@@ -2423,7 +2461,7 @@ def engine_phase(model, codec, ccfg, serve, texts2, a_req, long_wav):
     if eng.stats["waves"] + eng.stats["refills"] < 2:
         raise AssertionError(f"(o): no lane was refilled: {eng.stats}")
     plain = [rec.request(rid) for rid in range(len(reqs))]
-    for i in range(len(reqs)):
+    for i in ENGINE_COMPARED:
         (x, codes), (rows, la) = reqs[i], plain[i]
         ref, ref_la = single_stream(f"o request {i} single stream", x, codes)
         ref, ref_la = capped(rows, ref, ref_la)
@@ -3276,6 +3314,243 @@ def recipe_phase():
     return wall
 
 
+# ---- phase 14 ----------------------------------------------------------------
+
+class BenchRun:
+    """One bench_torch.main call in-process: its JSON lines, its stderr
+    lines (logged under the label), its decoder forwards (calls of
+    transformer.decode_step_fast) and its launch counts, set to 0 just
+    before and read just after; ``profile`` = n also gives the device
+    operations and device ms a decode step over n steps of its first run
+    (step_profile)."""
+
+    def __init__(self, label, argv, profile=None):
+        import bench_torch
+        import torch
+        from voicecraft_tpu_torch.models import transformer as trm
+        from voicecraft_tpu_torch.ops import _native
+        self.label, self.argv = label, list(argv)
+        step, count = trm.decode_step_fast, [0]
+
+        def counting(*a, **kw):
+            count[0] += 1
+            return step(*a, **kw)
+
+        err = io.StringIO()
+        _native.reset_launch_counts()
+        trm.decode_step_fast = counting
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stderr(err):
+                self.costs = None
+                if profile:
+                    self.costs = step_profile(
+                        lambda: setattr(self, "results",
+                                        bench_torch.main(self.argv)),
+                        profile, module=trm, name="decode_step_fast")
+                else:
+                    self.results = bench_torch.main(self.argv)
+            torch.cuda.synchronize()
+        finally:
+            trm.decode_step_fast = step
+            for line in err.getvalue().splitlines():
+                log(f"  ({label}) {line}")
+        self.wall = time.time() - t0
+        self.forwards = count[0]
+        self.launches = dict(_native.LAUNCHES)
+        self.routes = dict(_native.ROUTE_LAUNCHES)
+        self.err = err.getvalue()
+        log(f"  ({label}) bench_torch.py {' '.join(self.argv)}: "
+            f"{len(self.results)} lines in {self.wall:.1f} s, "
+            f"{self.forwards} decode forwards; launches {self.launches}")
+
+    def metrics(self):
+        return [r["metric"] for r in self.results]
+
+    def match(self, pattern):
+        """The numbers of the first stderr line that ``pattern`` matches."""
+        m = re.search(pattern, self.err)
+        if m is None:
+            raise AssertionError(f"({self.label}) no line matches {pattern!r}")
+        return [float(g) for g in m.groups()]
+
+
+def bench_phase(requests, edits):
+    """Phase 14: bench_torch.py, the twin of bench.py, called in-process
+    at giga830M width with bench.py's geometry (BENCH_ARGS, --iters 1):
+    every mode's JSON line, the fused FFN's launches on both routes,
+    steps_per_iter 4 beside 1 (in the bench and outside it), each run's
+    launch counts set to 0 just before it and read just after.  Returns
+    the launch counts of each run.  (D) runs on phase 4's model made anew
+    from its seed (phase 11 has sharded that one)."""
+    import torch
+    from voicecraft_tpu_torch.inference.editing import inference_edit
+    from voicecraft_tpu_torch.inference.loader import load_model
+    from voicecraft_tpu_torch.inference.tts import inference_tts
+    from voicecraft_tpu_torch.models.voicecraft import SamplingConfig
+    cfg, model, _ = load_model("giga830M", random_init=True, seed=SEED,
+                               device="cuda")
+    L, K = cfg.num_decoder_layers, cfg.n_codebooks
+    sr = cfg.encodec_sr
+    out = []
+    log(f"[14 bench] bench_torch.main {' '.join(BENCH_ARGS)} (bench.py's "
+        "geometry) and each mode's flags")
+
+    def bench(label, flags, metrics, ffn=0, route=None, profile=None):
+        r = BenchRun(label, BENCH_ARGS + flags, profile)
+        if r.metrics() != metrics:
+            raise AssertionError(f"({label}) metrics {r.metrics()}, want "
+                                 f"{metrics}")
+        for res in r.results:
+            v = res.get("value", res.get("tokens_per_sec"))
+            if not (np.isfinite(v) and v > 0):
+                raise AssertionError(f"({label}) {res}")
+        want = {"flash_prefix_attention": 0, "fused_ffn": ffn * L * r.forwards}
+        check_launches(label, r.launches, want)
+        if route is not None and r.routes.get(f"fused_ffn:{route}") != \
+                r.launches["fused_ffn"]:
+            raise AssertionError(f"({label}) FFN launches off {route}: "
+                                 f"{r.routes}")
+        out.append(r.launches)
+        return r
+
+    # (A) the default run: fp8 single stream, then 32 fp8-slab lanes
+    a = bench("A", [], ["tts_rtf_830m", f"tts_serving_rtf_830m_b{BENCH_LANES}"])
+    if a.match(r"generated (\d+) frames") != [BENCH_FRAMES]:
+        raise AssertionError(f"(A) {a.err}")
+    if a.results[1]["single_stream_rtf"] != a.results[0]["value"]:
+        raise AssertionError(f"(A) {a.results}")
+
+    # (B) the fused FFN on its two routes, 16 launches a forward
+    fused = {}
+    for label, flags, metrics, route in (
+            ("B fp8", ["--fused-ffn"],
+             ["tts_rtf_830m", f"tts_serving_rtf_830m_b{BENCH_LANES}"],
+             "sm90/fp8"),
+            ("B bf16", ["--bf16", "--fused-ffn"], ["tts_rtf_830m_bf16"],
+             "sm90/bf16")):
+        r = bench(label, flags + ["--frames", str(BENCH_FUSED_FRAMES)],
+                  metrics, ffn=1, route=route)
+        if r.forwards != 2 * BENCH_FUSED_FRAMES:
+            raise AssertionError(f"({label}) {r.forwards} forwards, want "
+                                 f"{2 * BENCH_FUSED_FRAMES} (warm-up + 1 run)")
+        fused[label] = r.results[0]["value"] * sr
+        log(f"  ({label}) {r.launches['fused_ffn']} FFN launches = {L} x "
+            f"{r.forwards} forwards, all on {route}")
+
+    # (C) steps_per_iter 4 beside 1, bf16, unfused
+    rates = {}
+    for k in (1, BENCH_K):
+        flags = ["--bf16", "--frames", str(BENCH_K_FRAMES)] + (
+            ["--steps-per-iter", str(k)] if k > 1 else [])
+        r = bench(f"C k={k}", flags, ["tts_rtf_830m_bf16"],
+                  profile=PROFILE_STEPS)
+        ops, ms = r.costs
+        rates[k] = r.results[0]["value"] * sr
+        if r.forwards != 2 * BENCH_K_FRAMES:
+            raise AssertionError(f"(C k={k}) {r.forwards} forwards")
+        log(f"  (C) steps_per_iter {k}: {rates[k]:.1f} forwards/s "
+            f"(= frames/s: {BENCH_K_FRAMES} forwards a run), "
+            f"{_fmt(ops)} device operations and {_fmt(ms, 4)} device ms a "
+            f"step (torch.profiler over {PROFILE_STEPS} steps)")
+    log(f"  (C) steps_per_iter {BENCH_K} / 1: {rates[BENCH_K] / rates[1]:.3f} "
+        "x the forwards/s")
+
+    # (D) outside the bench: inference_tts at request (b)'s greedy geometry,
+    # and a three-span edit of (d), steps_per_iter k against 1
+    b = requests[1]
+    greedy = SamplingConfig(top_k=40, top_p=1.0, temperature=0.0)
+    gens, draws = {}, {}
+    for k in (1, BENCH_K):
+        with DrawRecorder() as rec:
+            st = {}
+            t0 = time.time()
+            _, gens[k] = inference_tts(model, b.x, b.codes, greedy, seed=SEED,
+                                       gen_max=GEN_MAX, stats=st,
+                                       steps_per_iter=k)
+            torch.cuda.synchronize()
+        draws[k] = rec.logits
+        log(f"  (D) request (b) greedy, steps_per_iter {k}: "
+            f"{gens[k].shape[1]} frames, {st['steps']} forwards in "
+            f"{time.time() - t0:.3f} s")
+    same_under_ties(f"(D) steps_per_iter {BENCH_K} vs 1",
+                    delayed_rows(gens[BENCH_K]), delayed_rows(gens[1]),
+                    draws[BENCH_K], draws[1])
+    d = edits[0]
+    res, sts = {}, {}
+    with raised_eog_bias(model):
+        for k in (1, BENCH_EDIT_K):
+            sts[k] = {}
+            res[k] = inference_edit(model, d.x, d.codes, d.intervals, greedy,
+                                    seed=SEED, gen_max=EDIT_GEN_MAX,
+                                    stats=sts[k], steps_per_iter=k)
+            st = sts[k]
+            log(f"  (D) edit (d) greedy, eog bias raised by {EOG_BIAS}, "
+                f"steps_per_iter {k}: {st['spans_done']} spans done, frames "
+                f"{st['span_frames']}, {st['steps']} forwards ({st['feeds']} "
+                "feeds)")
+            if not (st["spans_done"] == len(d.intervals)
+                    and min(st["span_frames"]) > 0
+                    and kept_frames_verbatim(res[k], d.codes, d.intervals,
+                                             st["span_frames"])):
+                raise AssertionError(f"(D) edit at steps_per_iter {k}: {st}")
+    if not np.array_equal(res[1], res[BENCH_EDIT_K]):
+        raise AssertionError(f"(D) the edit at steps_per_iter {BENCH_EDIT_K} "
+                             "differs from steps_per_iter 1")
+
+    # (E) speculative, every draft accepted: tau tokens a pass
+    r = bench("E", ["--spec", str(TAU), "--spec-accept"],
+              [f"tts_spec_rtf_830m_tau{TAU}_ceiling"])
+    tokens, passes = r.match(r"(\d+) tokens / (\d+) passes")
+    if tokens != BENCH_FRAMES or tokens != TAU * passes:
+        raise AssertionError(f"(E) {tokens} tokens in {passes} passes")
+
+    # (F) batched editing, every lane to its budget
+    r = bench("F", ["--edit-serve", str(BENCH_EDIT_LANES)],
+              [f"edit_serving_rtf_830m_b{BENCH_EDIT_LANES}"])
+    if r.match(r"for (\d+) frames across")[0] != BENCH_EDIT_LANES * BENCH_FRAMES:
+        raise AssertionError(f"(F) {r.err}")
+
+    # (G) the engine, and its steady variant at fewer frames a request
+    bench("G", ["--engine", str(BENCH_ENGINE_LANES)],
+          [f"tts_engine_rtf_830m_l{BENCH_ENGINE_LANES}"])
+    bench("G steady", ["--engine", str(BENCH_ENGINE_LANES), "--steady",
+                       "--frames", str(BENCH_STEADY_FRAMES)],
+          [f"tts_engine_rtf_830m_l{BENCH_ENGINE_LANES}_steady"])
+
+    # (H) streaming, pipeline on and off, at fewer phones (the length cap
+    # of random weights: ~10 frames a phone)
+    for flags, suffix in (([], ""), (["--stream-no-pipeline"], "_nopipe")):
+        bench(f"H{suffix}", ["--stream", "--phones", str(BENCH_STREAM_PHONES)]
+              + flags, [f"tts_stream_first_audio_ms_burst48{suffix}"])
+
+    # (I) training: the step's rate, and the cost ladder with its GEMM probes
+    bench("I", ["--train"], ["train_tokens_per_sec_giga830M"])
+    r = bench("I profile", ["--train-profile"], ["train_profile_giga830M"])
+    p = r.results[0]
+    if not (0 < p["gemm_probe_tflops"] <= BF16_FLOP_PER_S / 1e12
+            and p["gemm_probe_fp8_tflops"] is not None
+            and p["gemm_probe_fp8_tflops"] > 0 and p["t_step_s"] > 0):
+        raise AssertionError(f"(I) {p}")
+    log(f"[14 bench] fused FFN forwards/s: fp8 {fused['B fp8']:.1f}, bf16 "
+        f"{fused['B bf16']:.1f}")
+    return out
+
+
+def delayed_rows(gen):
+    """The delayed-space rows [T + K - 1, K] of generated frames gen [K, T]
+    (row t holds frame t - k of codebook k; -1 outside the frames)."""
+    K, T = gen.shape
+    rows = np.full((T + K - 1, K), -1, np.int64)
+    for k in range(K):
+        rows[k:k + T, k] = gen[k]
+    return rows
+
+
+def _fmt(v, digits=1):
+    return "not measured" if v is None else f"{v:.{digits}f}"
+
+
 # ---- phase 10 ----------------------------------------------------------------
 
 def scaling_check():
@@ -3704,7 +3979,8 @@ def tooling_clis(codec, ccfg, work, recipe):
     log(f"  (z) quality_torch_cli.py --n {CLI_N} --modes "
         f"{' '.join(QUALITY_MODES)} ({time.time() - t0:.1f} s): "
         + json.dumps(quality))
-    if set(quality["modes"]) != set(QUALITY_MODES) or quality["n"] != 2:
+    if (set(quality["modes"]) != set(QUALITY_MODES)
+            or quality["n"] != int(CLI_N)):
         raise AssertionError(f"(z) quality: modes {sorted(quality['modes'])}")
     false = [(m, f) for m, f in (("spec", "bit_exact_vs_plain"),
                                  ("stream", "bit_exact_vs_plain"),
@@ -4472,6 +4748,44 @@ def cards_main(n_cards: int) -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def slice_requests():
+    """Phase 4's requests (a), (b), (c) with their phone ids, as
+    tts_torch_cli.py makes them: (tokenizer, demo wav, the demo tiled
+    LONG_TILES times, requests, phone vocabulary)."""
+    from voicecraft_tpu_torch.data.phonemes import (build_vocab,
+                                                    make_text_tokenizer,
+                                                    phones_to_ids)
+    from voicecraft_tpu_torch.models.voicecraft import SamplingConfig
+    from voicecraft_tpu_torch.utils import audio as au
+    tok = make_text_tokenizer("en-us", "grapheme")
+    demo = au.load_audio(str(REPO / "demo" / "demo.wav"), 16000)
+    long_wav = np.tile(demo, (1, LONG_TILES))
+    long_text = " ".join([PROMPT] * LONG_TILES)
+    sampled = SamplingConfig(top_k=40, top_p=1.0, temperature=1.0)
+    greedy = SamplingConfig(top_k=40, top_p=1.0, temperature=0.0)
+    requests = [Request("a", long_wav, long_text, sampled, True),
+                Request("b", long_wav, long_text, greedy, True),
+                Request("c", demo, PROMPT, greedy, False)]
+    for r in requests:
+        r.phones = tok.phonemize(r.transcript + " " + TARGET)
+    vocab = build_vocab([r.phones for r in requests])
+    for r in requests:
+        r.x = np.asarray(phones_to_ids(r.phones, vocab), np.int32)
+    return tok, demo, long_wav, requests, vocab
+
+
+def loop_ops(model, r, fused_ffn):
+    """(device operations, device ms) a decode step of inference_tts's loop
+    (the draw, the bookkeeping, the forward, the heads and the host sync)
+    at request r's geometry, over PROFILE_STEPS steps (step_profile)."""
+    from voicecraft_tpu_torch.inference.tts import inference_tts
+    from voicecraft_tpu_torch.models import transformer as trm
+    return step_profile(
+        lambda: inference_tts(model, r.x, r.codes, r.scfg, seed=SEED,
+                              gen_max=PROFILE_STEPS + 2, fused_ffn=fused_ffn),
+        PROFILE_STEPS, module=trm, name="decode_step_fast")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4479,16 +4793,12 @@ def main() -> None:
                          "this script needs a CUDA card")
     sys.path.insert(0, str(REPO))
     from voicecraft_tpu_torch import PRESETS
-    from voicecraft_tpu_torch.data.phonemes import (build_vocab,
-                                                    make_text_tokenizer,
-                                                    phones_to_ids)
+    from voicecraft_tpu_torch.data.phonemes import phones_to_ids
     from voicecraft_tpu_torch.data.spans import compose_tts_prefix
     from voicecraft_tpu_torch.inference.loader import load_codec, load_model
     from voicecraft_tpu_torch.inference.tts import decode_geometry, inference_tts
     from voicecraft_tpu_torch.models import encodec as ec
-    from voicecraft_tpu_torch.models.voicecraft import SamplingConfig
     from voicecraft_tpu_torch.ops import _native
-    from voicecraft_tpu_torch.utils import audio as au
 
     # ---- 1. device ----
     card = card_line()
@@ -4510,20 +4820,7 @@ def main() -> None:
             log("  " + line.strip())
 
     # the requests' inputs, as tts_torch_cli.py makes them
-    tok = make_text_tokenizer("en-us", "grapheme")
-    demo = au.load_audio(str(REPO / "demo" / "demo.wav"), 16000)
-    long_wav = np.tile(demo, (1, LONG_TILES))
-    long_text = " ".join([PROMPT] * LONG_TILES)
-    sampled = SamplingConfig(top_k=40, top_p=1.0, temperature=1.0)
-    greedy = SamplingConfig(top_k=40, top_p=1.0, temperature=0.0)
-    requests = [Request("a", long_wav, long_text, sampled, True),
-                Request("b", long_wav, long_text, greedy, True),
-                Request("c", demo, PROMPT, greedy, False)]
-    for r in requests:
-        r.phones = tok.phonemize(r.transcript + " " + TARGET)
-    vocab = build_vocab([r.phones for r in requests])
-    for r in requests:
-        r.x = np.asarray(phones_to_ids(r.phones, vocab), np.int32)
+    tok, demo, long_wav, requests, vocab = slice_requests()
     long_frames = -(-long_wav.shape[1] // 320)
     x_pad, y_pad, _ = decode_geometry(PRESETS["giga830M"](), len(requests[0].x),
                                       long_frames + 1, gen_max=GEN_MAX)
@@ -4619,6 +4916,11 @@ def main() -> None:
     log(f"  request (a) prefill, {cfg.num_decoder_layers} layers at S={S}: "
         f"{pre['kernel']:.3f} ms through the attention kernel, "
         f"{pre['dense mha']:.3f} ms through dense mha")
+    for fused in (True, False):
+        ops, ms = loop_ops(model, requests[0], fused)
+        log(f"  request (a)'s decode loop, fused_ffn {fused}: {_fmt(ops)} "
+            f"device operations and {_fmt(ms, 4)} device ms a step "
+            f"(torch.profiler over {PROFILE_STEPS} steps)")
 
     # ---- 5. editing ----
     edits = edit_requests(model, codec)
@@ -4679,6 +4981,13 @@ def main() -> None:
 
     # ---- 13. the recipe twins on the card ----
     recipe_phase()
+
+    # ---- 14. bench_torch.py, the twin of bench.py ----
+    t0 = time.time()
+    for run_launches in bench_phase(requests, edits):
+        launches = {name: n + run_launches[name]
+                    for name, n in launches.items()}
+    log(f"[14 bench] done in {time.time() - t0:.1f} s")
 
     kernels = [
         dict(name="flash_prefix_attention", route="cuda",

@@ -115,10 +115,11 @@ def test_fp8_and_bf16_arrays_cross_bit_exact():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, its CLIs and chip_smoke.py import with JAX
-    and the JAX package unavailable (the machine with the card has no JAX,
-    and the port stands alone), and without transformers and datasets,
-    which only the Whisper and --hf-dataset paths import, when they run."""
+    """Every module of the port, its CLIs, bench_torch.py and chip_smoke.py
+    import with JAX and the JAX package unavailable (the machine with the
+    card has no JAX, and the port stands alone), and without transformers
+    and datasets, which only the Whisper and --hf-dataset paths import,
+    when they run."""
     code = (
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
@@ -134,7 +135,7 @@ def test_port_imports_without_jax():
         "                  'serve_torch_cli', 'train_torch_cli',\n"
         "                  'eval_torch_cli', 'preprocess_torch_cli',\n"
         "                  'export_torch_cli', 'quality_torch_cli',\n"
-        "                  'spec_acceptance_torch_cli']:\n"
+        "                  'spec_acceptance_torch_cli', 'bench_torch']:\n"
         "    importlib.import_module(n)\n"
         "for n in ('models.voicecraft', 'inference.editing', 'align',\n"
         "          'utils.convert_encodec', 'utils.transcribe',\n"
@@ -144,7 +145,8 @@ def test_port_imports_without_jax():
         "          'utils.text_norm', 'native', 'data.manifest',\n"
         "          'training.optim', 'training.step', 'training.trainer',\n"
         "          'utils.profiling', 'models.scaling',\n"
-        "          'ops.pattern_providers', 'utils.quality'):\n"
+        "          'ops.pattern_providers', 'utils.quality',\n"
+        "          'training.synthetic'):\n"
         "    assert 'voicecraft_tpu_torch.' + n in names, n\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -173,7 +175,8 @@ def test_port_source_has_no(banned):
              REPO / "train_torch_cli.py", REPO / "eval_torch_cli.py",
              REPO / "preprocess_torch_cli.py", REPO / "export_torch_cli.py",
              REPO / "quality_torch_cli.py",
-             REPO / "spec_acceptance_torch_cli.py", REPO / "chip_smoke.py"]
+             REPO / "spec_acceptance_torch_cli.py", REPO / "chip_smoke.py",
+             REPO / "bench_torch.py"]
     hits = []
     for p in files:
         lines = [ln for ln in p.read_text().splitlines() if banned in ln]

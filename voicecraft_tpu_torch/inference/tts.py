@@ -94,11 +94,15 @@ def run_decode(model: VoiceCraft, *, is_tts: bool, x_tokens: np.ndarray,
                scfg: SamplingConfig, queue_mask_ids: Sequence[int] = (),
                seed: int = 1, gen_max: Optional[int] = None,
                return_raw: bool = False, fused_ffn: bool = False,
-               stats: Optional[dict] = None, spec: int = 0):
+               stats: Optional[dict] = None, spec: int = 0,
+               steps_per_iter: int = 1):
     """Shared decode entry of TTS (one span) and editing (``n_spans`` spans,
     ``queue_mask_ids`` from ``spans.compose_edit_prefix``).  ``spec`` = tau
     >= 2 decodes an edit speculatively (make_spec_edit_loop; the model
     needs tau - 1 MTP head groups); TTS goes through inference_tts_spec.
+    ``steps_per_iter`` = k runs k decode steps between host syncs, with
+    the same output (make_decode_loop; the speculative loop ignores it,
+    as JAX's does).
 
     Returns a list of the generated spans [K, T_j] (unshifted; a span of at
     most K samples gives [K, 0]), or with ``return_raw`` the recorded
@@ -130,11 +134,13 @@ def run_decode(model: VoiceCraft, *, is_tts: bool, x_tokens: np.ndarray,
     else:
         loop = make_decode_loop(cfg, is_tts=is_tts, x_pad=x_pad, y_pad=y_pad,
                                 gen_max=gen_max, scfg=scfg,
-                                fused_ffn=fused_ffn)
+                                fused_ffn=fused_ffn,
+                                steps_per_iter=steps_per_iter)
         generator = torch.Generator(device=dev).manual_seed(seed)
         res = loop(model, xt, len(x_tokens), yt, prefix.length, mi, qm,
                    n_spans, generator)
-        forwards, feeds = res.forwards, res.forwards - res.gen_cnt
+        forwards = res.forwards
+        feeds = res.forwards - res.idle - res.gen_cnt
     if stats is not None:
         stats.update(prefill_len=x_pad + y_pad, steps=forwards, feeds=feeds,
                      spans_done=res.spans_done)
@@ -190,10 +196,11 @@ def check_codes(cfg: ModelConfig, y_codes: np.ndarray) -> None:
 def inference_tts(model: VoiceCraft, x_tokens: np.ndarray, y_codes: np.ndarray,
                   scfg: SamplingConfig = SamplingConfig(), seed: int = 1,
                   gen_max: Optional[int] = None, fused_ffn: bool = False,
-                  stats: Optional[dict] = None):
+                  stats: Optional[dict] = None, steps_per_iter: int = 1):
     """Zero-shot TTS: continue the voice prompt ``y_codes`` [K, T] for the
     phoneme sequence ``x_tokens`` [Lx].  ``fused_ffn`` runs the decode-step
-    FFN through the fused kernel.
+    FFN through the fused kernel; ``steps_per_iter`` = k syncs the host
+    once every k steps, with the same output (make_decode_loop).
 
     Returns (full_codes [K, T+Tg], generated [K, Tg])."""
     cfg = model.cfg
@@ -203,7 +210,8 @@ def inference_tts(model: VoiceCraft, x_tokens: np.ndarray, y_codes: np.ndarray,
     prefix = spans.compose_tts_prefix(y_codes, cfg)
     gen = run_decode(model, is_tts=True, x_tokens=x_tokens, prefix=prefix,
                      n_spans=1, scfg=scfg, seed=seed, gen_max=gen_max,
-                     fused_ffn=fused_ffn, stats=stats)[0]
+                     fused_ffn=fused_ffn, stats=stats,
+                     steps_per_iter=steps_per_iter)[0]
     return _tts_output(cfg, y_codes, gen)
 
 

@@ -181,6 +181,12 @@ def check_mtp_heads(model: "VoiceCraft", n_draft: int,
             stacklevel=2)
 
 
+def param_count(model: nn.Module) -> int:
+    """The model's parameter count (the JAX package's ``param_count`` of
+    the same preset's parameters)."""
+    return sum(p.numel() for p in model.parameters())
+
+
 def embed_audio_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Sum of per-codebook embeddings: table [K, card, D], tokens [B, K, T]
     -> [B, T, D] in the table's dtype (a D-sharded table's sum all-gathered
@@ -615,48 +621,71 @@ class DecodeResult:
     gen_cnt: int              # recorded samples (rows of gen_buf in use)
     spans_done: int           # spans started (the JAX loop's span_idx + 1)
     forwards: int             # decoder forwards, feed steps included
+    idle: int = 0             # forwards after the decode ended (the trailing
+                              # sub-steps of steps_per_iter > 1)
 
 
 def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
                      y_pad: int, gen_max: int, scfg: SamplingConfig,
+                     max_spans: Optional[int] = None,
                      bench_mode: bool = False, fused_ffn: bool = False,
-                     kv_dtype: Optional[str] = None):
+                     kv_dtype: Optional[str] = None, steps_per_iter: int = 1):
     """The single-sample decode function for one geometry: TTS (one span)
     or multi-span editing.
 
     Static geometry: x padded to ``x_pad``, the composed y prefix padded to
-    ``y_pad``, at most ``gen_max`` recorded samples.  When a span completes
-    and spans remain, a 2-deep queue feeds [mask embedding of the next
-    span, empty column] through the decoder.  Those feed steps advance
-    ``pos`` and ``y_pos`` but record nothing and do not count against
-    ``gen_max``, so the slab has 2 * (max_n_spans - 1) extra slots.  Every
-    step draws (a feed step's draw is thrown away), so each step of a decode
-    runs the same ops; the queue, the per-span resets and the span
-    bookkeeping are device tensors under ``torch.where``.  A one-span decode
-    (TTS) can never queue a feed and leaves that bookkeeping out (~30 fewer
-    launches per step).  One host sync per step reads ``done``, the sample
-    count and the span index together.
+    ``y_pad``, at most ``gen_max`` recorded samples, at most ``max_spans``
+    spans (default ``cfg.max_n_spans``).  When a span completes and spans
+    remain, a 2-deep queue feeds [mask embedding of the next span, empty
+    column] through the decoder.  Those feed steps advance ``pos`` and
+    ``y_pos`` but record nothing and do not count against ``gen_max``, so
+    the slab has 2 * (max_spans - 1) extra slots.  Every step draws (a feed
+    step's draw is thrown away), so each step of a decode runs the same
+    ops; the queue, the per-span resets and the span bookkeeping are device
+    tensors under ``torch.where``.  A one-span decode (TTS) can never queue
+    a feed and leaves that bookkeeping out (~30 fewer launches per step).
+
+    ``steps_per_iter`` = k runs k steps between host syncs, each of which
+    reads ``done``, the sample count and the span index together (k = 1:
+    one sync a step).  With k > 1 every step is gated on ``active`` (not
+    done and under the budget): a step after the end still runs the
+    forward, writing its k/v at the frozen ``pos`` (the next free slot,
+    clamped into the slab as JAX's dynamic_update_slice clamps it; no
+    active step reads it, since a decode never becomes active again) and
+    its samples past the recorded count (a spare row covers a full
+    budget), and leaves the bookkeeping as it was.  Its draws come after
+    the last recorded sample, so the output equals k = 1's token for
+    token.  The slab keeps k = 1's size (JAX's has k - 1 more slots): its
+    products keep their shapes, so on the card too every active step
+    computes k = 1's logits bit for bit.  At most k - 1 forwards are
+    wasted (``DecodeResult.idle``).
 
     ``bench_mode`` (measurement) never stops a span: the decode records
     exactly ``gen_max`` samples, with special codes mapped to 0.
     ``kv_dtype`` (e.g. ``"float8_e4m3fn"``) stores the slab in that dtype.
 
     Returns decode(model, x_tokens [1, x_pad], x_len, y_prefix [1, K, y_pad],
-    prefix_len, mask_emb_idx [1, y_pad], queue_mask_ids [max_n_spans],
+    prefix_len, mask_emb_idx [1, y_pad], queue_mask_ids [max_spans],
     n_spans, generator) -> DecodeResult.
     """
     K = cfg.n_codebooks
     cap_mult = (cfg.encodec_sr // 5) if is_tts else 10
-    s_max = x_pad + y_pad + gen_max + 2 * (cfg.max_n_spans - 1)
+    if max_spans is None:
+        max_spans = cfg.max_n_spans
+    if steps_per_iter < 1:
+        raise ValueError(f"steps_per_iter {steps_per_iter} < 1")
+    grouped = steps_per_iter > 1
+    s_max = x_pad + y_pad + gen_max + 2 * (max_spans - 1)
 
     @torch.inference_mode()
     def decode(model: VoiceCraft, x_tokens, x_len: int, y_prefix,
                prefix_len: int, mask_emb_idx, queue_mask_ids, n_spans: int,
                generator: Optional[torch.Generator]) -> DecodeResult:
-        if not 1 <= n_spans <= cfg.max_n_spans:
-            raise ValueError(f"n_spans {n_spans} outside [1, max_n_spans "
-                             f"{cfg.max_n_spans}] (the slab holds the feeds "
-                             "of max_n_spans - 1 span transitions)")
+        if not 1 <= n_spans <= max_spans:
+            raise ValueError(f"n_spans {n_spans} outside [1, max_spans "
+                             f"{max_spans}] (the slab holds the feeds of "
+                             "max_spans - 1 span transitions; max_spans "
+                             "defaults to max_n_spans)")
         dev, dtype = model.device, model.dtype
         ltype = torch.long
 
@@ -668,8 +697,9 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
         x_len_t = scalar(x_len)
         pos = scalar(x_pad + prefix_len)
         y_pos = scalar(prefix_len)
-        gen_buf = torch.zeros((gen_max, K), dtype=ltype, device=dev)
-        span_buf = torch.zeros((gen_max,), dtype=ltype, device=dev)
+        # grouped steps write past the budget: one spare row
+        gen_buf = torch.zeros((gen_max + grouped, K), dtype=ltype, device=dev)
+        span_buf = torch.zeros((gen_max + grouped,), dtype=ltype, device=dev)
         gen_cnt = scalar(0)
         codebook_eog = torch.zeros((K,), dtype=torch.bool, device=dev)
         cur_num_gen = scalar(0)
@@ -681,79 +711,106 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
         queue_mask_ids = queue_mask_ids.to(device=dev, dtype=ltype)
         empty_emb = column_embedding(
             model, torch.full((K,), cfg.empty_token, dtype=ltype, device=dev))
+        done = scalar(False, torch.bool)
+        idle = scalar(0)
         forwards = 0
         multi = n_spans > 1
 
         while True:
-            samples, new_eog, new_consec, new_prev = _adjust_and_sample(
-                cfg, scfg, is_tts, cap_mult, generator, logits[0],
-                codebook_eog, cur_num_gen, consec, prev, y_pos, x_len_t,
-                bench_mode=bench_mode)
-            gen_buf.index_copy_(0, gen_cnt.view(1), samples[None])
-            emb = column_embedding(model, samples)
-            if not multi:
-                # one span: its completion ends the loop after this step,
-                # so nothing is reset
-                done = new_eog.all()
-                gen_cnt += 1
-                codebook_eog, cur_num_gen = new_eog, cur_num_gen + 1
-                consec, prev = new_consec, new_prev
-            else:
-                # a feed step records nothing and leaves the sampling state
-                # alone; the row it wrote at gen_cnt lies past the recorded
-                # count, and the next sample overwrites it
-                feeding = queue_len > 0
-                span_complete = new_eog.all() & ~feeding
-                span_buf.index_copy_(0, gen_cnt.view(1), span_idx.view(1))
-                gen_cnt += (~feeding).long()
-                emb = torch.where(feeding, queue[0], emb)
+            for _ in range(steps_per_iter):
+                if grouped:
+                    active = ~done & (gen_cnt < gen_max)
+                samples, new_eog, new_consec, new_prev = _adjust_and_sample(
+                    cfg, scfg, is_tts, cap_mult, generator, logits[0],
+                    codebook_eog, cur_num_gen, consec, prev, y_pos, x_len_t,
+                    bench_mode=bench_mode)
+                gen_buf.index_copy_(0, gen_cnt.view(1), samples[None])
+                emb = column_embedding(model, samples)
+                if not multi and not grouped:
+                    # one span: its completion ends the loop after this
+                    # step, so nothing is reset
+                    done = new_eog.all()
+                    gen_cnt += 1
+                    codebook_eog, cur_num_gen = new_eog, cur_num_gen + 1
+                    consec, prev = new_consec, new_prev
+                elif not multi:
+                    done = done | (new_eog.all() & active)
+                    gen_cnt += active.long()
+                    codebook_eog = torch.where(active, new_eog, codebook_eog)
+                    cur_num_gen = cur_num_gen + active.long()
+                    consec = torch.where(active, new_consec, consec)
+                    prev = torch.where(active, new_prev, prev)
+                else:
+                    # a feed step records nothing and leaves the sampling
+                    # state alone (as does an inactive step); the row it
+                    # wrote at gen_cnt lies past the recorded count, and
+                    # the next sample overwrites it
+                    feeding = queue_len > 0
+                    span_complete = new_eog.all() & ~feeding
+                    if grouped:
+                        span_complete = span_complete & active
+                        consume, keep = feeding & active, feeding | ~active
+                    else:
+                        consume, keep = feeding, feeding
+                    span_buf.index_copy_(0, gen_cnt.view(1), span_idx.view(1))
+                    gen_cnt += (~keep).long()
+                    emb = torch.where(feeding, queue[0], emb)
 
-                # on a span's completion with spans left, queue [mask
-                # embedding of the next span, empty column]; a feed step
-                # pops the queue
-                more = span_idx + 1 < n_spans
-                start_next = span_complete & more
-                next_id = queue_mask_ids.index_select(
-                    0, (span_idx + 1).clamp(max=cfg.max_n_spans - 1).view(1))
-                new_queue = torch.cat(
-                    [lookup(model.mask_emb, next_id).to(dtype),
-                     empty_emb[None]])
-                queue = torch.where(start_next, new_queue,
-                                    torch.where(feeding, queue[1].expand(2, -1),
-                                                queue))
-                queue_len = torch.where(start_next, 2,
-                                        torch.where(feeding, queue_len - 1,
-                                                    queue_len))
-                done = span_complete & ~more
-                span_idx = span_idx + start_next.long()
+                    # on a span's completion with spans left, queue [mask
+                    # embedding of the next span, empty column]; a feed step
+                    # pops the queue
+                    more = span_idx + 1 < n_spans
+                    start_next = span_complete & more
+                    next_id = queue_mask_ids.index_select(
+                        0, (span_idx + 1).clamp(max=max_spans - 1).view(1))
+                    new_queue = torch.cat(
+                        [lookup(model.mask_emb, next_id).to(dtype),
+                         empty_emb[None]])
+                    queue = torch.where(start_next, new_queue,
+                                        torch.where(consume,
+                                                    queue[1].expand(2, -1),
+                                                    queue))
+                    queue_len = torch.where(start_next, 2,
+                                            torch.where(consume, queue_len - 1,
+                                                        queue_len))
+                    ended = span_complete & ~more
+                    done = done | ended if grouped else ended
+                    span_idx = span_idx + start_next.long()
 
-                # per-span resets
-                codebook_eog = torch.where(
-                    span_complete, False,
-                    torch.where(feeding, codebook_eog, new_eog))
-                cur_num_gen = torch.where(
-                    span_complete, 0,
-                    torch.where(feeding, cur_num_gen, cur_num_gen + 1))
-                consec = torch.where(span_complete, 0,
-                                     torch.where(feeding, consec, new_consec))
-                prev = torch.where(span_complete, -1,
-                                   torch.where(feeding, prev, new_prev))
+                    # per-span resets
+                    codebook_eog = torch.where(
+                        span_complete, False,
+                        torch.where(keep, codebook_eog, new_eog))
+                    cur_num_gen = torch.where(
+                        span_complete, 0,
+                        torch.where(keep, cur_num_gen, cur_num_gen + 1))
+                    consec = torch.where(span_complete, 0,
+                                         torch.where(keep, consec, new_consec))
+                    prev = torch.where(span_complete, -1,
+                                       torch.where(keep, prev, new_prev))
 
-            # feed the step's input through the decoder (also after the last
-            # sample, as the JAX loop does)
-            h, cache = trm.decode_step_fast(model.decoder,
-                                            step_input(model, emb, y_pos),
-                                            cache, pos, x_len=x_len_t,
-                                            x_pad=x_pad, fused_ffn=fused_ffn)
-            logits = apply_heads(model.heads, h[:, 0])
-            pos += 1
-            y_pos += 1
-            forwards += 1
-            is_done, n_gen, n_span = torch.stack(
-                [done.long(), gen_cnt, span_idx]).tolist()
+                # feed the step's input through the decoder (also after the
+                # last sample, as the JAX loop does)
+                # an idle step's frozen pos may be the slot past the slab
+                h, cache = trm.decode_step_fast(
+                    model.decoder, step_input(model, emb, y_pos), cache,
+                    pos.clamp(max=s_max - 1) if grouped else pos,
+                    x_len=x_len_t, x_pad=x_pad, fused_ffn=fused_ffn)
+                logits = apply_heads(model.heads, h[:, 0])
+                if grouped:
+                    pos += active.long()
+                    y_pos += active.long()
+                    idle += (~active).long()
+                else:
+                    pos += 1
+                    y_pos += 1
+                forwards += 1
+            counts = [done.long(), gen_cnt, span_idx] + [idle] * grouped
+            is_done, n_gen, n_span, *n_idle = torch.stack(counts).tolist()
             if is_done or n_gen >= gen_max:
                 break
-        return DecodeResult(gen_buf, span_buf, n_gen, n_span + 1, forwards)
+        return DecodeResult(gen_buf[:gen_max], span_buf[:gen_max], n_gen,
+                            n_span + 1, forwards, sum(n_idle))
 
     return decode
 
