@@ -86,20 +86,19 @@ Phases, in order; any failure raises and the script exits non-zero:
               ties; (m) speculative serving
               with 3 random MTP head groups, tau 4: the 8 TTS lanes greedy
               against (j)'s under ties, force_accept at 4 tokens a pass a
-              lane, and the 4 edit lanes; (n) bench_mode at bench.py's
-              single-stream geometry at 128 frames, bf16 and fp8 with the fp8
-              slab, and the speculative loop (one run each; phase 14 times
-              the bench at 500): exactly gen_max rows each.
+              lane, and the 4 edit lanes; (n) the speculative loop in
+              bench_mode at bench.py's single-stream geometry, 128 frames,
+              one run: exactly gen_max rows (phase 14 (B) runs the plain
+              loop's bench_mode, fused, bf16 and fp8 with the fp8 slab).
   8. engine   the same model and codec through inference/engine.py,
               inference/streaming.py and serve_torch_cli.py, each run's
               launch counts set to 0 just before it and read just after (the
               attention kernel L times per prefill call from 1024 columns:
               the startup wave at B=8 and every refill at B=1): (o) the
               continuous-batching engine, 16 requests ((j)'s 8 prompts, two
-              texts each) over 8 lanes in bursts of 48, greedy (four requests,
-              ENGINE_COMPARED, against their own single-stream decodes under
-              the tie-aware rule, the rows and draws kept by EngineRecorder)
-              and sampled, device
+              texts each) over 8 lanes in bursts of 48, greedy (each request
+              against its own single-stream decode under the tie-aware rule,
+              its rows and draws kept by EngineRecorder) and sampled, device
               operations and ms per engine step (step_profile over one
               burst); 64 requests over 32 lanes at bench.py's engine
               geometry with fp8 weights and the fp8 slab; the speculative
@@ -187,17 +186,19 @@ Phases, in order; any failure raises and the script exits non-zero:
               1, each run's launch counts set to 0 just before it and read
               just after, and its decode forwards counted: (A) the default
               run, fp8 single stream (500 frames) then 32 lanes with the
-              fp8 slab, both lines; (B) --fused-ffn and --bf16 --fused-ffn
-              at 128 frames: 16 FFN launches a forward, all on sm90/fp8,
-              then sm90/bf16;
+              fp8 slab, both lines; (B) --fused-ffn --kv-fp8 (fp8 weights
+              and slab, then the default run's 32-lane line) and --bf16
+              --fused-ffn at 128 frames: 16 FFN launches a forward, all on
+              sm90/fp8, then sm90/bf16;
               (C) --bf16 at 256 frames with --steps-per-iter 4 beside 1:
               forwards/s and
               the device operations and ms a step (torch.profiler over 16
               steps); (D) outside the bench, inference_tts at request (b)'s
               greedy geometry with steps_per_iter 4 against 1 under the
-              tie-aware rule, and edit (d) greedy with the eog bias raised
-              at steps_per_iter 3 against 1: every span done, kept frames
-              verbatim, equal; (E) --spec 4 --spec-accept: 4 tokens a pass;
+              tie-aware rule, and edit (d) greedy with the eog bias raised,
+              run_decode at steps_per_iter 3 with its spans spliced against
+              inference_edit: every span done, kept frames verbatim, equal;
+              (E) --spec 4 --spec-accept: 4 tokens a pass;
               (F) --edit-serve 8: every lane to its budget; (G) --engine 8,
               and --steady at 64 frames a request; (H) --stream with the
               pipeline on and off at 40 phones; (I) --train and
@@ -353,8 +354,8 @@ PROFILE_STEPS = 16                   # serving steps in a profiled window
 # single-stream one (bench.py:190-209)
 BENCH_LANES, BENCH_X_PAD, BENCH_Y_PAD, BENCH_PROMPT = 32, 128, 192, 150
 BENCH_PHONES, BENCH_FRAMES = 120, 500
-# (n): one run of N_FRAMES rows each (phase 14 runs and times bench.py's
-# 500 frames through bench_torch.py)
+# (n): the speculative loop's one run of N_FRAMES rows (phase 14 runs and
+# times bench.py's 500 frames through bench_torch.py)
 N_FRAMES = 128
 # the fp8 KV slab against a bf16 slab, logits relative in norm, 16 teacher-
 # forced steps of the fp8 decoder: e4m3 keeps 3 mantissa bits, so each k/v
@@ -375,9 +376,6 @@ EDIT_SERVE = (("d", [(200, 240), (520, 570), (860, 900)]),
 # random prompts, y_pad 192, targets 60-100% of the frames), its 500 frames
 # cut to BENCH_ENGINE_FRAMES
 ENGINE_LANES, ENGINE_BURST, ENGINE_TEXT_START = 8, 48, 11
-# (o): the greedy requests held against their single streams (the shortest
-# and the longest prompt with each text)
-ENGINE_COMPARED = (0, 7, 8, 15)
 BENCH_ENGINE_FRAMES = GEN_MAX
 # phase 9: training at giga830M with the e830M recipe (recipes/e830M.sh:
 # ScaledAdam lr 0.05, codebook weights 5 1 0.5 0.1, chunked attention,
@@ -1913,8 +1911,8 @@ def serving_phase(model, codec, ccfg, serve, edits):
     from voicecraft_tpu_torch.models import encodec as ec
     from voicecraft_tpu_torch.models import transformer as trm
     from voicecraft_tpu_torch.models.voicecraft import (
-        SamplingConfig, apply_heads, init_mtp_heads, make_decode_loop,
-        make_spec_decode_loop, prefill_lanes)
+        SamplingConfig, apply_heads, init_mtp_heads, make_spec_decode_loop,
+        prefill_lanes)
     from voicecraft_tpu_torch.ops import _native
     from voicecraft_tpu_torch.utils.quantize import quantize_decoder_fp8
     cfg = model.cfg
@@ -2208,28 +2206,10 @@ def serving_phase(model, codec, ccfg, serve, edits):
     prefix = compose_tts_prefix(
         rng.integers(0, cfg.audio_vocab_size, (K, BENCH_PROMPT)), cfg)
     nx, ny, _ = decode_geometry(cfg, len(x), prefix.length, gen_max=16)
-    xt, yt, mi, qm = pad_inputs(cfg, x, prefix, nx, ny, "cuda")
-    log(f"  (n) bench_mode at bench.py's geometry: {BENCH_PHONES} phones, "
-        f"{BENCH_PROMPT} prompt frames, {N_FRAMES} frames, Sp {nx + ny}, "
-        f"fused FFN")
-    for label, m, kv in (("bf16", model, None), ("fp8, fp8 slab", qmodel, f8)):
-        loop = make_decode_loop(cfg, is_tts=True, x_pad=nx, y_pad=ny,
-                                gen_max=N_FRAMES, scfg=bench_scfg,
-                                bench_mode=True, fused_ffn=True, kv_dtype=kv)
-        _native.reset_launch_counts()
-        t0 = time.time()
-        res = loop(m, xt, len(x), yt, prefix.length, mi, qm, 1,
-                   torch.Generator(device="cuda").manual_seed(0))
-        wall = time.time() - t0
-        if res.gen_cnt != N_FRAMES:
-            raise AssertionError(f"(n) {label}: {res.gen_cnt} rows, not "
-                                 f"{N_FRAMES}")
-        launches = dict(_native.LAUNCHES)
-        check_launches(f"n {label}", launches, {
-            "flash_prefix_attention": 0, "fused_ffn": L * res.forwards})
-        out.append(launches)
-        log(f"  (n) {label}: {N_FRAMES} rows in {wall:.3f} s = "
-            f"{N_FRAMES / wall:.1f} frames/s (one run)")
+    xt, yt, mi, _ = pad_inputs(cfg, x, prefix, nx, ny, "cuda")
+    log(f"  (n) speculative bench_mode at bench.py's geometry: "
+        f"{BENCH_PHONES} phones, {BENCH_PROMPT} prompt frames, {N_FRAMES} "
+        f"frames, Sp {nx + ny}")
     # one run: with random MTP heads nearly every sampled draft is rejected,
     # so it takes ~1 pass a row
     loop = make_spec_decode_loop(cfg, x_pad=nx, y_pad=ny, gen_max=N_FRAMES,
@@ -2461,7 +2441,7 @@ def engine_phase(model, codec, ccfg, serve, texts2, a_req, long_wav):
     if eng.stats["waves"] + eng.stats["refills"] < 2:
         raise AssertionError(f"(o): no lane was refilled: {eng.stats}")
     plain = [rec.request(rid) for rid in range(len(reqs))]
-    for i in ENGINE_COMPARED:
+    for i in range(len(reqs)):
         (x, codes), (rows, la) = reqs[i], plain[i]
         ref, ref_la = single_stream(f"o request {i} single stream", x, codes)
         ref, ref_la = capped(rows, ref, ref_la)
@@ -3375,6 +3355,30 @@ class BenchRun:
         return [float(g) for g in m.groups()]
 
 
+def spliced_edit(model, x, codes, intervals, scfg, gen_max, stats, k):
+    """inference_edit's decode run through run_decode(steps_per_iter=k),
+    the generated spans spliced between the kept frames as inference_edit
+    splices them; ``stats`` gets run_decode's counts and span_frames."""
+    from voicecraft_tpu_torch.data.spans import compose_edit_prefix
+    from voicecraft_tpu_torch.inference.tts import run_decode
+    cfg = model.cfg
+    shift = cfg.n_special if cfg.special_first else 0
+    y = codes + shift
+    intervals = sorted(intervals)
+    prefix, queue_ids = compose_edit_prefix(y, intervals, cfg)
+    gen = run_decode(model, is_tts=False, x_tokens=x, prefix=prefix,
+                     queue_mask_ids=queue_ids, n_spans=len(intervals),
+                     scfg=scfg, seed=SEED, gen_max=gen_max, stats=stats,
+                     steps_per_iter=k)
+    stats["span_frames"] = [g.shape[1] for g in gen]
+    parts, lo = [], 0
+    for (s, e), g in zip(intervals, gen):
+        parts += [y[:, lo:s], g]
+        lo = e
+    parts.append(y[:, lo:])
+    return np.concatenate(parts, axis=1) - shift
+
+
 def bench_phase(requests, edits):
     """Phase 14: bench_torch.py, the twin of bench.py, called in-process
     at giga830M width with bench.py's geometry (BENCH_ARGS, --iters 1):
@@ -3421,10 +3425,12 @@ def bench_phase(requests, edits):
     if a.results[1]["single_stream_rtf"] != a.results[0]["value"]:
         raise AssertionError(f"(A) {a.results}")
 
-    # (B) the fused FFN on its two routes, 16 launches a forward
+    # (B) the fused FFN on its two routes, 16 launches a forward; fp8 with
+    # the fp8 slab (the default run's 32-lane line follows; serving runs no
+    # FFN kernel)
     fused = {}
     for label, flags, metrics, route in (
-            ("B fp8", ["--fused-ffn"],
+            ("B fp8", ["--fused-ffn", "--kv-fp8"],
              ["tts_rtf_830m", f"tts_serving_rtf_830m_b{BENCH_LANES}"],
              "sm90/fp8"),
             ("B bf16", ["--bf16", "--fused-ffn"], ["tts_rtf_830m_bf16"],
@@ -3434,6 +3440,9 @@ def bench_phase(requests, edits):
         if r.forwards != 2 * BENCH_FUSED_FRAMES:
             raise AssertionError(f"({label}) {r.forwards} forwards, want "
                                  f"{2 * BENCH_FUSED_FRAMES} (warm-up + 1 run)")
+        if r.results[-1].get("single_stream_rtf", r.results[0]["value"]) \
+                != r.results[0]["value"]:
+            raise AssertionError(f"({label}) {r.results}")
         fused[label] = r.results[0]["value"] * sr
         log(f"  ({label}) {r.launches['fused_ffn']} FFN launches = {L} x "
             f"{r.forwards} forwards, all on {route}")
@@ -3481,9 +3490,13 @@ def bench_phase(requests, edits):
     with raised_eog_bias(model):
         for k in (1, BENCH_EDIT_K):
             sts[k] = {}
-            res[k] = inference_edit(model, d.x, d.codes, d.intervals, greedy,
-                                    seed=SEED, gen_max=EDIT_GEN_MAX,
-                                    stats=sts[k], steps_per_iter=k)
+            if k == 1:
+                res[k] = inference_edit(model, d.x, d.codes, d.intervals,
+                                        greedy, seed=SEED,
+                                        gen_max=EDIT_GEN_MAX, stats=sts[k])
+            else:
+                res[k] = spliced_edit(model, d.x, d.codes, d.intervals, greedy,
+                                      EDIT_GEN_MAX, sts[k], k)
             st = sts[k]
             log(f"  (D) edit (d) greedy, eog bias raised by {EOG_BIAS}, "
                 f"steps_per_iter {k}: {st['spans_done']} spans done, frames "

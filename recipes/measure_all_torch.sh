@@ -11,7 +11,8 @@
 #       > /tmp/measure_r5_torch.log 2>&1 &
 #
 # Needs the two-stage checkpoint of recipes/spec_acceptance_torch.sh
-# TWO_STAGE=1 WORK=/tmp/spec830_torch: $WORK/exp/ckpt_latest (+7 MTP heads).
+# TWO_STAGE=1 WORK=${TMPDIR:-/tmp}/spec830_torch (this script's default WORK):
+# $WORK/exp/ckpt_latest (+7 MTP heads).
 # DEVICE=cpu passes --device cpu to every command.
 #
 # Stages:
@@ -24,7 +25,7 @@
 #   engine_short / engine_steady engine tau=4 vs 8 (2x vs 8x requests)
 set -u
 cd "$(dirname "$0")/.."
-WORK=${WORK:-/tmp/spec830_torch}
+WORK=${WORK:-${TMPDIR:-/tmp}/spec830_torch}
 MEAS=${MEAS:-$WORK/measure_r5}
 CKPT=${CKPT:-$WORK/exp/ckpt_latest}
 EVAL=${EVAL:-$WORK/corpus/eval}

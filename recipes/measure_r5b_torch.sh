@@ -15,7 +15,7 @@
 #   sweep2_greedy_L8_nokv     the same at 8 lanes WITHOUT --kv-fp8
 set -u
 cd "$(dirname "$0")/.."
-WORK=${WORK:-/tmp/spec830_torch}
+WORK=${WORK:-${TMPDIR:-/tmp}/spec830_torch}
 MEAS=${MEAS:-$WORK/measure_r5}
 CKPT=${CKPT:-$WORK/exp/ckpt_latest}
 EVAL=${EVAL:-$WORK/corpus/eval}

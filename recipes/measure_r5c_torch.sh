@@ -14,7 +14,7 @@
 #   sweep2_stoch_L{8,16,32}   a second take of the stochastic lane sweep
 set -u
 cd "$(dirname "$0")/.."
-WORK=${WORK:-/tmp/spec830_torch}
+WORK=${WORK:-${TMPDIR:-/tmp}/spec830_torch}
 MEAS=${MEAS:-$WORK/measure_r5}
 CKPT=${CKPT:-$WORK/exp/ckpt_latest}
 EVAL=${EVAL:-$WORK/corpus/eval}

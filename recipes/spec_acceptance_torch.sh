@@ -8,7 +8,7 @@
 # otherwise.
 #
 # Overridables:
-#   WORK=...         work dir           (default /tmp/voicecraft_spec_accept_torch)
+#   WORK=...         work dir           (default ${TMPDIR:-/tmp}/voicecraft_spec_accept_torch)
 #   DEVICE=...       cuda (the CLIs' default) or cpu
 #   STEPS=...        training steps     (default 6000)
 #   PRESET=...       model preset       (default proc50M)
@@ -20,7 +20,7 @@
 #   MTP_STEPS=...    graft steps in two-stage mode (default 2500)
 set -e
 cd "$(dirname "$0")/.."
-WORK=${WORK:-/tmp/voicecraft_spec_accept_torch}
+WORK=${WORK:-${TMPDIR:-/tmp}/voicecraft_spec_accept_torch}
 STEPS=${STEPS:-6000}
 PRESET=${PRESET:-proc50M}
 N_TRAIN=${N_TRAIN:-1800}

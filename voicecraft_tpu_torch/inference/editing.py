@@ -20,13 +20,10 @@ def inference_edit(model: VoiceCraft, x_tokens: np.ndarray,
                    mask_intervals: Sequence[Tuple[int, int]],
                    scfg: SamplingConfig = SamplingConfig(), seed: int = 1,
                    gen_max: Optional[int] = None, fused_ffn: bool = False,
-                   stats: Optional[dict] = None, spec: int = 0,
-                   steps_per_iter: int = 1) -> np.ndarray:
+                   stats: Optional[dict] = None, spec: int = 0) -> np.ndarray:
     """Regenerate the masked codec-frame intervals of ``y_codes`` [K, T]
     for the phoneme sequence ``x_tokens`` of the edited transcript.
-    ``fused_ffn`` runs the decode-step FFN through the fused kernel;
-    ``steps_per_iter`` = k syncs the host once every k steps of the plain
-    loop, with the same output (models.voicecraft.make_decode_loop).
+    ``fused_ffn`` runs the decode-step FFN through the fused kernel.
     ``spec`` = tau >= 2 decodes speculatively (make_spec_edit_loop; the
     model needs tau - 1 MTP head groups): greedy output equals the plain
     loop's in f32, sampled output is keyed per token index (the same for
@@ -44,7 +41,7 @@ def inference_edit(model: VoiceCraft, x_tokens: np.ndarray,
     gen = run_decode(model, is_tts=False, x_tokens=x_tokens, prefix=prefix,
                      queue_mask_ids=queue_ids, n_spans=m, scfg=scfg,
                      seed=seed, gen_max=gen_max, fused_ffn=fused_ffn,
-                     stats=stats, spec=spec, steps_per_iter=steps_per_iter)
+                     stats=stats, spec=spec)
     if stats is not None:
         stats["span_frames"] = [g.shape[1] for g in gen]
 
