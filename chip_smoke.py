@@ -48,7 +48,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               path at (d)'s geometry across a span transition (prefill, K+4
               tokens, the two queued feeds, 8 more tokens).  The eog bias
               is restored afterwards.
-  6. paths    the same model and codec: (f) best-of-N, N=4 paths of request
+  6. paths    giga830M cut to PATH_DEPTH's 2 layers (full width, random
+              weights from the same seed; phases 6-11 run this model) and
+              the same codec: (f) best-of-N, N=4 paths of request
               (b)'s prompt prefilled through the attention kernel at B=4,
               sampled through inference_tts_batch, and greedy, whose kept
               path must equal request (b)'s greedy output under the
@@ -65,8 +67,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               request (d) with tau=4 and the eog bias raised: every span
               ends non-empty, kept frames verbatim.  Each path's launch
               counts are set to 0 just before it and read just after.
-  7. serving  the same model and codec through inference/serving.py, each
-              wave's launch counts set to 0 just before it and read just
+  7. serving  phase 6's model and the codec through inference/serving.py,
+              each wave's launch counts set to 0 just before it and read just
               after (the attention kernel L times per prefill from 1024
               columns, never in a step; no FFN kernel): (j) 8 distinct TTS
               requests (prompts of 2-17 s cut from demo.wav, per-lane seeds),
@@ -90,7 +92,7 @@ Phases, in order; any failure raises and the script exits non-zero:
               bench_mode at bench.py's single-stream geometry, 128 frames,
               one run: exactly gen_max rows (phase 14 (B) runs the plain
               loop's bench_mode, fused, bf16 and fp8 with the fp8 slab).
-  8. engine   the same model and codec through inference/engine.py,
+  8. engine   phase 6's model and the codec through inference/engine.py,
               inference/streaming.py and serve_torch_cli.py, each run's
               launch counts set to 0 just before it and read just after (the
               attention kernel L times per prefill call from 1024 columns:
@@ -140,9 +142,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               just after: (v) each scaling Function's forward and backward
               on the card in f32 and bf16 against the CPU in f32, on an
               activation of the e830M batch's shape [8, 1424, 2048]; (w)
-              giga830M with basicnorm + doubleswish in bf16, random weights
-              from a seed, serving request (a)'s prompt greedy for 64 frames
-              through inference_tts (the attention kernel 16 times, the
+              giga830M with basicnorm + doubleswish in bf16 at 2 layers,
+              random weights from a seed, serving request (a)'s prompt
+              greedy for 64 frames through inference_tts (the attention
+              kernel L times, the
               fused FFN never: fused_ffn=True raises), forwards/s, the
               kernel path's logits against the plain path's after prefill
               and 16 teacher-forced steps, then 8 lanes through
@@ -152,13 +155,13 @@ Phases, in order; any failure raises and the script exits non-zero:
               + balanceddoubleswish at 2 layers, the card in bf16 against
               the CPU in f32, in the eval and the train form, and
               Trainer.train for 4 steps of the e830M recipe with basicnorm +
-              doubleswish at full depth (finite metrics, no NaN skip, every
+              doubleswish at 2 layers (finite metrics, no NaN skip, every
               log_eps moved; s a step, peak memory); (y) phase 9's
               checkpoint through export_torch_cli.py --format pth, reloaded
               through load_model: the state dict and one prefill's logits
               equal bit for bit; (z) recipes/make_spec_corpus.py,
               preprocess_torch_cli.py (random 2048-bin codec), the toolbox
-              model with 3 MTP head groups trained on it, then
+              model at 2 layers with 3 MTP head groups trained on it, then
               quality_torch_cli.py (7 modes) and
               spec_acceptance_torch_cli.py (TTS and --edit) on its
               checkpoint: each ends normally with every mode reported, and
@@ -167,12 +170,12 @@ Phases, in order; any failure raises and the script exits non-zero:
  11. mesh     parallel/mesh.py on one card: a one-rank NCCL group and a
               1 x 1 mesh; (j)'s 8-lane greedy wave through
               serve_tts_batch(mesh=), its tokens the no-mesh wave's bit for
-              bit (16 attention launches in its prefill, none a step); an
+              bit (L attention launches in its prefill, none a step); an
               engine run (8 requests over 4 lanes) the no-mesh engine's bit
               for bit; (p)'s stream of the 17.28 s prompt over the mesh,
               its consumer closed after the first chunk: cancelled, and
               the frames handed over at most the first chunk's plus one
-              burst (16 attention launches); 2 Trainer(mesh=) steps on
+              burst (L attention launches); 2 Trainer(mesh=) steps on
               phase 9's manifest, the parameters Trainer()'s bit for bit
               (ZeRO-1 is off at data 1).
  13. recipes  recipes/spec_acceptance_torch.sh as a user runs it, on the
@@ -190,16 +193,18 @@ Phases, in order; any failure raises and the script exits non-zero:
               and slab, then the default run's 32-lane line) and --bf16
               --fused-ffn at 128 frames: 16 FFN launches a forward, all on
               sm90/fp8, then sm90/bf16;
-              (C) --bf16 at 256 frames with --steps-per-iter 4 beside 1:
+              (C) --bf16 at 128 frames with --steps-per-iter 4 beside 1:
               forwards/s and
               the device operations and ms a step (torch.profiler over 16
-              steps); (D) outside the bench, inference_tts at request (b)'s
+              steps); (D) outside the bench, on phase 6's model (2 layers)
+              made anew, inference_tts at request (b)'s
               greedy geometry with steps_per_iter 4 against 1 under the
               tie-aware rule, and edit (d) greedy with the eog bias raised,
               run_decode at steps_per_iter 3 with its spans spliced against
               inference_edit: every span done, kept frames verbatim, equal;
               (E) --spec 4 --spec-accept: 4 tokens a pass;
-              (F) --edit-serve 8: every lane to its budget; (G) --engine 8,
+              (F) --edit-serve 8 at 128 frames: every lane to its budget;
+              (G) --engine 8,
               and --steady at 64 frames a request; (H) --stream with the
               pipeline on and off at 40 phones; (I) --train and
               --train-profile: the bf16 GEMM probe's TFLOP/s positive and
@@ -272,6 +277,14 @@ EDIT_GEN_MAX = 384                   # recorded samples per edit request
 # spans twice as long (one run on an H100 drew spans of 321, 30 and 21)
 SPEC_EDIT_GEN_MAX = 2 * EDIT_GEN_MAX
 EDIT_TARGET = "the sound of waves over the sea at dawn"
+# Phases 6-8, 10 (w), (x), (z), 11 and 14 (D) run giga830M at its full width
+# with its depth cut to PATH_DEPTH's layers (load_model's overrides): their
+# decodes are host-bound, the device operations of a step issued one by one
+# (~800 at 16 layers, ~50 of them a layer), so the depth sets much of their
+# time, and at 16 layers the script ran past its 1,200 s limit.  Phases 4-5
+# (the slice and editing), 9 (training), 8 (q) (the server), 12 and 14's
+# bench runs keep the preset's 16.
+PATH_DEPTH = dict(num_decoder_layers=2)
 # Random weights end a span only when codebook 0 draws eog, 1 code of 2051:
 # thousands of steps.  Phase 5 adds EOG_BIAS to that logit's bias
 # (model.heads.b2[0, eog]) so that every span ends well within
@@ -279,6 +292,11 @@ EDIT_TARGET = "the sound of waves over the sea at dawn"
 # largest of 2051 sits near +0.75.  A sweep on an H100 (seeds 0 and 1):
 # at 0.3 the spans of (d) and (e) end after 18-85 frames (at most 203
 # forwards); at 0.4 (e)'s greedy spans end at their first sample, empty.
+# PATH_DEPTH's model draws other greedy paths.  A sweep on an H100 over the
+# edit checks of phases 6 (i), 7 (l), (m) and 14 (D) at seed 0
+# (recipes/eog_sweep_torch.py): at 2 layers every span ends non-empty
+# within its budget at 0.3 and 0.35 (2-66 frames); at 4 layers 0.3 ran
+# phase 7 (l)'s lane 0 past EDIT_GEN_MAX (87, 195, 90+ frames).
 EOG_BIAS = 0.3
 
 # kernel vs plain tolerances (both accumulate in f32; they differ in
@@ -439,8 +457,9 @@ RECIPE_TAUS, RECIPE_TIMEOUT_S = (2, 4, 8), 300
 # phase 14: bench_torch.py in-process at bench.py's geometry (bench.py:32-36
 # defaults: 120 phones, 150 prompt frames, 500 frames) at one timed run;
 # steps_per_iter BENCH_K in (C) and (D), BENCH_EDIT_K for (D)'s edit; (B)'s
-# fused FFN at BENCH_FUSED_FRAMES, (C) at BENCH_K_FRAMES (to stay inside
-# the script's time limit); the engine's steady variant at BENCH_STEADY_FRAMES a request (8 waves of
+# fused FFN at BENCH_FUSED_FRAMES, (C) at BENCH_K_FRAMES, (F) at
+# BENCH_EDIT_FRAMES (to stay inside the script's time limit); the engine's
+# steady variant at BENCH_STEADY_FRAMES a request (8 waves of
 # BENCH_ENGINE_LANES); the stream at BENCH_STREAM_PHONES phones (random
 # weights stop at the length cap, ~10 frames a phone past the prompt)
 BENCH_ARGS = ["--iters", "1"]
@@ -448,7 +467,8 @@ BENCH_K, BENCH_EDIT_K = 4, 3
 BENCH_EDIT_LANES = BENCH_ENGINE_LANES = 8
 BENCH_STEADY_FRAMES = 64
 BENCH_FUSED_FRAMES = 128             # (B): launches, at fewer frames
-BENCH_K_FRAMES = 256                 # (C): k = 4 beside 1
+BENCH_K_FRAMES = 128                 # (C): k = 4 beside 1
+BENCH_EDIT_FRAMES = 128              # (F): each edit lane's budget
 BENCH_STREAM_PHONES = 40
 # phase 10: the icefall toolbox (models/scaling.py).  (v) each scaling
 # Function's forward and backward on the card against the CPU in f32, on an
@@ -2680,7 +2700,7 @@ def engine_phase(model, codec, ccfg, serve, texts2, a_req, long_wav):
                 "prompt_wav_b64": base64.b64encode(wav_bytes(long_wav)
                                                    ).decode(),
                 "target_transcript": text, "seed": SEED, "burst": 48},
-            raw=True), L)
+            raw=True), server_eng.cfg.num_decoder_layers)
         pcm = np.frombuffer(body[44:], dtype="<i2")
         log(f"  (q) /tts_stream (17.28 s prompt, {n_ph} phones, Sp 1024): "
             f"HTTP 200, first audio after {first * 1e3:.1f} ms, "
@@ -3116,14 +3136,14 @@ def mesh_phase(model, serve, work, a_req):
     """Phase 11: parallel/mesh.py on one card, a one-rank NCCL group and a
     1 x 1 mesh, against the same paths without a mesh: (j)'s 8-lane greedy
     wave through serve_tts_batch(mesh=) with the same tokens bit for bit
-    (the attention kernel 16 times in its prefill, none a step); MESH_STEPS
+    (the attention kernel L times in its prefill, none a step); MESH_STEPS
     Trainer(mesh=) steps on phase 9's manifest with the same parameters bit
     for bit as Trainer()'s (ZeRO-1 is off at data 1, as in the JAX package;
     the end-of-run validation and checkpoint are left out: the --cards 4
     mode saves at 2 x 2); an engine run with the same results; (p)'s
     stream of request ``a_req``'s 17.28 s prompt over the mesh, closed
     after its first chunk: the engine stops within one burst.  ``model``
-    (phase 4's) is sharded at 1 x 1 on the way: phase 11 runs last.
+    (phase 6's) is sharded at 1 x 1 on the way: phase 11 runs last.
     Returns the launch counts of each mesh run."""
     import dataclasses
     import gc
@@ -3385,17 +3405,19 @@ def bench_phase(requests, edits):
     every mode's JSON line, the fused FFN's launches on both routes,
     steps_per_iter 4 beside 1 (in the bench and outside it), each run's
     launch counts set to 0 just before it and read just after.  Returns
-    the launch counts of each run.  (D) runs on phase 4's model made anew
-    from its seed (phase 11 has sharded that one)."""
+    the launch counts of each run.  The bench runs build the preset
+    (16 layers); (D) runs on phase 6's model (PATH_DEPTH) made anew from
+    its seed (phase 11 has sharded that one)."""
     import torch
+    from voicecraft_tpu_torch import PRESETS
     from voicecraft_tpu_torch.inference.editing import inference_edit
     from voicecraft_tpu_torch.inference.loader import load_model
     from voicecraft_tpu_torch.inference.tts import inference_tts
     from voicecraft_tpu_torch.models.voicecraft import SamplingConfig
-    cfg, model, _ = load_model("giga830M", random_init=True, seed=SEED,
-                               device="cuda")
-    L, K = cfg.num_decoder_layers, cfg.n_codebooks
-    sr = cfg.encodec_sr
+    _, model, _ = load_model("giga830M", random_init=True, seed=SEED,
+                             device="cuda", overrides=PATH_DEPTH)
+    cfg = PRESETS["giga830M"]()
+    L, sr = cfg.num_decoder_layers, cfg.encodec_sr
     out = []
     log(f"[14 bench] bench_torch.main {' '.join(BENCH_ARGS)} (bench.py's "
         "geometry) and each mode's flags")
@@ -3519,9 +3541,11 @@ def bench_phase(requests, edits):
         raise AssertionError(f"(E) {tokens} tokens in {passes} passes")
 
     # (F) batched editing, every lane to its budget
-    r = bench("F", ["--edit-serve", str(BENCH_EDIT_LANES)],
+    r = bench("F", ["--edit-serve", str(BENCH_EDIT_LANES), "--frames",
+                    str(BENCH_EDIT_FRAMES)],
               [f"edit_serving_rtf_830m_b{BENCH_EDIT_LANES}"])
-    if r.match(r"for (\d+) frames across")[0] != BENCH_EDIT_LANES * BENCH_FRAMES:
+    if r.match(r"for (\d+) frames across")[0] != \
+            BENCH_EDIT_LANES * BENCH_EDIT_FRAMES:
         raise AssertionError(f"(F) {r.err}")
 
     # (G) the engine, and its steady variant at fewer frames a request
@@ -3634,10 +3658,11 @@ def scaling_check():
 
 
 def toolbox_serving(base, codec, ccfg, requests, serve, out):
-    """(w): giga830M with TOOLBOX in bf16, random weights from SEED, serving
-    request (a)'s prompt greedy and 8 lanes, and against ``base`` (phase
-    4's layernorm + relu model) on the same request, unfused: forwards/s,
-    and one decode step's device ms and operations; each run's launch
+    """(w): giga830M with TOOLBOX in bf16 at PATH_DEPTH's layers, random
+    weights from SEED, serving request (a)'s prompt greedy and 8 lanes, and
+    against ``base`` (phase 6's layernorm + relu model) on the same
+    request, unfused: forwards/s, and one decode step's device ms and
+    operations; each run's launch
     counts set to 0 just before it and read just after, into ``out``."""
     import torch
     from voicecraft_tpu_torch.data.spans import compose_tts_prefix
@@ -3650,10 +3675,12 @@ def toolbox_serving(base, codec, ccfg, requests, serve, out):
     greedy = SamplingConfig(top_k=40, top_p=1.0, temperature=0.0)
     t0 = time.time()
     cfg, model, _ = load_model("giga830M", random_init=True, seed=SEED,
-                               device="cuda", overrides=TOOLBOX)
+                               device="cuda", overrides=dict(TOOLBOX,
+                                                             **PATH_DEPTH))
     L = cfg.num_decoder_layers
-    log(f"  (w) giga830M {model.dtype}, norm {cfg.norm}, ffn_activation "
-        f"{cfg.ffn_activation}, built in {time.time() - t0:.1f} s")
+    log(f"  (w) giga830M {model.dtype} at {L} layers, norm {cfg.norm}, "
+        f"ffn_activation {cfg.ffn_activation}, built in "
+        f"{time.time() - t0:.1f} s")
 
     def counted(label, fn, sp):
         _native.reset_launch_counts()
@@ -3688,7 +3715,7 @@ def toolbox_serving(base, codec, ccfg, requests, serve, out):
         base, a.x, a.codes, greedy, seed=SEED, gen_max=W_GEN_MAX,
         stats=base_stats), 1024)
     costs = [step_costs(m, a.x, prefix, fused_ffn=False) for m in (base, model)]
-    log(f"  (w) the same request on phase 4's layernorm + relu model, "
+    log(f"  (w) the same request on phase 6's layernorm + relu model, "
         f"unfused: {base_stats['steps'] / base_wall:.1f} forwards/s against "
         f"{stats['steps'] / wall:.1f}; one decode step (graph replay / "
         f"torch.profiler): {costs[0][0]:.4f} device ms, {costs[0][1]} "
@@ -3961,7 +3988,7 @@ def tooling_clis(codec, ccfg, work, recipe):
         f"and preprocess_torch_cli.py (random {ccfg.codebook_size}-bin codec, "
         f"grapheme backend) in {time.time() - t0:.1f} s")
 
-    zcfg = dataclasses.replace(recipe, n_mtp=N_MTP, **TOOLBOX)
+    zcfg = dataclasses.replace(recipe, n_mtp=N_MTP, **TOOLBOX, **PATH_DEPTH)
     t0 = time.time()
     tr = Trainer(zcfg, TrainConfig(
         dataset_dir=data, exp_dir=os.path.join(work, "z_exp"),
@@ -3969,7 +3996,8 @@ def tooling_clis(codec, ccfg, work, recipe):
         seed=1, audio_min_length=0.5, text_min_length=2,
         val_every_n_steps=10 ** 6, print_every_n_steps=1), device="cuda")
     rec = timed_train(tr, Z_STEPS, "(z)")
-    log(f"  (z) {zcfg.norm} + {zcfg.ffn_activation} giga830M with {N_MTP} MTP "
+    log(f"  (z) {zcfg.norm} + {zcfg.ffn_activation} giga830M at "
+        f"{zcfg.num_decoder_layers} layers with {N_MTP} MTP "
         f"head groups trained {Z_STEPS} steps on the corpus (B, Sx, Sy "
         f"{rec['shape'][0]}), loss/token "
         + ", ".join(f"{float(m['loss']) / float(m['effective_ntoken']):.4f}"
@@ -4054,7 +4082,7 @@ def tooling_clis(codec, ccfg, work, recipe):
 def toolbox_phase(base, codec, ccfg, requests, serve, work):
     """Phase 10: the icefall toolbox (models/scaling.py) on every path:
     (v) the scaling Functions card vs CPU; (w) a toolbox giga830M serving,
-    beside ``base``, phase 4's model;
+    beside ``base``, phase 6's model;
     (x) toolbox training; (y) phase 9's checkpoint through
     export_torch_cli.py; (z) the tooling CLIs.  Returns the launch counts of
     each counted run (each set to 0 just before it and read just after)."""
@@ -4087,7 +4115,7 @@ def toolbox_phase(base, codec, ccfg, requests, serve, work):
     toolbox_numerics(root, recipe)
     gc.collect()
     torch.cuda.empty_cache()
-    xcfg = dataclasses.replace(recipe, **TOOLBOX)
+    xcfg = dataclasses.replace(recipe, **TOOLBOX, **PATH_DEPTH)
     tr = Trainer(xcfg, TrainConfig(
         dataset_dir=root, exp_dir=os.path.join(work, "x_exp"),
         max_num_tokens=TRAIN_TOKENS, lr=0.05, optimizer_name="ScaledAdam",
@@ -4095,7 +4123,8 @@ def toolbox_phase(base, codec, ccfg, requests, serve, work):
         device="cuda")
     rec = timed_train(tr, X_STEPS, "(x)")
     walls = rec["wall"]
-    log(f"  (x) {xcfg.norm} + {xcfg.ffn_activation} giga830M, Trainer.train "
+    log(f"  (x) {xcfg.norm} + {xcfg.ffn_activation} giga830M at "
+        f"{xcfg.num_decoder_layers} layers, Trainer.train "
         f"{X_STEPS} steps of the e830M recipe at max_num_tokens "
         f"{TRAIN_TOKENS}: batches (B, Sx, Sy) {rec['shape']}, loss/token "
         + ", ".join(f"{float(m['loss']) / float(m['effective_ntoken']):.4f}"
@@ -4940,6 +4969,15 @@ def main() -> None:
     with raised_eog_bias(model):
         edit_launches = edit_phase(model, codec, edits)
     launches = {name: n + edit_launches[name] for name, n in launches.items()}
+
+    # ---- phases 6-11: the same model at PATH_DEPTH's layers ----
+    del model
+    torch.cuda.empty_cache()
+    cfg, model, _ = load_model("giga830M", random_init=True, seed=SEED,
+                               device="cuda", overrides=PATH_DEPTH)
+    log(f"[6 paths] giga830M at {cfg.num_decoder_layers} of its "
+        f"{PRESETS['giga830M']().num_decoder_layers} layers, full width, "
+        "from the same seed, for phases 6-11")
 
     # ---- 6. best-of-N, fp8, speculative TTS and editing ----
     t0 = time.time()
