@@ -8,6 +8,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. device   the card's name and power limit; TF32 off in matmuls and cuDNN
   2. build    the CUDA kernels from voicecraft_tpu_torch/csrc (nvcc, sm_90a)
+              into voicecraft_tpu_torch/build/kernels/<hash>/
   3. kernels  the bf16 rounding points of mha, decode_attention_self,
               apply_heads and the fp8 _proj / apply_heads on the card against
               the same functions on CPU copies of the inputs; the codec on
@@ -209,6 +210,20 @@ Phases, in order; any failure raises and the script exits non-zero:
               pipeline on and off at 40 phones; (I) --train and
               --train-profile: the bf16 GEMM probe's TFLOP/s positive and
               at most the dense bf16 peak, the fp8 probe's not null.
+ 15. install  the port as a user installs it: a wheel built from a copy of
+              the checkout (pip wheel --no-deps --no-build-isolation,
+              offline), installed with pip install --no-deps --target into
+              a temporary directory; the installed voicecraft-tts-torch
+              (working directory outside the checkout, PYTHONPATH the target
+              alone) and the checkout's tts_torch_cli.py side by side, each
+              --model giga830M --random-init --device cuda --fused-ffn
+              --top-k 1 --seed 0 on demo.wav tiled to request (a)'s 17.28 s
+              prompt: the installed copy imports its own package and builds
+              the kernel library from its own csrc into its own build root
+              (the path is printed), both runs launch the attention kernel
+              16 times (one prefill, Sp >= 1024) and the fused FFN 16 times
+              a forward, all on sm90/bf16, every wav is finite, and the two
+              runs' wavs are equal byte for byte.
 
     python3 chip_smoke.py --cards 4
 
@@ -454,6 +469,8 @@ MESH_TIMEOUT_S, CARDS_PHASE_S, SERVER_START_S = 600, 780, 240
 RECIPE_ENV = dict(STEPS="10", N_TRAIN="16", N_EVAL="4", N_SINGLE="1",
                   LANES="2")
 RECIPE_TAUS, RECIPE_TIMEOUT_S = (2, 4, 8), 300
+# phase 15: the wheel's build and install, then each TTS run, at most
+INSTALL_TIMEOUT_S, INSTALL_RUN_TIMEOUT_S = 300, 420
 # phase 14: bench_torch.py in-process at bench.py's geometry (bench.py:32-36
 # defaults: 120 phones, 150 prompt frames, 500 frames) at one timed run;
 # steps_per_iter BENCH_K in (C) and (D), BENCH_EDIT_K for (D)'s edit; (B)'s
@@ -3588,6 +3605,193 @@ def _fmt(v, digits=1):
     return "not measured" if v is None else f"{v:.{digits}f}"
 
 
+# ---- phase 15 ----------------------------------------------------------------
+
+# run as ``python -c`` in phase 15's subprocesses: the CLI script argv[1]
+# (the installed console script, or the checkout's tts_torch_cli.py) with
+# argv[2:], counting decode forwards (transformer.decode_step_fast) and the
+# wavs written; then one line "INSTALL {...}": the package and the kernel
+# library it used, the launch counts and the forwards
+INSTALL_DRIVER = r"""
+import json, os, runpy, sys
+import numpy as np
+import voicecraft_tpu_torch
+from voicecraft_tpu_torch.models import transformer as trm
+from voicecraft_tpu_torch.ops import _native
+from voicecraft_tpu_torch.utils import audio as au
+forwards, written = [0], {}
+step, write_wav = trm.decode_step_fast, au.write_wav
+
+def counted_step(*a, **k):
+    forwards[0] += 1
+    return step(*a, **k)
+
+def recorded_write(path, wav, sr):
+    written[str(path)] = [int(np.asarray(wav).shape[-1]),
+                          bool(np.isfinite(wav).all())]
+    write_wav(path, wav, sr)
+
+trm.decode_step_fast, au.write_wav = counted_step, recorded_write
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit as e:
+    if e.code not in (None, 0):
+        raise
+print("INSTALL " + json.dumps({
+    "package": voicecraft_tpu_torch.__file__,
+    "sys_path": [os.path.abspath(p) for p in sys.path],
+    "csrc": str(_native.CSRC_DIR), "build_root": str(_native.BUILD_ROOT),
+    "lib": _native._lib._name if _native._lib is not None else None,
+    "launches": _native.LAUNCHES, "routes": dict(_native.ROUTE_LAUNCHES),
+    "forwards": forwards[0], "written": written}))
+"""
+
+
+def copy_build_inputs(dst: Path) -> None:
+    """What ``pip wheel`` needs of the checkout, without its build outputs
+    (build/, __pycache__, *.so, *.egg-info)."""
+    for name in ("pyproject.toml", "README.md",
+                 *(p.name for p in REPO.glob("*.py"))):
+        shutil.copy2(REPO / name, dst / name)
+    skip = shutil.ignore_patterns("__pycache__", "build", "*.so",
+                                  "*.egg-info")
+    for pkg in ("voicecraft_tpu", "voicecraft_tpu_torch"):
+        shutil.copytree(REPO / pkg, dst / pkg, ignore=skip)
+
+
+def install_phase(long_wav, long_text, x_len):
+    """Phase 15: the port as a user installs it.  The wheel is built from a
+    copy of the checkout (pip wheel --no-deps --no-build-isolation, offline)
+    and installed with --no-deps --target into a temporary directory; then
+    the installed ``voicecraft-tts-torch`` (cwd outside the checkout,
+    PYTHONPATH the target only) and the checkout's tts_torch_cli.py run
+    side by side at giga830M width, 16 layers, random weights from SEED,
+    greedy (--top-k 1), --fused-ffn, on demo.wav tiled to request (a)'s
+    17.28 s prompt.  Checks: the installed run imported the target's
+    package and built its kernel library from the target's csrc into the
+    target's own build root (and wrote nothing else beside the package);
+    both runs launched the attention kernel L times (one prefill, Sp >=
+    1024) and the fused FFN L times a forward, all on sm90/bf16; every wav
+    finite; the two runs' wavs equal byte for byte.  Returns its wall s."""
+    import importlib.metadata as md
+    from voicecraft_tpu_torch import PRESETS
+    from voicecraft_tpu_torch.utils import audio as au
+    t0 = time.time()
+    L = PRESETS["giga830M"]().num_decoder_layers
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_install_"))
+    procs = {}
+    try:
+        src, dist, target = tmp / "src", tmp / "dist", tmp / "target"
+        src.mkdir()
+        copy_build_inputs(src)
+
+        def pip(*args):
+            res = subprocess.run(
+                [sys.executable, "-m", "pip", "--disable-pip-version-check",
+                 "--no-input", "--no-cache-dir", *args, "--no-deps",
+                 "--no-index"], cwd=tmp,
+                capture_output=True, text=True, timeout=INSTALL_TIMEOUT_S)
+            if res.returncode != 0:
+                log(res.stdout[-3000:] + res.stderr[-3000:])
+                raise AssertionError(f"(15) pip {args[0]} exited "
+                                     f"{res.returncode}")
+
+        pip("wheel", str(src), "--no-build-isolation", "-w", str(dist))
+        (whl,) = dist.glob("*.whl")
+        pip("install", "--target", str(target), str(whl))
+        t_install = time.time() - t0
+        script = target / "bin" / "voicecraft-tts-torch"
+        if not script.is_file():
+            raise AssertionError(f"(15) no console script {script}")
+        prompt = tmp / "prompt.wav"
+        au.write_wav(str(prompt), long_wav[0], 16000)
+        args = ["--model", "giga830M", "--random-init", "--device", "cuda",
+                "--fused-ffn", "--top-k", "1", "--seed", str(SEED),
+                "--text-backend", "grapheme", "--prompt-wav", str(prompt),
+                "--prompt-transcript", long_text, "--target-transcript",
+                TARGET]
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        runs = {"installed": (str(script), str(target)),
+                "checkout": (str(REPO / "tts_torch_cli.py"), str(REPO))}
+        t1 = time.time()
+        for name, (cli, path) in runs.items():
+            cwd = tmp / name
+            cwd.mkdir()
+            procs[name] = cwd, subprocess.Popen(
+                [sys.executable, "-c", INSTALL_DRIVER, cli, *args, "--out",
+                 str(cwd / "out.wav")], cwd=cwd, env=dict(env, PYTHONPATH=path),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        reports = {}
+        for name, (cwd, proc) in procs.items():
+            out, err = proc.communicate(timeout=INSTALL_RUN_TIMEOUT_S)
+            if proc.returncode != 0:
+                log(err[-6000:])
+                raise AssertionError(f"(15) the {name} run exited "
+                                     f"{proc.returncode}")
+            (line,) = [ln for ln in out.splitlines()
+                       if ln.startswith("INSTALL ")]
+            reports[name] = rep = json.loads(line[len("INSTALL "):])
+            fw = rep["forwards"]
+            log(f"  {name}: {rep['package']}; kernel library {rep['lib']}; "
+                f"launches {rep['launches']}, routes {rep['routes']}, "
+                f"{fw} decode forwards; wavs {rep['written']}")
+            want = {"flash_prefix_attention": L, "fused_ffn": L * fw}
+            if (fw <= 0 or rep["launches"] != want
+                    or rep["routes"] != {"fused_ffn:sm90/bf16": L * fw}):
+                raise AssertionError(f"(15) {name}: launches {rep['launches']}"
+                                     f" {rep['routes']}, want {want}, all "
+                                     "fused_ffn:sm90/bf16")
+            if (sorted(Path(p).name for p in rep["written"])
+                    != ["out.wav", "out_gen_only.wav"]
+                    or not all(f for _, f in rep["written"].values())):
+                raise AssertionError(f"(15) {name}: wavs {rep['written']}")
+        t_runs = time.time() - t1
+        inst, pkg = reports["installed"], (target / "voicecraft_tpu_torch").resolve()
+        lib = Path(inst["lib"]).resolve()
+        checkout_lib = Path(reports["checkout"]["lib"]).resolve()
+        if not (Path(inst["package"]).resolve().is_relative_to(pkg)
+                and Path(inst["csrc"]).resolve() == pkg / "csrc"
+                and Path(inst["build_root"]).resolve() == pkg / "build" / "kernels"
+                and lib.parent.parent == pkg / "build" / "kernels"
+                and lib.stat().st_mtime > whl.stat().st_mtime
+                and lib.parent.name == checkout_lib.parent.name
+                and checkout_lib.is_relative_to(REPO.resolve())
+                and REPO.resolve() not in
+                [Path(p).resolve() for p in inst["sys_path"]]):
+            raise AssertionError(f"(15) the installed run used {inst}; target "
+                                 f"{target}, the checkout's library "
+                                 f"{checkout_lib}")
+        beside = sorted(p.name for p in target.iterdir())
+        if "build" in beside or not (pkg / "build").is_dir():
+            raise AssertionError(f"(15) the target holds {beside}")
+        for wav in ("out.wav", "out_gen_only.wav"):
+            got = (tmp / "installed" / wav).read_bytes()
+            want = (tmp / "checkout" / wav).read_bytes()
+            if got != want:
+                raise AssertionError(f"(15) {wav}: the installed run's "
+                                     f"{len(got)} bytes differ from the "
+                                     f"checkout's {len(want)}")
+        n_out = {Path(p).name: n for p, (n, _) in inst["written"].items()}
+        wall = time.time() - t0
+        log(f"[15 install] {whl.name} built (pip {md.version('pip')}, "
+            f"setuptools {md.version('setuptools')}) and installed into "
+            f"{target} in {t_install:.1f} s; voicecraft-tts-torch from the target and "
+            f"tts_torch_cli.py from the checkout, giga830M ({L} layers, "
+            f"x_len {x_len}, --fused-ffn, --top-k 1, seed {SEED}), side by "
+            f"side in {t_runs:.1f} s: the installed copy built {lib} from its "
+            f"own csrc; {L} attention launches and {L} FFN launches a forward "
+            f"each; the wavs {n_out} (samples) equal byte for byte; the phase in "
+            f"{wall:.1f} s")
+        return wall
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ---- phase 10 ----------------------------------------------------------------
 
 def scaling_check():
@@ -5039,6 +5243,10 @@ def main() -> None:
         launches = {name: n + run_launches[name]
                     for name, n in launches.items()}
     log(f"[14 bench] done in {time.time() - t0:.1f} s")
+
+    # ---- 15. an installed copy of the port, against the checkout ----
+    torch.cuda.empty_cache()
+    install_phase(long_wav, requests[0].transcript, len(requests[0].x))
 
     kernels = [
         dict(name="flash_prefix_attention", route="cuda",

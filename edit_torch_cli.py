@@ -115,7 +115,8 @@ def edit_interval(words, orig_transcript, target_transcript, edit_type,
     return interval
 
 
-def main(argv=None):
+def run(argv=None):
+    """The CLI on ``argv``; returns the edited codes [K, T']."""
     ap = build_parser()
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -181,6 +182,11 @@ def main(argv=None):
     au.write_wav(args.out, out, ccfg.sample_rate)
     logging.info("wrote %s (%.2fs)", args.out, out.shape[-1] / ccfg.sample_rate)
     return res
+
+
+def main(argv=None) -> None:
+    """The console script ``voicecraft-edit-torch`` (exit status 0)."""
+    run(argv)
 
 
 if __name__ == "__main__":

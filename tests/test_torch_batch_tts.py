@@ -202,7 +202,7 @@ def test_special_first_best_of_n(setup):
 
 def _cli(tmp_path, *extra):
     import tts_torch_cli
-    return tts_torch_cli.main([
+    return tts_torch_cli.run([
         "--model", "tiny_test", "--random-init", "--device", "cpu",
         "--text-backend", "grapheme", "--top-k", "15", "--silence-tokens", "5",
         "7", "--prompt-wav", str(REPO / "demo" / "demo.wav"),

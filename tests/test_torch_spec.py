@@ -568,7 +568,7 @@ def test_token_generators_key_on_index_and_salt():
 
 def _tts_cli(tmp_path, *extra):
     import tts_torch_cli
-    return tts_torch_cli.main([
+    return tts_torch_cli.run([
         "--model", "tiny_test", "--random-init", "--device", "cpu",
         "--text-backend", "grapheme", "--silence-tokens", "5", "7",
         "--prompt-wav", str(REPO / "demo" / "demo.wav"),

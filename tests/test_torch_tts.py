@@ -135,7 +135,7 @@ def test_cli_long_form_two_sentences(tmp_path, caplog):
     the generations are concatenated after it."""
     import tts_torch_cli
     caplog.set_level("INFO")
-    full, gen = tts_torch_cli.main(_cli_args(
+    full, gen = tts_torch_cli.run(_cli_args(
         tmp_path, "--long", "--target-transcript",
         "the river runs past the mill. birds sing at dawn!"))
     assert "phonemized 2 target(s)" in caplog.text
@@ -167,7 +167,7 @@ def test_cli_snaps_cutoff_to_mfa_csv_like_tts_cli(tmp_path, cut, caplog):
     assert tts_torch_cli.snap_prompt_cutoff(args, 16000) == (want_sec, want_text)
     assert want_sec != cut and len(want_text) < len(DEMO_TEXT)
     # and end to end: the prompt is cut at the snapped time
-    full, gen = tts_torch_cli.main(_cli_args(
+    full, gen = tts_torch_cli.run(_cli_args(
         tmp_path, "--mfa-csv", str(csv_path), "--prompt-end-sec", str(cut),
         "--target-transcript", "the river runs past the mill"))
     assert full.shape[1] - gen.shape[1] == -(-int(want_sec * 16000) // 320)

@@ -76,7 +76,7 @@ def test_tts_cli_transcribes_and_decodes_like_tts_cli(assets, tmp_path,
         step_logits.append(logits.numpy().copy())
         return sample(generator, logits, *a, **kw)
     monkeypatch.setattr(vc, "sample", recording)
-    full, gen = tts_torch_cli.main(common + [
+    full, gen = tts_torch_cli.run(common + [
         "--device", "cpu", "--out", str(tmp_path / "port.wav")])
     monkeypatch.setattr(vc, "sample", sample)
     port_lines = re.findall(r"transcribed prompt: (.*)", caplog.text)
@@ -182,7 +182,7 @@ def test_edit_cli_aligns_with_whisper(assets, tmp_path, caplog):
     path = str(tmp_path / "long.wav")
     au.write_wav(path, wav[0], 16000)
     caplog.set_level("INFO")
-    res = edit_torch_cli.main([
+    res = edit_torch_cli.run([
         "--model", model, "--codec", codec, "--device", "cpu",
         "--text-backend", "grapheme", "--asr-model", snap, "--wav", path,
         "--orig-transcript", TEXT.strip(),

@@ -129,7 +129,9 @@ def snap_prompt_cutoff(args, sample_rate: int):
     return snapped, " ".join(words[:min(idx + 1, len(words))])
 
 
-def main(argv=None):
+def run(argv=None):
+    """The CLI on ``argv``; returns (full codes [K, T + Tg], generated
+    codes [K, Tg])."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.fused_ffn and (args.spec > 1 or args.sample_batch_size > 1):
@@ -240,6 +242,11 @@ def main(argv=None):
     au.write_wav(gen_only, gen_wav, ccfg.sample_rate)
     logging.info("wrote %s and %s", args.out, gen_only)
     return full, gen
+
+
+def main(argv=None) -> None:
+    """The console script ``voicecraft-tts-torch`` (exit status 0)."""
+    run(argv)
 
 
 if __name__ == "__main__":

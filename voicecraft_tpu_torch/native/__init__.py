@@ -2,11 +2,12 @@
 JAX package's voicecraft_tpu/native).
 
 The shared library is built with g++ at first use into
-``build/native/<hash of the source>/`` at the root of the checkout (listed in
-``.gitignore``), never next to the source.  The pure-Python reader
-(``py_load_codes``) reads the same files into the same arrays; it serves
-when no g++ is on the machine, with a warning.  This is host I/O, not a
-device kernel.
+``voicecraft_tpu_torch/build/native/<hash of the source>/``, inside the
+package, in a checkout (where ``.gitignore`` lists every ``build/``) as in an
+installed copy; a build directory that cannot be written raises with its
+path.  The pure-Python reader (``py_load_codes``) reads the same files into
+the same arrays; it serves when g++ is missing or fails, with a warning.
+This is host I/O, not a device kernel.
 """
 
 from __future__ import annotations
@@ -22,10 +23,12 @@ from typing import List, Optional
 
 import numpy as np
 
+from .. import BUILD_DIR, writable_dir
+
 log = logging.getLogger("voicecraft_tpu_torch.native")
 
 _SRC = Path(__file__).resolve().parent / "dataio.cpp"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
+BUILD_ROOT = BUILD_DIR / "native"
 _FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
@@ -44,7 +47,7 @@ def build() -> Path:
     path = lib_path()
     if path.exists():
         return path
-    path.parent.mkdir(parents=True, exist_ok=True)
+    writable_dir(path.parent, "native code reader")
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
     os.close(fd)
     try:
@@ -59,14 +62,15 @@ def build() -> Path:
 
 def get_lib() -> Optional[ctypes.CDLL]:
     """The native library, built at first call; None (after one warning)
-    where it cannot be built."""
+    where g++ is missing or fails.  A build directory that cannot be
+    written raises (``writable_dir``)."""
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
-    _tried = True
     try:
         lib = ctypes.CDLL(str(build()))
     except (OSError, subprocess.SubprocessError) as e:
+        _tried = True
         log.warning("native dataio unavailable (%s); reading code files "
                     "in Python", e)
         return None

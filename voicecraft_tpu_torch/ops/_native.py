@@ -3,9 +3,12 @@
 The sources in ``voicecraft_tpu_torch/csrc`` are compiled by ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface and loaded with
 ctypes.  The build happens at first use, into
-``build/kernels/<hash of sources and flags>/`` at the root of the checkout
-(listed in ``.gitignore``), so a fresh checkout builds everything itself and
-an unchanged one reuses its library.  Nothing here runs at import time.
+``voicecraft_tpu_torch/build/kernels/<hash of sources and flags>/``, inside
+the package itself, whether it runs from a checkout (where ``.gitignore``
+lists every ``build/``) or from an installed copy: a fresh copy builds
+everything itself, an unchanged one reuses its library, and nothing is
+written beside the package.  A build directory that cannot be written
+raises with its path.  Nothing here runs at import time.
 
 Each wrapper that launches a kernel adds one to its entry of ``LAUNCHES``
 (and, for a kernel with several routes, of ``ROUTE_LAUNCHES``) right after
@@ -26,8 +29,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import BUILD_DIR, writable_dir
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD_ROOT = BUILD_DIR / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -84,7 +89,7 @@ def build() -> Tuple[Path, str]:
     lib_path = out_dir / "libvc_kernels.so"
     if lib_path.exists():
         return lib_path, ""
-    out_dir.mkdir(parents=True, exist_ok=True)
+    writable_dir(out_dir, "kernel library")
     tag = f"{os.getpid()}.tmp"
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     jobs = []
