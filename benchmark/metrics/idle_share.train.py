@@ -1,0 +1,3 @@
+"""Share of the traced training step's wall time with no device operation
+running."""
+from harness.readers import idle_share as read  # noqa: F401
