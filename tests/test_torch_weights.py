@@ -144,7 +144,7 @@ def test_port_imports_without_jax():
         "          'inference.streaming', 'inference.autospec', 'app',\n"
         "          'utils.text_norm', 'native', 'data.manifest',\n"
         "          'training.optim', 'training.step', 'training.trainer',\n"
-        "          'utils.profiling', 'models.scaling',\n"
+        "          'utils.profiling', 'utils.tracing', 'models.scaling',\n"
         "          'ops.pattern_providers', 'utils.quality',\n"
         "          'training.synthetic'):\n"
         "    assert 'voicecraft_tpu_torch.' + n in names, n\n"

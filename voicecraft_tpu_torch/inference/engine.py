@@ -57,6 +57,7 @@ from ..models.voicecraft import (MAX_POS, SamplingConfig, VoiceCraft,
 from ..ops import patterns
 from ..ops.attention import _attend_one, _ring_valid
 from ..parallel.mesh import all_gather_data, data_slice, stack_ranks
+from ..utils import tracing
 from .serving import _step_feed
 from .spec_common import (make_lane_sampler, seeded_generator,
                           spec_verify_pass, token_generators)
@@ -465,6 +466,7 @@ class ContinuousBatcher:
         self._stream_sent: Dict[int, int] = {}
         self._next_id = 0
         self.stats = dict(bursts=0, steps=0, waves=0, refills=0)
+        self._source = tracing.new_source()
 
     @property
     def cfg(self) -> ModelConfig:
@@ -513,6 +515,7 @@ class ContinuousBatcher:
             pending.append((b, rid, x, prefix))
         if not pending:
             return
+        t_admit = tracing.counter_ns()
         n = len(pending)
         xt = np.full((n, self.x_pad), cfg.text_pad_token, np.int64)
         yt = np.full((n, K, self.y_pad), cfg.empty_token, np.int64)
@@ -540,6 +543,7 @@ class ContinuousBatcher:
         dev = self.model.device
         for b, rid, _, _ in pending:
             self._lane_req[b] = rid
+            tracing.mark_request(self._source, rid, "admit", t_admit)
             if (self.spec <= 1 and self.scfg.temperature > 0
                     and self._local(b) is not None):
                 self._gens[self._local(b)] = seeded_generator(
@@ -607,6 +611,7 @@ class ContinuousBatcher:
             self._results[rid] = (np.concatenate([self._req_y[rid], gen],
                                                  axis=1), gen)
             self._retired.add(rid)
+            tracing.mark_request(self._source, rid, "retire")
             self._stream_cbs.pop(rid, None)
             self._stream_sent.pop(rid, None)
             if self._lane_req[b] == rid:
@@ -620,6 +625,7 @@ class ContinuousBatcher:
         capped at the retirement row count (rows past the eog cascade are
         frozen-lane noise), so streamed rows are a prefix of the result."""
         t, finish_t = status[:, 1], status[:, 2]
+        K = self.cfg.n_codebooks
         for b in range(self.lanes):
             rid = lane_map[b]
             if rid is None or rid not in self._stream_cbs:
@@ -628,18 +634,24 @@ class ContinuousBatcher:
                                                       int(finish_t[b]) + 1)
             if n <= self._stream_sent[rid]:
                 continue
+            if self._stream_sent[rid] < K <= n:
+                # the first rows that complete a frame
+                tracing.mark_request(self._source, rid, "first_rows")
             self._stream_sent[rid] = n
             # a copy: the snapshot's buffer is reused two bursts later
             self._stream_cbs[rid](gen_src[b, :n].astype(np.int32))
 
-    def _process_burst(self, snap: _Snapshot) -> None:
+    def _process_burst(self, snap: _Snapshot) -> int:
         """The host's side of one finished burst: waiting for its snapshot
-        is what blocks on the device."""
+        is what blocks on the device.  Returns the host ns of that wait."""
+        t0 = tracing.counter_ns()
         status, gen_src, cancelled = snap.read()
+        wait_ns = tracing.counter_ns() - t0
         if cancelled:
             raise StreamCancelled()
         self._emit_stream(status, gen_src, snap.lane_map)
         self._retire(status, gen_src, snap.lane_map)
+        return wait_ns
 
     def run(self) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
         """Drain the queue; returns {request_id: (full_codes, gen_codes)}.
@@ -648,24 +660,30 @@ class ContinuousBatcher:
         snapshot (the JAX engine's device-side drain becomes this host check
         per burst; outputs do not depend on it).  While a streaming request
         is in flight with ``pipeline``, a burst's snapshot is read after the
-        NEXT burst is enqueued."""
+        NEXT burst is enqueued.  Each pass of the loop is counted
+        (utils.tracing.Burst)."""
         pending = None        # the in-flight burst's snapshot
         while self._queue or any(r is not None for r in self._lane_req):
+            t0, refills = tracing.counter_ns(), self.stats["refills"]
             self._admit()
+            admit_ns, wait_ns = tracing.counter_ns() - t0, 0
             streaming = any(rid in self._stream_cbs
                             for rid in self._lane_req + [q[0] for q in
                                                          self._queue]
                             if rid is not None)
             snap = self._dispatch_burst()
             if streaming and self.pipeline:
-                if pending is not None:
-                    self._process_burst(pending)     # overlaps the burst
+                if pending is not None:      # overlaps the burst
+                    wait_ns = self._process_burst(pending)
                 pending = snap
             else:
                 if pending is not None:
-                    self._process_burst(pending)
+                    wait_ns = self._process_burst(pending)
                     pending = None
-                self._process_burst(snap)
+                wait_ns += self._process_burst(snap)
+            tracing.record_burst(tracing.Burst(
+                self._source, t0, tracing.counter_ns(), admit_ns, wait_ns,
+                self.stats["refills"] - refills))
         if pending is not None:
             self._process_burst(pending)
         out, self._results = self._results, {}

@@ -42,6 +42,7 @@ from ..ops.flash_attention import chunked_attention, prefill_attention
 from ..ops.sampling import sample
 from ..parallel.mesh import (copy_to_model, gather_table_cols, reduce_data,
                              reduce_model)
+from ..utils import tracing
 from ..utils.quantize import dequant_dot
 from . import transformer as trm
 from .embedding import sine_table
@@ -689,9 +690,11 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
         dev, dtype = model.device, model.dtype
         ltype = torch.long
 
-        _, logits, cache = prefill_prompt(model, x_tokens, x_len, y_prefix,
-                                          prefix_len, mask_emb_idx, s_max,
-                                          kv_dtype=kv_dtype)
+        with tracing.span("decode.prefill"):
+            _, logits, cache = prefill_prompt(model, x_tokens, x_len,
+                                              y_prefix, prefix_len,
+                                              mask_emb_idx, s_max,
+                                              kv_dtype=kv_dtype)
 
         scalar = lambda v, t=ltype: torch.tensor(v, dtype=t, device=dev)
         x_len_t = scalar(x_len)
@@ -718,95 +721,103 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
 
         while True:
             for _ in range(steps_per_iter):
-                if grouped:
-                    active = ~done & (gen_cnt < gen_max)
-                samples, new_eog, new_consec, new_prev = _adjust_and_sample(
-                    cfg, scfg, is_tts, cap_mult, generator, logits[0],
-                    codebook_eog, cur_num_gen, consec, prev, y_pos, x_len_t,
-                    bench_mode=bench_mode)
-                gen_buf.index_copy_(0, gen_cnt.view(1), samples[None])
-                emb = column_embedding(model, samples)
-                if not multi and not grouped:
-                    # one span: its completion ends the loop after this
-                    # step, so nothing is reset
-                    done = new_eog.all()
-                    gen_cnt += 1
-                    codebook_eog, cur_num_gen = new_eog, cur_num_gen + 1
-                    consec, prev = new_consec, new_prev
-                elif not multi:
-                    done = done | (new_eog.all() & active)
-                    gen_cnt += active.long()
-                    codebook_eog = torch.where(active, new_eog, codebook_eog)
-                    cur_num_gen = cur_num_gen + active.long()
-                    consec = torch.where(active, new_consec, consec)
-                    prev = torch.where(active, new_prev, prev)
-                else:
-                    # a feed step records nothing and leaves the sampling
-                    # state alone (as does an inactive step); the row it
-                    # wrote at gen_cnt lies past the recorded count, and
-                    # the next sample overwrites it
-                    feeding = queue_len > 0
-                    span_complete = new_eog.all() & ~feeding
+                with tracing.span("decode.step"):
                     if grouped:
-                        span_complete = span_complete & active
-                        consume, keep = feeding & active, feeding | ~active
+                        active = ~done & (gen_cnt < gen_max)
+                    with tracing.span("decode.sample"):
+                        samples, new_eog, new_consec, new_prev = \
+                            _adjust_and_sample(
+                                cfg, scfg, is_tts, cap_mult, generator,
+                                logits[0], codebook_eog, cur_num_gen, consec,
+                                prev, y_pos, x_len_t, bench_mode=bench_mode)
+                    gen_buf.index_copy_(0, gen_cnt.view(1), samples[None])
+                    emb = column_embedding(model, samples)
+                    if not multi and not grouped:
+                        # one span: its completion ends the loop after this
+                        # step, so nothing is reset
+                        done = new_eog.all()
+                        gen_cnt += 1
+                        codebook_eog, cur_num_gen = new_eog, cur_num_gen + 1
+                        consec, prev = new_consec, new_prev
+                    elif not multi:
+                        done = done | (new_eog.all() & active)
+                        gen_cnt += active.long()
+                        codebook_eog = torch.where(active, new_eog,
+                                                   codebook_eog)
+                        cur_num_gen = cur_num_gen + active.long()
+                        consec = torch.where(active, new_consec, consec)
+                        prev = torch.where(active, new_prev, prev)
                     else:
-                        consume, keep = feeding, feeding
-                    span_buf.index_copy_(0, gen_cnt.view(1), span_idx.view(1))
-                    gen_cnt += (~keep).long()
-                    emb = torch.where(feeding, queue[0], emb)
+                        # a feed step records nothing and leaves the
+                        # sampling state alone (as does an inactive step);
+                        # the row it wrote at gen_cnt lies past the recorded
+                        # count, and the next sample overwrites it
+                        feeding = queue_len > 0
+                        span_complete = new_eog.all() & ~feeding
+                        if grouped:
+                            span_complete = span_complete & active
+                            consume, keep = feeding & active, feeding | ~active
+                        else:
+                            consume, keep = feeding, feeding
+                        span_buf.index_copy_(0, gen_cnt.view(1),
+                                             span_idx.view(1))
+                        gen_cnt += (~keep).long()
+                        emb = torch.where(feeding, queue[0], emb)
 
-                    # on a span's completion with spans left, queue [mask
-                    # embedding of the next span, empty column]; a feed step
-                    # pops the queue
-                    more = span_idx + 1 < n_spans
-                    start_next = span_complete & more
-                    next_id = queue_mask_ids.index_select(
-                        0, (span_idx + 1).clamp(max=max_spans - 1).view(1))
-                    new_queue = torch.cat(
-                        [lookup(model.mask_emb, next_id).to(dtype),
-                         empty_emb[None]])
-                    queue = torch.where(start_next, new_queue,
-                                        torch.where(consume,
-                                                    queue[1].expand(2, -1),
-                                                    queue))
-                    queue_len = torch.where(start_next, 2,
-                                            torch.where(consume, queue_len - 1,
-                                                        queue_len))
-                    ended = span_complete & ~more
-                    done = done | ended if grouped else ended
-                    span_idx = span_idx + start_next.long()
+                        # on a span's completion with spans left, queue
+                        # [mask embedding of the next span, empty column]; a
+                        # feed step pops the queue
+                        more = span_idx + 1 < n_spans
+                        start_next = span_complete & more
+                        next_id = queue_mask_ids.index_select(
+                            0, (span_idx + 1).clamp(max=max_spans - 1).view(1))
+                        new_queue = torch.cat(
+                            [lookup(model.mask_emb, next_id).to(dtype),
+                             empty_emb[None]])
+                        queue = torch.where(start_next, new_queue,
+                                            torch.where(consume,
+                                                        queue[1].expand(2, -1),
+                                                        queue))
+                        queue_len = torch.where(
+                            start_next, 2,
+                            torch.where(consume, queue_len - 1, queue_len))
+                        ended = span_complete & ~more
+                        done = done | ended if grouped else ended
+                        span_idx = span_idx + start_next.long()
 
-                    # per-span resets
-                    codebook_eog = torch.where(
-                        span_complete, False,
-                        torch.where(keep, codebook_eog, new_eog))
-                    cur_num_gen = torch.where(
-                        span_complete, 0,
-                        torch.where(keep, cur_num_gen, cur_num_gen + 1))
-                    consec = torch.where(span_complete, 0,
-                                         torch.where(keep, consec, new_consec))
-                    prev = torch.where(span_complete, -1,
-                                       torch.where(keep, prev, new_prev))
+                        # per-span resets
+                        codebook_eog = torch.where(
+                            span_complete, False,
+                            torch.where(keep, codebook_eog, new_eog))
+                        cur_num_gen = torch.where(
+                            span_complete, 0,
+                            torch.where(keep, cur_num_gen, cur_num_gen + 1))
+                        consec = torch.where(
+                            span_complete, 0,
+                            torch.where(keep, consec, new_consec))
+                        prev = torch.where(span_complete, -1,
+                                           torch.where(keep, prev, new_prev))
 
-                # feed the step's input through the decoder (also after the
-                # last sample, as the JAX loop does)
-                # an idle step's frozen pos may be the slot past the slab
-                h, cache = trm.decode_step_fast(
-                    model.decoder, step_input(model, emb, y_pos), cache,
-                    pos.clamp(max=s_max - 1) if grouped else pos,
-                    x_len=x_len_t, x_pad=x_pad, fused_ffn=fused_ffn)
-                logits = apply_heads(model.heads, h[:, 0])
-                if grouped:
-                    pos += active.long()
-                    y_pos += active.long()
-                    idle += (~active).long()
-                else:
-                    pos += 1
-                    y_pos += 1
-                forwards += 1
-            counts = [done.long(), gen_cnt, span_idx] + [idle] * grouped
-            is_done, n_gen, n_span, *n_idle = torch.stack(counts).tolist()
+                    # feed the step's input through the decoder (also after
+                    # the last sample, as the JAX loop does); an idle step's
+                    # frozen pos may be the slot past the slab
+                    h, cache = trm.decode_step_fast(
+                        model.decoder, step_input(model, emb, y_pos), cache,
+                        pos.clamp(max=s_max - 1) if grouped else pos,
+                        x_len=x_len_t, x_pad=x_pad, fused_ffn=fused_ffn)
+                    logits = apply_heads(model.heads, h[:, 0])
+                    if grouped:
+                        pos += active.long()
+                        y_pos += active.long()
+                        idle += (~active).long()
+                    else:
+                        pos += 1
+                        y_pos += 1
+                    forwards += 1
+            counts = torch.stack([done.long(), gen_cnt, span_idx]
+                                 + [idle] * grouped)
+            with tracing.span("decode.sync"):
+                is_done, n_gen, n_span, *n_idle = counts.tolist()
             if is_done or n_gen >= gen_max:
                 break
         return DecodeResult(gen_buf[:gen_max], span_buf[:gen_max], n_gen,

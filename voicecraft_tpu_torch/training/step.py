@@ -22,6 +22,7 @@ import torch
 
 from ..models.transformer import fold_seed
 from ..models.voicecraft import TrainBatch, VoiceCraft, forward_train
+from ..utils import tracing
 
 
 def make_train_step(model: VoiceCraft, optimizer, remat: bool = True,
@@ -73,7 +74,8 @@ def make_train_step(model: VoiceCraft, optimizer, remat: bool = True,
                 out["mtp_top1acc"] = out["mtp_top1acc"] / grad_accum
         ok = bool(torch.isfinite(out["loss"]))
         if ok:
-            optimizer.step()
+            with tracing.span("train.update"):
+                optimizer.step()
         keys = ["loss", "top10acc", "top10acc_by_codebook", "effective_ntoken"]
         metrics = {k: out[k] for k in keys + ["mtp_loss", "mtp_top1acc"]
                    if k in out}

@@ -43,7 +43,7 @@ from ..inference.loader import CKPT_MODEL, load_state
 from ..models.voicecraft import TrainBatch, VoiceCraft, forward_train
 from ..parallel.mesh import (Mesh, gather_params, leaf_layouts, shard_batch,
                              shard_params, shard_state, zero1_opt_shardings)
-from ..utils.profiling import AverageMeter, StepProfiler
+from ..utils.profiling import StepProfiler
 from .optim import (AdamW, ScaledAdam, eden_schedule, linear_warmup_decay,
                     stacked_leaves)
 from .step import make_train_step
@@ -180,7 +180,6 @@ class Trainer:
         # each step's dropout seed comes from this generator
         self.seed_gen = torch.Generator().manual_seed(tcfg.seed)
 
-        self.meters = {k: AverageMeter(k) for k in ("data_time", "train_time")}
         self.profiler = StepProfiler(tcfg.profile_dir,
                                      start=tcfg.profile_start_step,
                                      stop=tcfg.profile_start_step + 3)
@@ -381,8 +380,6 @@ class Trainer:
                                if isinstance(v, torch.Tensor) else v)
                            for k, v in metrics.items()}
                 train_time = time.time() - t0
-                self.meters["data_time"].update(data_time)
-                self.meters["train_time"].update(train_time)
 
                 if metrics["is_nan"] > 0:
                     log.info("step %d: non-finite loss, batch skipped", step)

@@ -1,7 +1,9 @@
-"""Meters and device traces for training (PyTorch port of
-voicecraft_tpu/utils/profiling.py): the reference's wall-clock
-AverageMeters (steps/trainer.py:162-166), and torch.profiler traces (CPU
-and CUDA activity, a Chrome trace per window) in place of jax.profiler's.
+"""Device traces for training (PyTorch port of
+voicecraft_tpu/utils/profiling.py): torch.profiler traces (CPU and CUDA
+activity, a Chrome trace per window) in place of jax.profiler's.  The
+port's spans of the traced window (utils/tracing.py: the update as
+``train.update``, the decode loop's phases) are among the trace's host
+events, on its clock.
 """
 
 from __future__ import annotations
@@ -15,28 +17,6 @@ from typing import Optional
 import torch
 
 log = logging.getLogger("voicecraft_tpu_torch.profiling")
-
-
-class AverageMeter:
-    """Running average (reference trainer_utils.py:142-157 semantics)."""
-
-    def __init__(self, name: str = ""):
-        self.name = name
-        self.reset()
-
-    def reset(self):
-        self.val = 0.0
-        self.sum = 0.0
-        self.count = 0
-
-    def update(self, val: float, n: int = 1):
-        self.val = val
-        self.sum += val * n
-        self.count += n
-
-    @property
-    def avg(self) -> float:
-        return self.sum / max(self.count, 1)
 
 
 def _activities():
