@@ -1424,8 +1424,10 @@ class DrawRecorder:
         import voicecraft_tpu_torch.models.voicecraft as vc
         self.logits, self.passes = [], []
         self._mods = (vc, sc, sv)
-        self._orig = (vc.sample, sc.spec_verify_pass)
-        sample, spec_pass = self._orig
+        graph = vc._StepGraph
+        self._orig = (vc.sample, sc.spec_verify_pass, graph.__init__,
+                      graph.replay)
+        sample, spec_pass, capture, replay = self._orig
 
         def recording_sample(generator, lg, *a, **kw):
             self.logits.append(lg.detach().clone())
@@ -1435,14 +1437,31 @@ class DrawRecorder:
             self.passes.append((kw["t"], len(self.logits), kw["tau"]))
             return spec_pass(*a, **kw)
 
+        # a captured decode step (the single-stream loop on the card) draws
+        # nothing at its capture: its copies are buffers that each replay
+        # fills, so each replay records a copy of them
+        def recording_capture(g, *a, **kw):
+            n = len(self.logits)
+            capture(g, *a, **kw)
+            g.recorded_draws = self.logits[n:]
+            del self.logits[n:]
+
+        def recording_replay(g):
+            replay(g)
+            self.logits += [t.clone() for t in getattr(g, "recorded_draws",
+                                                       ())]
+
         vc.sample = recording_sample
         sc.spec_verify_pass = sv.spec_verify_pass = recording_pass
+        graph.__init__, graph.replay = recording_capture, recording_replay
         return self
 
     def __exit__(self, *exc):
-        (vc, sc, sv), (sample, spec_pass) = self._mods, self._orig
+        vc, sc, sv = self._mods
+        sample, spec_pass, capture, replay = self._orig
         vc.sample = sample
         sc.spec_verify_pass = sv.spec_verify_pass = spec_pass
+        vc._StepGraph.__init__, vc._StepGraph.replay = capture, replay
 
     def lane(self, b):
         """by_index of lane b (each draw [B, K, card]; a serving pass's t is
@@ -1516,6 +1535,39 @@ def device_ops(fn):
     it, from torch.profiler; None when it saw no device activity)."""
     out, _, n = device_time(fn)
     return out, n or None
+
+
+@contextlib.contextmanager
+def counting_forwards():
+    """Inside the block, the yielded [n] counts decoder forwards: calls of
+    transformer.decode_step_fast, less the call that a CUDA graph's capture
+    of the single-stream loop's step makes (it runs nothing), plus each
+    replay of a captured step."""
+    from voicecraft_tpu_torch.models import transformer as trm
+    from voicecraft_tpu_torch.models import voicecraft as vc
+    count = [0]
+    step = trm.decode_step_fast
+    capture, replay = vc._StepGraph.__init__, vc._StepGraph.replay
+
+    def counted_step(*a, **kw):
+        count[0] += 1
+        return step(*a, **kw)
+
+    def counted_capture(g, *a, **kw):
+        capture(g, *a, **kw)
+        count[0] -= 1
+
+    def counted_replay(g):
+        count[0] += 1
+        replay(g)
+
+    trm.decode_step_fast = counted_step
+    vc._StepGraph.__init__, vc._StepGraph.replay = counted_capture, counted_replay
+    try:
+        yield count
+    finally:
+        trm.decode_step_fast = step
+        vc._StepGraph.__init__, vc._StepGraph.replay = capture, replay
 
 
 def step_profile(run, n, module=None, name="decode_step_multi"):
@@ -3335,41 +3387,33 @@ def recipe_phase():
 
 class BenchRun:
     """One bench_torch.main call in-process: its JSON lines, its stderr
-    lines (logged under the label), its decoder forwards (calls of
-    transformer.decode_step_fast) and its launch counts, set to 0 just
-    before and read just after; ``profile`` = n also gives the device
-    operations and device ms a decode step over n steps of its first run
+    lines (logged under the label), its decoder forwards
+    (counting_forwards) and its launch counts, set to 0 just before and
+    read just after; ``profile`` = n also gives the device operations and
+    device ms a decode step over n replayed steps of its first run
     (step_profile)."""
 
     def __init__(self, label, argv, profile=None):
         import bench_torch
         import torch
-        from voicecraft_tpu_torch.models import transformer as trm
+        from voicecraft_tpu_torch.models import voicecraft as vc
         from voicecraft_tpu_torch.ops import _native
         self.label, self.argv = label, list(argv)
-        step, count = trm.decode_step_fast, [0]
-
-        def counting(*a, **kw):
-            count[0] += 1
-            return step(*a, **kw)
-
         err = io.StringIO()
         _native.reset_launch_counts()
-        trm.decode_step_fast = counting
         t0 = time.time()
         try:
-            with contextlib.redirect_stderr(err):
+            with contextlib.redirect_stderr(err), counting_forwards() as count:
                 self.costs = None
                 if profile:
                     self.costs = step_profile(
                         lambda: setattr(self, "results",
                                         bench_torch.main(self.argv)),
-                        profile, module=trm, name="decode_step_fast")
+                        profile, module=vc._StepGraph, name="replay")
                 else:
                     self.results = bench_torch.main(self.argv)
             torch.cuda.synchronize()
         finally:
-            trm.decode_step_fast = step
             for line in err.getvalue().splitlines():
                 log(f"  ({label}) {line}")
         self.wall = time.time() - t0
@@ -3609,22 +3653,33 @@ def _fmt(v, digits=1):
 
 # run as ``python -c`` in phase 15's subprocesses: the CLI script argv[1]
 # (the installed console script, or the checkout's tts_torch_cli.py) with
-# argv[2:], counting decode forwards (transformer.decode_step_fast) and the
-# wavs written; then one line "INSTALL {...}": the package and the kernel
-# library it used, the launch counts and the forwards
+# argv[2:], counting decode forwards (as chip_smoke.py's counting_forwards:
+# transformer.decode_step_fast calls, less a CUDA graph capture's, plus the
+# replays) and the wavs written; then one line "INSTALL {...}": the package
+# and the kernel library it used, the launch counts and the forwards
 INSTALL_DRIVER = r"""
 import json, os, runpy, sys
 import numpy as np
 import voicecraft_tpu_torch
 from voicecraft_tpu_torch.models import transformer as trm
+from voicecraft_tpu_torch.models import voicecraft as vc
 from voicecraft_tpu_torch.ops import _native
 from voicecraft_tpu_torch.utils import audio as au
 forwards, written = [0], {}
 step, write_wav = trm.decode_step_fast, au.write_wav
+capture, replay = vc._StepGraph.__init__, vc._StepGraph.replay
 
 def counted_step(*a, **k):
     forwards[0] += 1
     return step(*a, **k)
+
+def counted_capture(g, *a, **k):
+    capture(g, *a, **k)
+    forwards[0] -= 1
+
+def counted_replay(g):
+    forwards[0] += 1
+    replay(g)
 
 def recorded_write(path, wav, sr):
     written[str(path)] = [int(np.asarray(wav).shape[-1]),
@@ -3632,6 +3687,7 @@ def recorded_write(path, wav, sr):
     write_wav(path, wav, sr)
 
 trm.decode_step_fast, au.write_wav = counted_step, recorded_write
+vc._StepGraph.__init__, vc._StepGraph.replay = counted_capture, counted_replay
 sys.argv = sys.argv[1:]
 try:
     runpy.run_path(sys.argv[0], run_name="__main__")
@@ -5025,11 +5081,13 @@ def loop_ops(model, r, fused_ffn):
     (the draw, the bookkeeping, the forward, the heads and the host sync)
     at request r's geometry, over PROFILE_STEPS steps (step_profile)."""
     from voicecraft_tpu_torch.inference.tts import inference_tts
-    from voicecraft_tpu_torch.models import transformer as trm
+    from voicecraft_tpu_torch.models import voicecraft as vc
+    # the loop replays its captured step from the second step on: the
+    # window runs from the second replay to the (n + 2)-th
     return step_profile(
         lambda: inference_tts(model, r.x, r.codes, r.scfg, seed=SEED,
-                              gen_max=PROFILE_STEPS + 2, fused_ffn=fused_ffn),
-        PROFILE_STEPS, module=trm, name="decode_step_fast")
+                              gen_max=PROFILE_STEPS + 3, fused_ffn=fused_ffn),
+        PROFILE_STEPS, module=vc._StepGraph, name="replay")
 
 
 def main() -> None:

@@ -20,13 +20,16 @@ auxiliary loss.
 Each decode loop keeps its state in device tensors of static shape (the
 write pointer, the sampling state, the token and span buffers, the span
 feed queue) and syncs with the host once per step (speculative loops: once
-per verified pass).
+per verified pass).  On a CUDA device the single-stream loop replays its
+step from a CUDA graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import threading
 import warnings
 from typing import NamedTuple, Optional, Tuple
 
@@ -38,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import ModelConfig
 
 from ..ops.attention import dropout, mha, segment_padding_bias
+from ..ops import _native
 from ..ops.flash_attention import chunked_attention, prefill_attention
 from ..ops.sampling import sample
 from ..parallel.mesh import (copy_to_model, gather_table_cols, reduce_data,
@@ -624,6 +628,91 @@ class DecodeResult:
     forwards: int             # decoder forwards, feed steps included
     idle: int = 0             # forwards after the decode ended (the trailing
                               # sub-steps of steps_per_iter > 1)
+    logits: Optional[torch.Tensor] = None  # the last forward's heads, f32
+                                           # [1, K, card] (device)
+
+
+def step_graph_engages(model: VoiceCraft) -> bool:
+    """Whether make_decode_loop replays its decode step from a CUDA graph:
+    the model's tensors are on a CUDA device and its decoder is not split
+    over a mesh's 'model' axis (a split step runs collectives, which are
+    not captured)."""
+    mesh = getattr(model.decoder, "mesh", None)
+    return (model.device.type == "cuda"
+            and not (mesh is not None and mesh.n_model > 1))
+
+
+_sites = threading.local()
+
+
+class _CaptureSite:
+    """This thread's place on one device to capture decode steps: a stream
+    other than the default one, which a capture needs (a decode's first
+    step runs there too, and so settles what the capture then reuses:
+    cuBLAS's workspace for that stream, the FFN kernel's attributes, cached
+    constants), and the graph captured there last, kept so that the next
+    capture shares its memory pool.  A capture into a pool of its own
+    leaves that pool reserved until a cudaMalloc fails (a 2 MiB segment a
+    decode)."""
+
+    def __init__(self, idx: int):
+        self.idx = idx
+        self.stream = torch.cuda.Stream(idx)
+        self.last: Optional["torch.cuda.CUDAGraph"] = None
+
+    @staticmethod
+    def of(device: torch.device) -> "_CaptureSite":
+        sites = getattr(_sites, "by_device", None)
+        if sites is None:
+            sites = _sites.by_device = {}
+        idx = (torch.cuda.current_device() if device.index is None
+               else device.index)
+        if idx not in sites:
+            sites[idx] = _CaptureSite(idx)
+        return sites[idx]
+
+    @contextlib.contextmanager
+    def running(self):
+        """Run the block on the site's stream, ordered after the work
+        queued on the current stream and before the work queued there
+        after it."""
+        main = torch.cuda.current_stream(self.idx)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            yield
+        main.wait_stream(self.stream)
+
+
+class _StepGraph:
+    """One decode step captured in a CUDA graph.  The capture runs nothing;
+    each replay runs the step's kernels in the captured order on the state
+    tensors the capture saw, and draws from ``generator`` (registered with
+    the graph) where the eager step draws: every replay advances its Philox
+    offset as an eager step does.  The fused FFN's launch counts move from
+    the capture to the replays (ops/_native.py:GraphLaunches)."""
+
+    def __init__(self, step, generator: Optional[torch.Generator],
+                 device: torch.device):
+        site = _CaptureSite.of(device)
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+        pool = None if site.last is None else site.last.pool()
+        with site.running(), _native.GraphLaunches() as self.launches:
+            self.graph.capture_begin(pool=pool,
+                                     capture_error_mode="thread_local")
+            try:
+                step()
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    self.graph.capture_end()
+                raise
+            self.graph.capture_end()
+        site.last = self.graph
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.launches.replayed()
 
 
 def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
@@ -645,6 +734,14 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
     ops; the queue, the per-span resets and the span bookkeeping are device
     tensors under ``torch.where``.  A one-span decode (TTS) can never queue
     a feed and leaves that bookkeeping out (~30 fewer launches per step).
+
+    A step is one function that updates that state in place, the sampling
+    logits and the counts the host reads included.  Where
+    :func:`step_graph_engages` (a CUDA model), the first step runs eagerly
+    and the second captures the step in a CUDA graph, which every later
+    step replays (:class:`_StepGraph`): the same kernels on the same data,
+    and the same draws from ``generator``, with one launch a step from the
+    host.  Elsewhere every step runs eagerly.
 
     ``steps_per_iter`` = k runs k steps between host syncs, each of which
     reads ``done``, the sample count and the span index together (k = 1:
@@ -703,125 +800,140 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
         # grouped steps write past the budget: one spare row
         gen_buf = torch.zeros((gen_max + grouped, K), dtype=ltype, device=dev)
         span_buf = torch.zeros((gen_max + grouped,), dtype=ltype, device=dev)
-        gen_cnt = scalar(0)
+        # what the host reads at a sync: done (0 / 1), the recorded
+        # samples, the span index and the idle forwards
+        counts = torch.zeros((4,), dtype=ltype, device=dev)
+        done, gen_cnt, span_idx, idle = (counts[i] for i in range(4))
         codebook_eog = torch.zeros((K,), dtype=torch.bool, device=dev)
         cur_num_gen = scalar(0)
         consec = scalar(0)
         prev = scalar(-1)
-        span_idx = scalar(0)
         queue = torch.zeros((2, cfg.d_model), dtype=dtype, device=dev)
         queue_len = scalar(0)
         queue_mask_ids = queue_mask_ids.to(device=dev, dtype=ltype)
         empty_emb = column_embedding(
             model, torch.full((K,), cfg.empty_token, dtype=ltype, device=dev))
-        done = scalar(False, torch.bool)
-        idle = scalar(0)
-        forwards = 0
         multi = n_spans > 1
 
+        def step(sample_span: bool) -> None:
+            """One decode step from ``logits``: draw, record, feed the
+            decoder, and write the next ``logits``, all in place.
+            ``sample_span`` records the draw as ``decode.sample``."""
+            if grouped:
+                active = (done == 0) & (gen_cnt < gen_max)
+            with (tracing.span("decode.sample") if sample_span
+                  else contextlib.nullcontext()):
+                samples, new_eog, new_consec, new_prev = _adjust_and_sample(
+                    cfg, scfg, is_tts, cap_mult, generator, logits[0],
+                    codebook_eog, cur_num_gen, consec, prev, y_pos, x_len_t,
+                    bench_mode=bench_mode)
+            gen_buf.index_copy_(0, gen_cnt.view(1), samples[None])
+            emb = column_embedding(model, samples)
+            if not multi and not grouped:
+                # one span: its completion ends the loop after this step, so
+                # nothing is reset
+                done.copy_(new_eog.all())
+                gen_cnt.add_(1)
+                codebook_eog.copy_(new_eog)
+                cur_num_gen.add_(1)
+                consec.copy_(new_consec)
+                prev.copy_(new_prev)
+            elif not multi:
+                done.bitwise_or_(new_eog.all() & active)
+                gen_cnt.add_(active.long())
+                codebook_eog.copy_(torch.where(active, new_eog, codebook_eog))
+                cur_num_gen.add_(active.long())
+                consec.copy_(torch.where(active, new_consec, consec))
+                prev.copy_(torch.where(active, new_prev, prev))
+            else:
+                # a feed step records nothing and leaves the sampling state
+                # alone (as does an inactive step); the row it wrote at
+                # gen_cnt lies past the recorded count, and the next sample
+                # overwrites it
+                feeding = queue_len > 0
+                span_complete = new_eog.all() & ~feeding
+                if grouped:
+                    span_complete = span_complete & active
+                    consume, keep = feeding & active, feeding | ~active
+                else:
+                    consume, keep = feeding, feeding
+                span_buf.index_copy_(0, gen_cnt.view(1), span_idx.view(1))
+                gen_cnt.add_((~keep).long())
+                emb = torch.where(feeding, queue[0], emb)
+
+                # on a span's completion with spans left, queue [mask
+                # embedding of the next span, empty column]; a feed step
+                # pops the queue
+                more = span_idx + 1 < n_spans
+                start_next = span_complete & more
+                next_id = queue_mask_ids.index_select(
+                    0, (span_idx + 1).clamp(max=max_spans - 1).view(1))
+                new_queue = torch.cat([lookup(model.mask_emb, next_id).to(dtype),
+                                       empty_emb[None]])
+                queue.copy_(torch.where(
+                    start_next, new_queue,
+                    torch.where(consume, queue[1].expand(2, -1), queue)))
+                queue_len.copy_(torch.where(
+                    start_next, 2,
+                    torch.where(consume, queue_len - 1, queue_len)))
+                ended = span_complete & ~more
+                if grouped:
+                    done.bitwise_or_(ended)
+                else:
+                    done.copy_(ended)
+                span_idx.add_(start_next.long())
+
+                # per-span resets
+                codebook_eog.copy_(torch.where(
+                    span_complete, False,
+                    torch.where(keep, codebook_eog, new_eog)))
+                cur_num_gen.copy_(torch.where(
+                    span_complete, 0,
+                    torch.where(keep, cur_num_gen, cur_num_gen + 1)))
+                consec.copy_(torch.where(
+                    span_complete, 0, torch.where(keep, consec, new_consec)))
+                prev.copy_(torch.where(span_complete, -1,
+                                       torch.where(keep, prev, new_prev)))
+
+            # feed the step's input through the decoder (also after the last
+            # sample, as the JAX loop does); an idle step's frozen pos may be
+            # the slot past the slab
+            h, _ = trm.decode_step_fast(
+                model.decoder, step_input(model, emb, y_pos), cache,
+                pos.clamp(max=s_max - 1) if grouped else pos,
+                x_len=x_len_t, x_pad=x_pad, fused_ffn=fused_ffn)
+            logits.copy_(apply_heads(model.heads, h[:, 0]))
+            if grouped:
+                pos.add_(active.long())
+                y_pos.add_(active.long())
+                idle.add_((~active).long())
+            else:
+                pos.add_(1)
+                y_pos.add_(1)
+
+        graphed = step_graph_engages(model)
+        graph, forwards = None, 0
         while True:
             for _ in range(steps_per_iter):
+                if graphed and forwards == 1:
+                    with tracing.span("decode.capture"):
+                        graph = _StepGraph(lambda: step(False), generator, dev)
                 with tracing.span("decode.step"):
-                    if grouped:
-                        active = ~done & (gen_cnt < gen_max)
-                    with tracing.span("decode.sample"):
-                        samples, new_eog, new_consec, new_prev = \
-                            _adjust_and_sample(
-                                cfg, scfg, is_tts, cap_mult, generator,
-                                logits[0], codebook_eog, cur_num_gen, consec,
-                                prev, y_pos, x_len_t, bench_mode=bench_mode)
-                    gen_buf.index_copy_(0, gen_cnt.view(1), samples[None])
-                    emb = column_embedding(model, samples)
-                    if not multi and not grouped:
-                        # one span: its completion ends the loop after this
-                        # step, so nothing is reset
-                        done = new_eog.all()
-                        gen_cnt += 1
-                        codebook_eog, cur_num_gen = new_eog, cur_num_gen + 1
-                        consec, prev = new_consec, new_prev
-                    elif not multi:
-                        done = done | (new_eog.all() & active)
-                        gen_cnt += active.long()
-                        codebook_eog = torch.where(active, new_eog,
-                                                   codebook_eog)
-                        cur_num_gen = cur_num_gen + active.long()
-                        consec = torch.where(active, new_consec, consec)
-                        prev = torch.where(active, new_prev, prev)
+                    if graph is not None:
+                        with tracing.span("decode.replay"):
+                            graph.replay()
+                    elif graphed:
+                        with _CaptureSite.of(dev).running():
+                            step(False)
                     else:
-                        # a feed step records nothing and leaves the
-                        # sampling state alone (as does an inactive step);
-                        # the row it wrote at gen_cnt lies past the recorded
-                        # count, and the next sample overwrites it
-                        feeding = queue_len > 0
-                        span_complete = new_eog.all() & ~feeding
-                        if grouped:
-                            span_complete = span_complete & active
-                            consume, keep = feeding & active, feeding | ~active
-                        else:
-                            consume, keep = feeding, feeding
-                        span_buf.index_copy_(0, gen_cnt.view(1),
-                                             span_idx.view(1))
-                        gen_cnt += (~keep).long()
-                        emb = torch.where(feeding, queue[0], emb)
-
-                        # on a span's completion with spans left, queue
-                        # [mask embedding of the next span, empty column]; a
-                        # feed step pops the queue
-                        more = span_idx + 1 < n_spans
-                        start_next = span_complete & more
-                        next_id = queue_mask_ids.index_select(
-                            0, (span_idx + 1).clamp(max=max_spans - 1).view(1))
-                        new_queue = torch.cat(
-                            [lookup(model.mask_emb, next_id).to(dtype),
-                             empty_emb[None]])
-                        queue = torch.where(start_next, new_queue,
-                                            torch.where(consume,
-                                                        queue[1].expand(2, -1),
-                                                        queue))
-                        queue_len = torch.where(
-                            start_next, 2,
-                            torch.where(consume, queue_len - 1, queue_len))
-                        ended = span_complete & ~more
-                        done = done | ended if grouped else ended
-                        span_idx = span_idx + start_next.long()
-
-                        # per-span resets
-                        codebook_eog = torch.where(
-                            span_complete, False,
-                            torch.where(keep, codebook_eog, new_eog))
-                        cur_num_gen = torch.where(
-                            span_complete, 0,
-                            torch.where(keep, cur_num_gen, cur_num_gen + 1))
-                        consec = torch.where(
-                            span_complete, 0,
-                            torch.where(keep, consec, new_consec))
-                        prev = torch.where(span_complete, -1,
-                                           torch.where(keep, prev, new_prev))
-
-                    # feed the step's input through the decoder (also after
-                    # the last sample, as the JAX loop does); an idle step's
-                    # frozen pos may be the slot past the slab
-                    h, cache = trm.decode_step_fast(
-                        model.decoder, step_input(model, emb, y_pos), cache,
-                        pos.clamp(max=s_max - 1) if grouped else pos,
-                        x_len=x_len_t, x_pad=x_pad, fused_ffn=fused_ffn)
-                    logits = apply_heads(model.heads, h[:, 0])
-                    if grouped:
-                        pos += active.long()
-                        y_pos += active.long()
-                        idle += (~active).long()
-                    else:
-                        pos += 1
-                        y_pos += 1
-                    forwards += 1
-            counts = torch.stack([done.long(), gen_cnt, span_idx]
-                                 + [idle] * grouped)
+                        step(True)
+                forwards += 1
             with tracing.span("decode.sync"):
-                is_done, n_gen, n_span, *n_idle = counts.tolist()
+                is_done, n_gen, n_span, n_idle = counts.tolist()
             if is_done or n_gen >= gen_max:
                 break
         return DecodeResult(gen_buf[:gen_max], span_buf[:gen_max], n_gen,
-                            n_span + 1, forwards, sum(n_idle))
+                            n_span + 1, forwards, n_idle, logits)
 
     return decode
 

@@ -13,7 +13,8 @@ raises with its path.  Nothing here runs at import time.
 Each wrapper that launches a kernel adds one to its entry of ``LAUNCHES``
 (and, for a kernel with several routes, of ``ROUTE_LAUNCHES``) right after
 the launch succeeds, and nowhere else, so a run can show which kernels its
-main path went through.
+main path went through.  A launch inside a CUDA graph's capture runs at
+each replay: :class:`GraphLaunches` moves its count there.
 """
 
 from __future__ import annotations
@@ -61,6 +62,44 @@ def count_launch(name: str, route: Optional[str] = None) -> None:
     LAUNCHES[name] += 1
     if route is not None:
         ROUTE_LAUNCHES[f"{name}:{route}"] += 1
+
+
+def launch_counts() -> collections.Counter:
+    """Every count of ``LAUNCHES`` and ``ROUTE_LAUNCHES`` in one Counter
+    (a route's key, "<kernel>:<route>", is never a kernel's)."""
+    counts = collections.Counter(LAUNCHES)
+    counts.update(ROUTE_LAUNCHES)
+    return counts
+
+
+def add_launch_counts(counts: collections.Counter, times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (as :func:`launch_counts` gives them) to
+    the counts."""
+    for key, n in counts.items():
+        if key in LAUNCHES:
+            LAUNCHES[key] += times * n
+        else:
+            ROUTE_LAUNCHES[key] += times * n
+
+
+class GraphLaunches:
+    """The launches of one CUDA graph.  ``with GraphLaunches() as g:``
+    around the capture takes what the capture counted back out of the
+    counts, since a capture runs nothing, and keeps it in ``g.per_replay``;
+    ``g.replayed()`` after each replay adds it again.  A decode that
+    replays a captured step then leaves the counts an eager one leaves."""
+
+    def __enter__(self):
+        self._before = launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        self.per_replay = launch_counts() - self._before
+        add_launch_counts(self.per_replay, -1)
+        return False
+
+    def replayed(self) -> None:
+        add_launch_counts(self.per_replay)
 
 
 def _nvcc() -> str:
