@@ -1,8 +1,10 @@
-"""What every cell shares: the import guard, the cell's files, device facts,
-the percentile and the result line."""
+"""What every cell shares: the import guard, the cell's files and its
+architecture module, device facts, the percentile and the result line."""
 
 from __future__ import annotations
 
+import functools
+import importlib.util
 import json
 import math
 import os
@@ -61,6 +63,36 @@ def load_json(path: Path) -> dict:
         return json.load(f)
 
 
+def load_file(path: Path, name: str):
+    """The Python file ``path`` as a module named ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the key under which ``load_cell`` records, in a configuration's dict, the
+# directory of the architecture modules of the benchmark it was read from
+ARCH_DIR = "architectures_dir"
+
+
+@functools.lru_cache(maxsize=None)
+def _architecture_at(path: Path):
+    if not path.is_file():
+        raise FileNotFoundError(f"no architecture module {path}")
+    return load_file(path, "bench_arch_" + path.stem)
+
+
+def architecture(cfg: dict):
+    """The architecture module of configuration ``cfg``, with its weights
+    (``make_state``) and FLOP and byte counts:
+    ``architectures/<cfg["architecture"]>.py`` ("voicecraft" where the
+    configuration names none) of the benchmark ``cfg`` was read from."""
+    arch_dir = Path(cfg.get(ARCH_DIR, BENCH_DIR / "architectures"))
+    return _architecture_at(
+        arch_dir / f"{cfg.get('architecture', 'voicecraft')}.py")
+
+
 @dataclass
 class Cell:
     """One entry of BENCHMARK.json's ``workloads`` with its files read."""
@@ -92,8 +124,11 @@ def load_cell(workload: str, bench_path: Optional[Path] = None) -> Cell:
     cfg_entry = configs[w["config"]]
     traffic = load_json(root / BENCH_DIR.name / "traffic"
                         / f"{w['traffic']}.json")
+    config = {**load_json(root / cfg_entry["file"]),
+              ARCH_DIR: str(root / BENCH_DIR.name / "architectures")}
+    architecture(config)
     return Cell(name=workload, config_name=w["config"],
-                config=load_json(root / cfg_entry["file"]),
+                config=config,
                 traffic_name=w["traffic"], traffic=traffic,
                 chips=int(w["chips"]),
                 end_to_end=[m for m in spec["end_to_end"]

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from .. import traffic as tr
-from ..check import served_gap
+from ..check import served_gap, silence_repeats
 from ..common import Check, checks_json
 
 
@@ -58,7 +58,9 @@ def check_served(ctx, items, kv: str = "exact"):
     ``details["program"]``."""
     cfg, limits = ctx.cfg, ctx.traffic["limits"]
     V = cfg["audio_vocab_size"]
-    silence = ctx.traffic["sampling"].get("silence_tokens", [])
+    from .tts_closed import _scfg
+    scfg = _scfg(ctx.traffic["sampling"])      # what the program was told
+    silence, stop_rep = scfg.silence_tokens, scfg.stop_repetition
     weights = ctx.traffic.get("reference_weights", "exact")
     ref, _ = ctx.reference(weights)
     ctrl = None
@@ -85,12 +87,14 @@ def check_served(ctx, items, kv: str = "exact"):
         cols = ref.tts_columns(p_t, r_t[:n - 1])
         kw = dict(kv=kv, decode_from=T + 1, out_from=T)
         logits = ref.logits(x_t, cols, **kw)
-        gap, total, m = served_gap(logits, r_t, V, silence)
+        gap, total, m = served_gap(logits, r_t, V, silence,
+                                   stop_repetition=stop_rep)
         add("program", gap, total, m)
-        entry = {"rows": n, "cells": m, "gap": gap}
+        entry = {"rows": n, "cells": m, "gap": gap,
+                 "silence_repeats": silence_repeats(r_t, silence, stop_rep)}
         if ctrl is not None:
             cg, ct, _ = served_gap(logits, r_t, V, silence,
-                                   ctrl.logits(x_t, cols, **kw))
+                                   ctrl.logits(x_t, cols, **kw), stop_rep)
             add("control", cg, ct, m)
             entry["control_gap"] = cg
         per_req.append(entry)

@@ -25,7 +25,6 @@ What each reads:
 
 from __future__ import annotations
 
-import bisect
 from typing import List, Optional, Tuple
 
 from .common import percentile
@@ -72,39 +71,33 @@ def _walls(res, name: str) -> List[float]:
 
 def prefill_ms(res) -> Optional[float]:
     """From the prefill span's start to the end of the prefill's last
-    device operation.  Operations run in launch order on the one stream,
-    so the k-th call that launches one (LAUNCH_CALLS, among the slice's
-    host events) put the k-th device operation there: the prefill's last
-    is the one that the last launch inside the span put.  Read only where
-    the slice has as many launch calls as device operations."""
+    device operation: the one that carries the correlation id of the last
+    call inside the span that launches one (LAUNCH_CALLS).  A replayed
+    CUDA graph's kernels carry their graph launch's id, so they pair with
+    no launch call of the prefill's."""
     tr = res.trace
     spans = slice_spans(res, "decode.prefill")
     if tr is None or not spans:
         return None
+    corr = tr.correlation
+    if len(corr.get("host", ())) != len(tr.host_ops) or \
+            len(corr.get("device", ())) != len(tr.device_ops):
+        return None
     start, end = spans[0]
-    launches = sorted(s for n, s, _ in tr.host_ops
-                      if n.startswith(LAUNCH_CALLS))
-    ops = sorted(tr.device_ops, key=lambda o: (o[1], o[2]))
-    if not launches or len(launches) != len(ops):
+    launches = [(s, c) for (n, s, _), c in zip(tr.host_ops, corr["host"])
+                if n.startswith(LAUNCH_CALLS) and start <= s <= end]
+    if not launches:
         return None
-    k = bisect.bisect_right(launches, end)
-    if k == 0 or launches[k - 1] < start:
-        return None
-    return (ops[k - 1][2] - start) / 1e3
+    last = max(launches)[1]
+    ends = [e for (_, _, e), c in zip(tr.device_ops, corr["device"])
+            if c == last]
+    return (max(ends) - start) / 1e3 if ends else None
 
 
 def step_host_ms(res) -> Optional[float]:
     """Mean wall of ``decode.step``: the host issuing one decode step."""
     walls = _walls(res, "decode.step")
     return sum(walls) / len(walls) / 1e3 if walls else None
-
-
-def sampling_share(res) -> Optional[float]:
-    """``decode.sample``'s share of the ``decode.step`` wall, %."""
-    steps, samples = _walls(res, "decode.step"), _walls(res, "decode.sample")
-    if not steps or not samples:
-        return None
-    return 100.0 * sum(samples) / sum(steps)
 
 
 def sync_wait_ms_per_step(res) -> Optional[float]:

@@ -13,7 +13,6 @@ from __future__ import annotations
 import argparse
 import gc
 import importlib
-import importlib.util
 import json
 import sys
 import time
@@ -21,7 +20,7 @@ from pathlib import Path
 from typing import Optional
 
 from . import common
-from .common import BENCH_DIR, Cell
+from .common import BENCH_DIR, Cell, load_file
 
 
 class Context:
@@ -97,7 +96,7 @@ class Context:
 
     def reference_module(self):
         """The configuration's plain reference, ``reference/<name>.py``."""
-        return _load_file(BENCH_DIR / "reference"
+        return load_file(BENCH_DIR / "reference"
                           / f"{self.cfg['reference']}.py", "bench_reference")
 
     def reference(self, weights: str = "exact", acts: str = "exact"):
@@ -139,13 +138,6 @@ class Context:
             torch.cuda.empty_cache()
 
 
-def _load_file(path: Path, name: str):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def driver_for(cell: Cell):
     return importlib.import_module(
         f"harness.drivers.{cell.traffic['driver']}")
@@ -155,7 +147,7 @@ def read_metric(name: str, result, root: Path = BENCH_DIR
                 ) -> Optional[float]:
     """The per-layer metric ``name`` through its reader,
     ``<root>/metrics/<name>.py``; None when it finds nothing to read."""
-    mod = _load_file(root / "metrics" / f"{name}.py",
+    mod = load_file(root / "metrics" / f"{name}.py",
                      "bench_metric_" + name.replace(".", "_"))
     return mod.read(result)
 

@@ -16,12 +16,19 @@ import torch
 @dataclass
 class TraceSummary:
     """Device operations of one slice: (name, start us, end us) each, the
-    host's operations likewise, and the slice's wall seconds."""
+    host's operations likewise, and the slice's wall seconds.
+
+    ``correlation`` holds kineto's correlation id of each event, by side
+    (``"device"``, ``"host"``), in the order of ``device_ops`` and
+    ``host_ops``: a device operation carries the id of the runtime call
+    that put it on the stream (every kernel of a replayed CUDA graph that
+    of its graph launch).  Empty where the slice did not record them."""
     device_ops: List[Tuple[str, float, float]]
     host_ops: List[Tuple[str, float, float]]
     window_s: float
     steps: int = 0                # decode or training steps in the slice
     extra: Dict[str, float] = field(default_factory=dict)
+    correlation: Dict[str, List[int]] = field(default_factory=dict)
 
     @property
     def n_ops(self) -> int:
@@ -113,10 +120,14 @@ class Slice:
         # the profiler's raw events: building its FunctionEvent tree takes
         # minutes for a host-bound slice of ~10^5 operations
         dev, host = [], []
+        corr = {"device": [], "host": []}
         cuda = torch.autograd.DeviceType.CUDA
         for e in self._prof.profiler.kineto_results.events():
             s = e.start_ns() / 1e3
             rec = (e.name(), s, s + e.duration_ns() / 1e3)
-            (dev if e.device_type() == cuda else host).append(rec)
-        self.summary = TraceSummary(dev, host, t1 - self._t0)
+            side = "device" if e.device_type() == cuda else "host"
+            (dev if side == "device" else host).append(rec)
+            corr[side].append(e.correlation_id())
+        self.summary = TraceSummary(dev, host, t1 - self._t0,
+                                    correlation=corr)
         return False

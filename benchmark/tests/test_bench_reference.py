@@ -86,9 +86,12 @@ def test_served_gap_and_rows():
     ctrl[2, 1, 4] = 9.0
     cgap, ctotal, _ = served_gap(logits, rows, V=99, ctrl_logits=ctrl)
     assert cgap == pytest.approx(1.0) and ctotal == pytest.approx(1.0)
-    # the silence code repeated in codebook 0 is no candidate after itself
-    rows2 = torch.tensor([[3, 99], [6, 8], [7, 9]])
-    gap2, _, _ = served_gap(logits, rows2, V=99, silence=[3])
+    # a silence code repeated in codebook 0 stays a candidate after itself
+    # (the sampler's penalty waits for more repeats than stop_repetition)
+    rows2 = torch.tensor([[3, 99], [3, 8], [7, 9]])
+    logits[1, 0, 3] = 1.5
+    gap2, _, _ = served_gap(logits, rows2, V=99, silence=[3],
+                            stop_repetition=3)
     assert gap2 == pytest.approx(0.0)
 
 

@@ -86,7 +86,8 @@ def test_new_cell_from_added_files(tmp_path):
     """A cell added as data only (a BENCHMARK.json entry and a traffic
     file) is found by name and runs with the existing driver."""
     spec = common.load_json(common.REPO_DIR / "BENCHMARK.json")
-    shutil.copytree(common.BENCH_DIR / "configs", tmp_path / "benchmark" / "configs")
+    for d in ("configs", "architectures"):
+        shutil.copytree(common.BENCH_DIR / d, tmp_path / "benchmark" / d)
     (tmp_path / "benchmark" / "traffic").mkdir()
     t = common.load_json(common.BENCH_DIR / "traffic" / "tts_closed.json")
     t["prompt_frames"] = [25]
