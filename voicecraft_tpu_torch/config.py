@@ -82,6 +82,41 @@ class ModelConfig:
     # "attn" | "attn_ffn1" | "none" (models/transformer.py:apply_stack)
     train_remat: str = "full"
 
+    # the decoder block: "voicecraft" (models/transformer.py) or
+    # "deepseek_v2" (models/deepseek_v2.py: latent attention over a latent
+    # slab, RMSNorm, a dense SwiGLU in the first first_k_dense_replace
+    # layers and routed + shared SwiGLU experts after them).  The fields
+    # below are DeepSeek-V2's config.json keys; VoiceCraft's block reads
+    # none of them.
+    block: str = "voicecraft"
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    intermediate_size: int = 0
+    moe_intermediate_size: int = 0
+    n_routed_experts: int = 0
+    num_experts_per_tok: int = 0
+    n_shared_experts: int = 0
+    first_k_dense_replace: int = 0
+    moe_layer_freq: int = 1
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
+    scoring_func: str = "softmax"
+    topk_method: str = "greedy"
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    # YaRN (rope_scaling of type "yarn"), flat; a factor of 1 is plain RoPE
+    yarn_factor: float = 1.0
+    yarn_original_max_position_embeddings: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+
     # ---- derived quantities -------------------------------------------------
 
     @property
@@ -119,6 +154,40 @@ class ModelConfig:
                              "identity"), self.norm
         assert self.ffn_activation in ("relu", "gelu", "doubleswish",
                                        "balanceddoubleswish"), self.ffn_activation
+        if self.block == "deepseek_v2":
+            self._check_deepseek_v2()
+        elif self.block != "voicecraft":
+            raise ValueError(f"unknown block {self.block!r}; expected "
+                             "'voicecraft' or 'deepseek_v2'")
+
+    def _check_deepseek_v2(self) -> None:
+        """What the port's deepseek_v2 block does not implement raises."""
+        refused = {
+            "q_lora_rank": self.q_lora_rank is not None,
+            "scoring_func": self.scoring_func != "softmax",
+            "topk_method": self.topk_method != "greedy",
+            "n_group / topk_group": self.n_group != 1 or self.topk_group != 1,
+            "moe_layer_freq": self.moe_layer_freq != 1,
+            "norm_topk_prob": self.norm_topk_prob,
+            "routed_scaling_factor": self.routed_scaling_factor != 1,
+            "n_mtp": self.n_mtp != 0,
+        }
+        bad = [k for k, v in refused.items() if v]
+        if bad:
+            raise ValueError(
+                f"block 'deepseek_v2' does not implement {', '.join(bad)}: "
+                "the port's block has no q LoRA, softmax scoring with greedy "
+                "(not group-limited) top-k whose weights are neither "
+                "renormalised nor scaled, an expert layer after every "
+                "leading dense layer, and no MTP heads")
+        if not 0 < self.num_experts_per_tok <= self.n_routed_experts:
+            raise ValueError("deepseek_v2: need 0 < num_experts_per_tok <= "
+                             "n_routed_experts")
+        if not 0 <= self.first_k_dense_replace <= self.num_decoder_layers:
+            raise ValueError("deepseek_v2: first_k_dense_replace outside "
+                             "[0, num_decoder_layers]")
+        if self.qk_rope_head_dim % 2 or self.qk_rope_head_dim <= 0:
+            raise ValueError("deepseek_v2: qk_rope_head_dim must be even")
 
     # ---- (de)serialization ---------------------------------------------------
 
@@ -209,6 +278,12 @@ class TrainConfig:
         return cls(**{k: v for k, v in d.items() if k in names})
 
 
+def block_of(cfg) -> str:
+    """The decoder block of ``cfg``; a config without the field (the JAX
+    package's ``ModelConfig``, which the port also takes) is VoiceCraft's."""
+    return getattr(cfg, "block", "voicecraft")
+
+
 # ---- presets ----------------------------------------------------------------
 
 def giga330M() -> ModelConfig:
@@ -254,6 +329,40 @@ def proc50M() -> ModelConfig:
                        text_pad_token=120)
 
 
+def deepseek_v2_lite() -> ModelConfig:
+    """DeepSeek-V2-Lite's decoder (deepseek-ai/DeepSeek-V2-Lite
+    config.json) at its published widths and depth on VoiceCraft's
+    TTS-enhanced token layout and front end: 27 layers at 2048, 16 heads of
+    latent attention (kv_lora_rank 512, no q LoRA, 128 + 64 query/key and
+    128 value dims, YaRN factor 40 over 4096), a dense SwiGLU of 10944 in
+    layer 0 and 64 routed experts of 1408 (top-6, softmax, not
+    renormalised) with 2 shared ones after it."""
+    return dataclasses.replace(
+        giga830M_tts_enhanced(), block="deepseek_v2", num_decoder_layers=27,
+        kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+        v_head_dim=128, intermediate_size=10944, moe_intermediate_size=1408,
+        n_routed_experts=64, num_experts_per_tok=6, n_shared_experts=2,
+        first_k_dense_replace=1, rms_norm_eps=1e-6, rope_theta=10000.0,
+        yarn_factor=40.0, yarn_original_max_position_embeddings=4096,
+        yarn_beta_fast=32.0, yarn_beta_slow=1.0, yarn_mscale=0.707,
+        yarn_mscale_all_dim=0.707)
+
+
+def tiny_test_dsv2() -> ModelConfig:
+    """deepseek_v2_lite's block at tiny widths for the CPU tests: 3 layers
+    (one dense), 8 experts top-2 with one shared, tiny_test's TTS-enhanced
+    token layout."""
+    return dataclasses.replace(
+        tiny_test(), eos=131, n_special=4, reduced_eog=1, block="deepseek_v2",
+        num_decoder_layers=3, kv_lora_rank=32, qk_nope_head_dim=16,
+        qk_rope_head_dim=8, v_head_dim=16, intermediate_size=96,
+        moe_intermediate_size=24, n_routed_experts=8, num_experts_per_tok=2,
+        n_shared_experts=1, first_k_dense_replace=1, rms_norm_eps=1e-6,
+        rope_theta=10000.0, yarn_factor=40.0,
+        yarn_original_max_position_embeddings=4096, yarn_beta_fast=32.0,
+        yarn_beta_slow=1.0, yarn_mscale=0.707, yarn_mscale_all_dim=0.707)
+
+
 PRESETS = {
     "giga330M": giga330M,
     "giga830M": giga830M,
@@ -261,4 +370,6 @@ PRESETS = {
     "tiny_test": tiny_test,
     "tiny_test_mtp": tiny_test_mtp,
     "proc50M": proc50M,
+    "deepseek_v2_lite": deepseek_v2_lite,
+    "tiny_test_dsv2": tiny_test_dsv2,
 }

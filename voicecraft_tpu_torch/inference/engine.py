@@ -49,11 +49,12 @@ import torch
 
 from ..config import ModelConfig
 from ..data import spans
+from ..models import deepseek_v2 as dsv2
 from ..models import transformer as trm
 from ..models.voicecraft import (MAX_POS, SamplingConfig, VoiceCraft,
                                  apply_heads, check_mtp_heads,
-                                 embed_audio_tokens, kv_cache_dtype,
-                                 prefill_lanes)
+                                 embed_audio_tokens, new_kv_cache,
+                                 prefill_lanes, slab_dims)
 from ..ops import patterns
 from ..ops.attention import _attend_one, _ring_valid
 from ..parallel.mesh import all_gather_data, data_slice, stack_ranks
@@ -111,8 +112,13 @@ def _lane_decode_step(decoder: trm.Decoder, x_t: torch.Tensor,
     (transformer._layer_stack, unfused FFN) reading the slab read-only
     through the ring attention, then ONE write of every layer's k/v at ring
     slot y_start + (gstep mod W).  The ring mask is the same in every layer,
-    so it is built once a step.  Returns (final-normed hidden [B, 1, D],
+    so it is built once a step.  A DeepSeek-V2 decoder takes its own step
+    on its latent slab (models/deepseek_v2.py:lane_decode_step), chosen
+    once for the whole stack.  Returns (final-normed hidden [B, 1, D],
     cache)."""
+    if isinstance(decoder, dsv2.Decoder):
+        return dsv2.lane_decode_step(decoder, x_t, cache, x_lens, x_pad,
+                                     prefix_lens, y_start, W, gstep, t_lane)
     valid = _ring_valid(cache.shape[3], x_lens, x_pad, prefix_lens, y_start,
                         W, gstep, t_lane, x_t.device)
     h, kv = trm._layer_stack(
@@ -143,12 +149,13 @@ def make_burst_fn(cfg: ModelConfig, *, batch_size: int, x_pad: int,
     cap_mult = cfg.encodec_sr // 5
     y_start = x_pad + y_pad
     sample_lanes = make_lane_sampler(cfg, scfg, cap_mult)
+    slot_dim = slab_dims(cfg)[1]
 
     @torch.inference_mode()
     def burst_fn(model: VoiceCraft, cache: torch.Tensor, s: LaneState,
                  gen_buf: torch.Tensor, gens):
         dev, dtype = model.device, model.dtype
-        W = cache.shape[3] - y_start            # ring width (> gen_max - 1)
+        W = cache.shape[slot_dim] - y_start     # ring width (> gen_max - 1)
         lanes = torch.arange(B, device=dev)
         empty = torch.full((B, K), cfg.empty_token, dtype=torch.long,
                            device=dev)
@@ -266,6 +273,7 @@ def make_prefill_batch_fn(cfg: ModelConfig, *, x_pad: int, y_pad: int,
     request's.
     """
     Sp = x_pad + y_pad
+    lane_dim, slot_dim = slab_dims(cfg)
 
     @torch.inference_mode()
     def prefill(model: VoiceCraft, cache: torch.Tensor, s: LaneState, idx,
@@ -279,7 +287,7 @@ def make_prefill_batch_fn(cfg: ModelConfig, *, x_pad: int, y_pad: int,
             model, torch.as_tensor(x_tokens, device=dev).long(), xl,
             torch.as_tensor(y_prefix, device=dev).long(), pl, no_mask, Sp,
             kv_dtype)
-        trm._store_kv(cache[:, :, :, :Sp], 2, idx, new)
+        trm._store_kv(cache.narrow(slot_dim, 0, Sp), lane_dim, idx, new)
         s.active[idx] = True
         s.t[idx] = 0
         s.x_lens[idx] = xl.long()
@@ -441,9 +449,7 @@ class ContinuousBatcher:
         pads = dict(x_pad=self.x_pad, y_pad=self.y_pad, kv_dtype=self.kv_dtype)
         self._prefill = make_prefill_batch_fn(cfg, **pads)
         self._prefill_lane = make_prefill_lane_fn(cfg, **pads)
-        self._cache = trm.init_kv_cache(
-            cfg.num_decoder_layers, B, s_max, model.decoder.nhead,
-            cfg.head_dim, kv_cache_dtype(model, self.kv_dtype), dev)
+        self._cache = new_kv_cache(model, B, s_max, self.kv_dtype)
         self._lanes = _empty_lanes(B, K, cfg.card, cfg.d_model, dev)
         rows = (self.gen_max + max(self.spec, 0), K)
         self._gen_buf = torch.zeros((B,) + rows, dtype=torch.long, device=dev)

@@ -475,7 +475,10 @@ def _layer_stack(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
     ffn(layer, h) the feed-forward block (default: the unfused
     :func:`ffn_block`).  The caller writes the returned k/v into the slab
     once.  Returns (final-normed hidden [B, T, D], the new k/v
-    [L, 2, B, T, H, Dh])."""
+    [L, 2, B, T, H, Dh]).  Another block's decoder raises, naming it."""
+    if not isinstance(decoder, Decoder):
+        raise ValueError(f"this decode path serves VoiceCraft's block only, "
+                         f"not block {getattr(decoder, 'block', '?')!r}")
     L, _, B, S_max, H, Dh = cache.shape
     T = x_t.shape[1]
     x = x_t

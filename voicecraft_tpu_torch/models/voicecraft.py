@@ -6,6 +6,10 @@ decoding (PyTorch port of voicecraft_tpu/models/voicecraft.py).
 text and mask embeddings, sine positional embeddings scaled by learnable
 alphas, the pre-norm decoder, per-codebook 2-layer GELU heads and, for
 speculative decoding, ``n_mtp`` groups of multi-token-prediction heads.
+The decoder is the config's block (``ModelConfig.block``): VoiceCraft's
+(models/transformer.py) or DeepSeek-V2's (models/deepseek_v2.py, with a
+latent slab), chosen once for the whole stack; the front end and the heads
+are the same for both.
 Embedding tables, alphas, norm parameters and head biases are f32, as
 the JAX code reads them.  For inference every weight matrix is stored once
 in the compute dtype (or weight-only fp8, utils/quantize.py); a trainable
@@ -38,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..config import ModelConfig
+from ..config import ModelConfig, block_of
 
 from ..ops.attention import dropout, mha, segment_padding_bias
 from ..ops import _native
@@ -48,6 +52,7 @@ from ..parallel.mesh import (copy_to_model, gather_table_cols, reduce_data,
                              reduce_model)
 from ..utils import tracing
 from ..utils.quantize import dequant_dot
+from . import deepseek_v2 as dsv2
 from . import transformer as trm
 from .embedding import sine_table
 
@@ -107,9 +112,15 @@ class VoiceCraft(nn.Module):
         self.mask_emb = trm._param(cfg.max_n_spans, D, dtype=f32, device=device)
         self.alpha_text = trm._param(dtype=f32, device=device)
         self.alpha_audio = trm._param(dtype=f32, device=device)
-        self.decoder = trm.Decoder(cfg.num_decoder_layers, D, cfg.nhead,
-                                   cfg.ffn_dim, wdtype, device,
-                                   norm=cfg.norm, activation=cfg.ffn_activation)
+        if block_of(cfg) == dsv2.BLOCK:
+            require_voicecraft(cfg, "training (a trainable model)",
+                               refuse=trainable)
+            self.decoder = dsv2.Decoder(cfg, wdtype, device, MAX_POS)
+        else:
+            self.decoder = trm.Decoder(cfg.num_decoder_layers, D, cfg.nhead,
+                                       cfg.ffn_dim, wdtype, device,
+                                       norm=cfg.norm,
+                                       activation=cfg.ffn_activation)
         self.heads = Heads(K, D, cfg.audio_vocab_size // 2, cfg.card,
                            wdtype, device)
         if cfg.n_mtp > 0:
@@ -136,6 +147,15 @@ class VoiceCraft(nn.Module):
         for heads in getattr(self, "mtp_heads", None) or ():
             heads.init_weights(generator)
         return self
+
+
+def require_voicecraft(cfg: ModelConfig, what: str, refuse: bool = True
+                       ) -> None:
+    """Raise, naming the block, where ``what`` serves VoiceCraft's block
+    only and the config's block is another."""
+    if refuse and block_of(cfg) != "voicecraft":
+        raise ValueError(f"{what} is not implemented for block "
+                         f"{block_of(cfg)!r} (VoiceCraft's block only)")
 
 
 def _mtp_heads(cfg: ModelConfig, dtype: torch.dtype, device) -> nn.ModuleList:
@@ -165,6 +185,7 @@ def check_mtp_heads(model: "VoiceCraft", n_draft: int,
     where a greedy draft almost never equals the sampled token."""
     if n_draft <= 1:
         return
+    require_voicecraft(model.cfg, "speculative decoding")
     mtp = getattr(model, "mtp_heads", None)
     if mtp is None:
         raise ValueError("speculative decoding needs the model's mtp_heads "
@@ -327,6 +348,7 @@ def forward_train(model: VoiceCraft, batch: TrainBatch,
     gradient of its own rows), and the dropout masks of a data rank's rows
     are drawn from the seed folded with its data rank."""
     cfg = model.cfg
+    require_voicecraft(cfg, "forward_train")
     dtype = model.dtype
     mesh = model.mesh
     B, Sx = batch.x.shape
@@ -573,10 +595,30 @@ def kv_cache_dtype(model: VoiceCraft, kv_dtype: Optional[str]) -> torch.dtype:
     it is read, as the JAX loops' ``kv_dtype``)."""
     if kv_dtype is None:
         return model.dtype
+    require_voicecraft(model.cfg, f"a kv_dtype of {kv_dtype!r}")
     if kv_dtype != "float8_e4m3fn":
         raise ValueError(f"kv_dtype {kv_dtype!r} is not supported "
                          "(None or 'float8_e4m3fn')")
     return torch.float8_e4m3fn
+
+
+def new_kv_cache(model: VoiceCraft, batch: int, s_max: int,
+                 kv_dtype: Optional[str] = None) -> torch.Tensor:
+    """The one slab constructor, for the model's block: VoiceCraft's
+    [L, 2, B, S_max, H, Dh] (H this rank's heads) in the ``kv_dtype`` slab
+    dtype, or DeepSeek-V2's latent slab [L, B, S_max, r + dr]."""
+    cfg, dec = model.cfg, model.decoder
+    dtype = kv_cache_dtype(model, kv_dtype)
+    if block_of(cfg) == dsv2.BLOCK:
+        return dsv2.init_latent_cache(cfg.num_decoder_layers, batch, s_max,
+                                      dec.latent_dim, dtype, model.device)
+    return trm.init_kv_cache(cfg.num_decoder_layers, batch, s_max, dec.nhead,
+                             cfg.head_dim, dtype, model.device)
+
+
+def slab_dims(cfg: ModelConfig) -> Tuple[int, int]:
+    """(lane dim, slot dim) of the model's slab (:func:`new_kv_cache`)."""
+    return (1, 2) if block_of(cfg) == dsv2.BLOCK else (2, 3)
 
 
 def prefill_lanes(model: VoiceCraft, x_tokens, x_lens, y_prefix, prefix_lens,
@@ -594,13 +636,14 @@ def prefill_lanes(model: VoiceCraft, x_tokens, x_lens, y_prefix, prefix_lens,
     x_pad, y_pad = x_tokens.shape[1], y_prefix.shape[2]
     B = x_lens.shape[0]
     xy = embed_prefix(model, x_tokens, y_prefix, mask_emb_idx).expand(B, -1, -1)
-    attn = prefill_attention(x_lens, prefix_lens, x_pad, model.decoder.nhead,
-                             x_pad + y_pad)
-    cache = trm.init_kv_cache(cfg.num_decoder_layers, B, s_max,
-                              model.decoder.nhead,
-                              cfg.head_dim, kv_cache_dtype(model, kv_dtype),
-                              model.device)
-    h, cache = trm.prefill(model.decoder, xy, attn, cache)
+    cache = new_kv_cache(model, B, s_max, kv_dtype)
+    if block_of(cfg) == dsv2.BLOCK:
+        h, cache = dsv2.prefill(model.decoder, xy, x_lens, prefix_lens, x_pad,
+                                cache)
+    else:
+        attn = prefill_attention(x_lens, prefix_lens, x_pad,
+                                 model.decoder.nhead, x_pad + y_pad)
+        h, cache = trm.prefill(model.decoder, xy, attn, cache)
     last = (x_pad + prefix_lens - 1).long()
     h_last = h[torch.arange(B, device=h.device), last]          # [B, D]
     return h_last, apply_heads(model.heads, h_last), cache
@@ -636,7 +679,8 @@ def step_graph_engages(model: VoiceCraft) -> bool:
     """Whether make_decode_loop replays its decode step from a CUDA graph:
     the model's tensors are on a CUDA device and its decoder is not split
     over a mesh's 'model' axis (a split step runs collectives, which are
-    not captured)."""
+    not captured).  Either block: DeepSeek-V2's expert layers route with
+    no host sync and no shape taken from the routing (ops/moe.py)."""
     mesh = getattr(model.decoder, "mesh", None)
     return (model.device.type == "cuda"
             and not (mesh is not None and mesh.n_model > 1))
@@ -786,6 +830,9 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
                              "defaults to max_n_spans)")
         dev, dtype = model.device, model.dtype
         ltype = torch.long
+        if fused_ffn:
+            require_voicecraft(model.cfg, "the fused FFN")
+        latent = block_of(model.cfg) == dsv2.BLOCK
 
         with tracing.span("decode.prefill"):
             _, logits, cache = prefill_prompt(model, x_tokens, x_len,
@@ -898,10 +945,16 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
             # feed the step's input through the decoder (also after the last
             # sample, as the JAX loop does); an idle step's frozen pos may be
             # the slot past the slab
-            h, _ = trm.decode_step_fast(
-                model.decoder, step_input(model, emb, y_pos), cache,
-                pos.clamp(max=s_max - 1) if grouped else pos,
-                x_len=x_len_t, x_pad=x_pad, fused_ffn=fused_ffn)
+            at = pos.clamp(max=s_max - 1) if grouped else pos
+            if latent:
+                h, _ = dsv2.decode_step(
+                    model.decoder, step_input(model, emb, y_pos), cache, at,
+                    (x_len_t + y_pos).clamp(max=MAX_POS - 1), x_len=x_len_t,
+                    x_pad=x_pad)
+            else:
+                h, _ = trm.decode_step_fast(
+                    model.decoder, step_input(model, emb, y_pos), cache, at,
+                    x_len=x_len_t, x_pad=x_pad, fused_ffn=fused_ffn)
             logits.copy_(apply_heads(model.heads, h[:, 0]))
             if grouped:
                 pos.add_(active.long())
@@ -1283,6 +1336,7 @@ def make_batch_tts_loop(cfg: ModelConfig, *, batch_size: int, x_pad: int,
     def decode(model: VoiceCraft, x_tokens, x_len: int, y_prefix,
                prefix_len: int, mask_emb_idx,
                generator: Optional[torch.Generator]) -> BatchResult:
+        require_voicecraft(model.cfg, "best-of-N TTS")
         dev, dtype = model.device, model.dtype
         ltype = torch.long
         _, logits, cache = prefill_prompt(model, x_tokens, x_len, y_prefix,

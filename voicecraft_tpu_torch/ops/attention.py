@@ -182,21 +182,32 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
     return out.transpose(1, 2).reshape(B, Sq, D)
 
 
-def _attend_one(q, k_cache, v_cache, valid, k_new, v_new):
+def _attend_one(q, k_cache, v_cache, valid, k_new, v_new,
+                scale: Optional[float] = None):
     """One query per lane against the slab keys where ``valid`` (broadcast
-    to [B, H, 1, S_max]) plus its own k/v as an extra softmax term."""
-    B, S_max, H, Dh = k_cache.shape
-    scale = 1.0 / math.sqrt(Dh)
-    qh = q.view(B, 1, H, Dh).transpose(1, 2)                        # [B,H,1,Dh]
+    to [B, 1, 1, S_max]) plus its own k/v as an extra softmax term.
+
+    The slab holds Hk key heads of Dk and value heads of Dv, [B, S_max, Hk,
+    Dk] and [B, S_max, Hk, Dv]; q [B, 1, H * Dk] has H = Hk * G heads, G a
+    kv head.  Multi-head attention has Hk = H (G = 1); a latent slab is ONE
+    kv head that every query head reads (Hk = 1, G = H: the heads are the
+    rows of one product against the slab), with Dk != Dv.  ``scale``: the
+    softmax scale, 1 / sqrt(Dk) by default.  Returns [B, 1, H * Dv]."""
+    B, S_max, Hk, Dk = k_cache.shape
+    Dv = v_cache.shape[3]
+    G = q.shape[-1] // (Hk * Dk)
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dk)
+    qh = q.view(B, Hk, G, Dk)                  # [B,H,1,Dh] | latent [B,1,H,Dk]
     logits = slab_scores(qh, k_cache) * scale
-    logits = logits.masked_fill(~valid, NEG_INF)                     # [B,H,1,S]
+    logits = logits.masked_fill(~valid, NEG_INF)                    # [B,Hk,G,S]
     logit_self = (qh.float() * k_new.transpose(1, 2).float()).sum(
-        -1, keepdim=True) * scale                                    # [B,H,1,1]
+        -1, keepdim=True) * scale                                   # [B,Hk,G,1]
     probs = torch.softmax(torch.cat([logits, logit_self], dim=-1),
                           dim=-1).to(v_cache.dtype)
     out = (slab_pv(probs[..., :-1], v_cache)
            + probs[..., -1:].float() * v_new.transpose(1, 2).float())
-    return out.to(v_cache.dtype).transpose(1, 2).reshape(B, 1, H * Dh)
+    return out.to(v_cache.dtype).reshape(B, 1, Hk * G * Dv)
 
 
 def _attend_block(q, k_cache, v_cache, valid, k_new, v_new):
@@ -279,7 +290,8 @@ def decode_attention_self(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, kv_len: torch.Tensor,
                           k_new: torch.Tensor, v_new: torch.Tensor,
                           nhead: int, x_len: Optional[torch.Tensor] = None,
-                          x_pad: Optional[int] = None) -> torch.Tensor:
+                          x_pad: Optional[int] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """Single-step attention over a READ-ONLY slab plus the current token.
 
     The slab holds positions [0, kv_len) (minus text padding [x_len, x_pad));
@@ -288,10 +300,11 @@ def decode_attention_self(q: torch.Tensor, k_cache: torch.Tensor,
     (``slab_scores`` / ``slab_pv``), never copied.
 
     q: [B, 1, D]; k_cache/v_cache: [B, S_max, H, Dh] in q's dtype; k_new /
-    v_new: [B, 1, H, Dh]; kv_len / x_len: 0-d integer tensors.
+    v_new: [B, 1, H, Dh]; kv_len / x_len: 0-d integer tensors.  A latent
+    slab and ``scale``: :func:`_attend_one`.
     """
     valid = _single_valid(k_cache.shape[1], kv_len, x_len, x_pad, q.device)
-    return _attend_one(q, k_cache, v_cache, valid, k_new, v_new)
+    return _attend_one(q, k_cache, v_cache, valid, k_new, v_new, scale)
 
 
 def decode_attention_self_block(q: torch.Tensor, k_cache: torch.Tensor,

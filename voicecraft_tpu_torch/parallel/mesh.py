@@ -36,6 +36,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..config import block_of
+
 Spec = Tuple[Optional[str], ...]
 
 
@@ -328,6 +330,10 @@ def shard_params(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
         raise ValueError("the model is already sharded")
     n = mesh.n_model
     if n > 1:
+        if block_of(model.cfg) != "voicecraft":
+            raise ValueError(f"a 'model' split is not implemented for block "
+                             f"{block_of(model.cfg)!r} (VoiceCraft's block "
+                             "only)")
         if any(isinstance(m, FP8Weight) for m in model.modules()):
             raise ValueError("a weight-only fp8 decoder cannot be sharded "
                              "over model > 1 (the JAX package places its "

@@ -22,6 +22,7 @@ import copy
 import torch
 from torch import nn
 
+from ..config import block_of
 from ..ops.attention import matmul_f32
 
 FP8_MAX = 448.0  # float8_e4m3fn's largest normal
@@ -91,7 +92,11 @@ def quantize_decoder_fp8(model: nn.Module, pack_qkv: bool = False) -> nn.Module:
     ``pack_qkv`` concatenates wq|wk|wv into one [D, 3D] matrix ``wqkv``
     (and the biases into ``bqkv``) before quantizing, so a step does one
     product instead of three; column scales commute with the concat, so
-    packing is exact."""
+    packing is exact.  VoiceCraft's block only: another block raises."""
+    block = block_of(model.cfg)
+    if block != "voicecraft":
+        raise ValueError(f"quantize_decoder_fp8 is not implemented for block "
+                         f"{block!r} (VoiceCraft's block only)")
     model = copy.deepcopy(model)
     for layer in model.decoder.layers:
         if pack_qkv:

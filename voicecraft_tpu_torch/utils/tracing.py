@@ -24,6 +24,13 @@ retirement (:func:`mark_request`), and records each pass of its loop with
 the host time in admission and in the wait for a burst's snapshot
 (:func:`record_burst`).
 
+Expert rows.  While a profiler records, each decode forward of a block
+with routed experts (models/deepseek_v2.py) keeps the rows it routed to
+each expert of each expert layer, [layers, experts], in a ring of device
+rows (:func:`record_expert_rows`: one device copy a forward, no host
+read), stamped on the host; :func:`expert_rows` reads those of a span of
+time back after the profiler has stopped.
+
 Spans are stamped in Unix nanoseconds (``time.time_ns``), the clock of the
 profiler's host events (``KinetoEvent.start_ns``), so a reader can lay a
 span over a trace's device operations.  Counters are stamped with
@@ -159,8 +166,53 @@ def bursts() -> List[Burst]:
     return list(_bursts)
 
 
+# the expert-rows ring: device rows, and (stamp, slot) of each in use
+EXPERT_RING = 4096
+_expert = {"ring": None, "next": 0}
+_expert_stamps: deque = deque(maxlen=EXPERT_RING)
+
+
+def recording() -> bool:
+    """Whether a torch profiler is recording (spans and expert rows are
+    kept)."""
+    return _profiler._is_profiler_enabled
+
+
+def record_expert_rows(counts: torch.Tensor) -> None:
+    """Keep one forward's rows routed to each expert, ``counts``
+    [layers, experts] (integers on the device), in the device ring while a
+    profiler records; nothing otherwise."""
+    if not _profiler._is_profiler_enabled:
+        return
+    ring = _expert["ring"]
+    if (ring is None or ring.shape[1:] != counts.shape
+            or ring.device != counts.device):
+        ring = _expert["ring"] = torch.zeros(
+            (EXPERT_RING, *counts.shape), dtype=torch.int32,
+            device=counts.device)
+        _expert_stamps.clear()
+    slot = _expert["next"] % EXPERT_RING
+    _expert["next"] += 1
+    ring[slot].copy_(counts)
+    _expert_stamps.append((time.time_ns(), slot))
+
+
+def expert_rows(lo_ns: int = 0, hi_ns: Optional[int] = None
+                ) -> Optional[torch.Tensor]:
+    """The kept forwards' expert rows stamped in [lo_ns, hi_ns], as a host
+    tensor [forwards, layers, experts] in the order they ran (a device
+    read); None where none was kept."""
+    ring = _expert["ring"]
+    slots = [slot for t, slot in _expert_stamps
+             if t >= lo_ns and (hi_ns is None or t <= hi_ns)]
+    if ring is None or not slots:
+        return None
+    return ring[torch.tensor(slots, device=ring.device)].cpu().long()
+
+
 def clear() -> None:
     """Forget every span and counter (tests)."""
     _spans.clear()
     _marks.clear()
     _bursts.clear()
+    _expert_stamps.clear()
