@@ -2324,7 +2324,8 @@ class EngineRecorder(DrawRecorder):
     and lane -> request map, and each retired request's delayed-space rows,
     so that request(rid) gives the rows and the logits each was drawn from
     (the first draw of a row in a plain burst; a speculative row's last
-    draw, the accepted one)."""
+    draw, the accepted one).  Inside the block the plain engine steps
+    eagerly: a step replayed from its CUDA graph runs no Python hook."""
 
     def __enter__(self):
         super().__enter__()
@@ -2332,8 +2333,9 @@ class EngineRecorder(DrawRecorder):
         cb = em.ContinuousBatcher
         self._em = em
         self._eorig = (em.spec_verify_pass, em._lane_decode_step,
-                       cb._dispatch_burst, cb._retire)
-        pass_, step, dispatch, retire = self._eorig
+                       cb._dispatch_burst, cb._retire, em.step_graph_engages)
+        pass_, step, dispatch, retire, _ = self._eorig
+        em.step_graph_engages = lambda model: False
         self.ts, self.bursts, self.kept = [], [], {}
         em.spec_verify_pass = self._mods[1].spec_verify_pass  # recording
 
@@ -2364,7 +2366,7 @@ class EngineRecorder(DrawRecorder):
     def __exit__(self, *exc):
         em, cb = self._em, self._em.ContinuousBatcher
         (em.spec_verify_pass, em._lane_decode_step, cb._dispatch_burst,
-         cb._retire) = self._eorig
+         cb._retire, em.step_graph_engages) = self._eorig
         super().__exit__(*exc)
 
     def request(self, rid):
@@ -2537,15 +2539,21 @@ def engine_phase(model, codec, ccfg, serve, texts2, a_req, long_wav):
         same_under_ties(f"(o) request {i} ({names[i]}) vs its single-stream "
                         f"decode", rows, ref, la, ref_la)
     engine_run("o sampled", model, reqs, sampled)
-    # one burst of PROFILE_STEPS + 2 steps after the startup wave
+    # one burst of PROFILE_STEPS + 2 steps after the startup wave, stepped
+    # eagerly (the profile's window is kept by the step's Python calls)
     peng = ContinuousBatcher(model, lanes=ENGINE_LANES, x_pad=SERVE_PADS[0],
                              y_pad=SERVE_PADS[1], gen_max=SERVE_PADS[2],
                              burst=PROFILE_STEPS + 2, scfg=sampled, seed=SEED)
     for x, y in reqs[:ENGINE_LANES]:
         peng.submit(x, y)
-    (ops, ms), _ = counted("o profile", lambda: (peng._admit(), step_profile(
-        lambda: peng._dispatch_burst().read(), PROFILE_STEPS, em,
-        "_lane_decode_step"))[1], L)
+    engages, em.step_graph_engages = em.step_graph_engages, lambda m: False
+    try:
+        (ops, ms), _ = counted("o profile", lambda: (
+            peng._admit(), step_profile(
+                lambda: peng._dispatch_burst().read(), PROFILE_STEPS, em,
+                "_lane_decode_step"))[1], L)
+    finally:
+        em.step_graph_engages = engages
     log(f"  (o) engine step at B={ENGINE_LANES}, sampled: "
         f"{'not measured' if ops is None else f'{ops:.1f}'} device "
         f"operations and {'not measured' if ms is None else f'{ms:.4f}'} "

@@ -4,6 +4,7 @@ ring attention, greedy requests through mid-flight refill, special_first,
 the fp8 slab, wave against per-lane admission, and sampled output keyed on
 the admission.  Both packages run tiny_test in f32 on the same weights."""
 
+import contextlib
 import dataclasses
 import types
 
@@ -18,14 +19,18 @@ from voicecraft_tpu.inference import engine as jeng
 from voicecraft_tpu.models import voicecraft as jvc
 from voicecraft_tpu_torch.data.spans import compose_tts_prefix
 from voicecraft_tpu_torch.inference import engine as eng_mod
+from voicecraft_tpu_torch.inference.spec_common import (generator_seed,
+                                                        seeded_generator)
 from voicecraft_tpu_torch.inference.tts import inference_tts
 from voicecraft_tpu_torch.models import voicecraft as vc
 from voicecraft_tpu_torch.ops import attention as attn
+from voicecraft_tpu_torch.utils import tracing
 from voicecraft_tpu_torch.utils.convert import from_jax_params
 
 F8 = "float8_e4m3fn"
 GREEDY = dict(top_k=1, silence_tokens=(5, 7))
 SAMPLED = dict(top_k=10, top_p=0.9, silence_tokens=(5, 7))
+ARGMAX = dict(temperature=0.0, silence_tokens=(5, 7))
 ENGINE = dict(x_pad=32, y_pad=64, gen_max=256, burst=16)
 
 
@@ -242,3 +247,142 @@ def test_engine_refuses_mesh(setup):
     mesh = types.SimpleNamespace(n_data=3, data_rank=0)
     with pytest.raises(ValueError, match="shard over data=3"):
         eng_mod.ContinuousBatcher(model, lanes=2, mesh=mesh)
+
+
+# ---- the in-place step the engine's CUDA graph replays ------------------------
+
+def _state_ptrs(eng):
+    return ({f.name: getattr(eng._lanes, f.name).data_ptr()
+             for f in dataclasses.fields(eng._lanes)},
+            eng._cache.data_ptr(), eng._gen_buf.data_ptr())
+
+
+def test_burst_updates_state_in_place(setup):
+    """Bursts through mid-flight refills (those of
+    test_engine_matches_single_with_refill, whose outputs it checks) keep
+    the storage of every LaneState tensor, the slab and the row buffer (a
+    CUDA graph of the step replays on those addresses), return the very
+    objects they were given, and keep the lane generators."""
+    _, _, model, reqs = setup
+    eng = eng_mod.ContinuousBatcher(model, lanes=2, seed=0,
+                                    scfg=vc.SamplingConfig(**SAMPLED),
+                                    **ENGINE)
+    for x, y in reqs:
+        eng.submit(x, y)
+    before, gens = _state_ptrs(eng), list(eng._gens)
+    lanes, cache, gen_buf = eng._lanes, eng._cache, eng._gen_buf
+    assert len(eng.run()) == len(reqs)
+    assert eng.stats["refills"] >= 3
+    assert _state_ptrs(eng) == before
+    assert all(a is b for a, b in zip(
+        (eng._lanes, eng._cache, eng._gen_buf, *eng._gens),
+        (lanes, cache, gen_buf, *gens)))
+    assert eng.stats["graph_steps"] == 0          # the CPU steps eagerly
+
+
+def test_lane_generator_reseeded_in_place_draws_as_fresh(setup):
+    """At admission lane b's generator is re-seeded in place from (seed,
+    rid): its draws are those of a fresh seeded_generator((seed, rid)),
+    whatever it drew before."""
+    _, _, model, reqs = setup
+    g = torch.Generator().manual_seed(5)
+    torch.rand(7, generator=g)
+    g.manual_seed(generator_seed((3, 11)))
+    np.testing.assert_array_equal(
+        torch.rand((4, 50), generator=g).numpy(),
+        torch.rand((4, 50), generator=seeded_generator((3, 11), "cpu")).numpy())
+    scfg = vc.SamplingConfig(**SAMPLED)
+    eng = eng_mod.ContinuousBatcher(model, lanes=2, scfg=scfg, seed=3,
+                                    **ENGINE)
+    first = list(eng._gens)
+    for x, y in reqs[:3]:
+        eng.submit(x, y)
+    eng._admit()
+    eng._dispatch_burst()                         # lanes 0 and 1 draw
+    eng._lane_req[1] = None                       # free lane 1: rid 2 next
+    eng._admit()
+    assert eng._lane_req[1] == 2 and eng._gens[1] is first[1]
+    np.testing.assert_array_equal(
+        torch.rand((4, 50), generator=eng._gens[1]).numpy(),
+        torch.rand((4, 50), generator=seeded_generator((3, 2), "cpu")).numpy())
+
+
+def test_sampled_rows_independent_of_lane_and_refill_time(setup):
+    """A sampled request (rid 1) draws the same rows in lane 1 of the
+    start-up wave as refilled mid-flight into lane 0 after rid 0 retires,
+    and as refilled into lane 1 one burst after rid 0 began."""
+    _, _, model, reqs = setup
+    scfg = vc.SamplingConfig(**SAMPLED)
+    runs = []
+    for lanes, stagger in ((3, False), (1, False), (2, True)):
+        eng = eng_mod.ContinuousBatcher(model, lanes=lanes, scfg=scfg,
+                                        seed=0, **ENGINE)
+        admitted = {}
+        admit = eng._admit
+
+        def recording_admit(eng=eng, admit=admit, admitted=admitted):
+            admit()
+            for b, rid in enumerate(eng._lane_req):
+                if rid is not None and rid not in admitted:
+                    admitted[rid] = (b, int(eng._lanes.gstep))
+        eng._admit = recording_admit
+        eng.submit(*reqs[0])
+        if stagger:
+            eng._admit()
+            eng._process_burst(eng._dispatch_burst())
+        rid = eng.submit(*reqs[1])
+        res = eng.run()
+        runs.append((admitted[rid], res[rid]))
+    (where, (full, gen)), *others = runs
+    assert where == (1, 0)
+    assert [w for w, _ in others] == [
+        (0, others[0][0][1]), (1, ENGINE["burst"])]
+    assert others[0][0][1] > 0                    # after rid 0's bursts
+    for _, (f, g) in others:
+        np.testing.assert_array_equal(g, gen)
+        np.testing.assert_array_equal(f, full)
+
+
+class _FakeGraph:
+    """A stand-in for models/voicecraft.py:_StepGraph on the CPU: the
+    capture keeps the step and the registered generators, a replay runs the
+    step."""
+    made = []
+
+    def __init__(self, step, generators, device):
+        self.step, self.generators = step, list(generators)
+        _FakeGraph.made.append(self)
+
+    def replay(self):
+        self.step()
+
+
+@pytest.mark.parametrize("sampling", ["top-k 1", "sampled", "argmax"])
+def test_graphed_engine_control_flow(setup, monkeypatch, sampling):
+    """Where the step is graphed: the batcher's first step runs eagerly,
+    the second captures (once for the batcher's life, every lane's
+    generator registered unless greedy draws nothing) and every later step
+    replays, as the counters say, and the rows equal an eager engine's."""
+    _, _, model, reqs = setup
+    scfg = vc.SamplingConfig(**{"top-k 1": GREEDY, "sampled": SAMPLED,
+                                "argmax": ARGMAX}[sampling])
+    eager, _ = _run(model, reqs, scfg, lanes=2)
+    _FakeGraph.made = []
+    site = types.SimpleNamespace(running=contextlib.nullcontext)
+    monkeypatch.setattr(eng_mod, "_StepGraph", _FakeGraph)
+    monkeypatch.setattr(eng_mod, "step_graph_engages", lambda model: True)
+    monkeypatch.setattr(eng_mod, "_CaptureSite",
+                        types.SimpleNamespace(of=lambda device: site))
+    tracing.clear()
+    graphed, eng = _run(model, reqs, scfg, lanes=2)
+    assert len(_FakeGraph.made) == 1
+    want = eng._gens if scfg.temperature > 0 else []
+    assert len(_FakeGraph.made[0].generators) == len(want)
+    assert all(a is b for a, b in zip(_FakeGraph.made[0].generators, want))
+    assert eng.stats["graph_steps"] == eng.stats["steps"] - 1
+    bursts = tracing.bursts()
+    assert sum(b.steps for b in bursts) == eng.stats["steps"]
+    assert sum(b.graph_steps for b in bursts) == eng.stats["graph_steps"]
+    for (fa, ga), (fb, gb) in zip(eager, graphed):
+        np.testing.assert_array_equal(ga, gb)
+        np.testing.assert_array_equal(fa, fb)

@@ -25,8 +25,8 @@ COMPACT at its own offset instead of a ring (transformer.
 decode_step_multi_block), and runs burst // tau verified passes a burst.
 
 Sampled noise is keyed on the admission, not the lane: the plain engine's
-lane b draws from a generator seeded from (seed, admit id of its request),
-made at admission; the speculative engine's draws of token i from (seed,
+lane b draws from its generator, re-seeded at admission from (seed, admit
+id of its request); the speculative engine's draws of token i from (seed,
 admit id, i, salt) (spec_common.token_generators).  A request's sampled
 output is then independent of its lane, of refill timing, of the drain
 policy and (speculative) of tau.
@@ -52,15 +52,16 @@ from ..data import spans
 from ..models import deepseek_v2 as dsv2
 from ..models import transformer as trm
 from ..models.voicecraft import (MAX_POS, SamplingConfig, VoiceCraft,
-                                 apply_heads, check_mtp_heads,
-                                 embed_audio_tokens, new_kv_cache,
-                                 prefill_lanes, slab_dims)
+                                 _CaptureSite, _StepGraph, apply_heads,
+                                 check_mtp_heads, embed_audio_tokens,
+                                 new_kv_cache, prefill_lanes, slab_dims,
+                                 step_graph_engages)
 from ..ops import patterns
 from ..ops.attention import _attend_one, _ring_valid
 from ..parallel.mesh import all_gather_data, data_slice, stack_ranks
 from ..utils import tracing
 from .serving import _step_feed
-from .spec_common import (make_lane_sampler, seeded_generator,
+from .spec_common import (generator_seed, make_lane_sampler,
                           spec_verify_pass, token_generators)
 
 
@@ -139,56 +140,95 @@ def make_burst_fn(cfg: ModelConfig, *, batch_size: int, x_pad: int,
     own count t_b (below the gen_max - 1 cap), feeds the samples through one
     _lane_decode_step and advances live lanes' t to min(t + 1, gen_max -
     1).  A frozen lane keeps writing its ring slot; only its own row reads
-    it, and its samples and logits are discarded.
+    it, and its samples and logits are discarded.  A step writes the
+    lanes' tensors, the slab and the row buffer in place.
+
+    Where :func:`step_graph_engages` (a CUDA model, its decoder not split
+    over 'model') and the block is VoiceCraft's, the step is replayed from
+    a CUDA graph (models/voicecraft.py:_StepGraph): the first step runs
+    eagerly on the capture site's stream, the second is captured, with
+    every lane's generator registered, and replayed, and every later step
+    of every burst replays it.  So the function is bound to the model and
+    state of its first call (the slab, the lanes' tensors, the row buffer
+    and the generators: one batcher's, fixed for its life).  DeepSeek-V2's
+    block steps eagerly around its stack's per-part replays
+    (deepseek_v2.StepGraphs: a capture cannot hold those graphs, and the
+    parts' spans would go).
 
     Returns fn(model, cache, lanes, gen_buf [B, gen_max, K], gens) -> (cache,
-    lanes, gen_buf, status [B, 4]), updating all three in place; gens: one
-    generator per lane, or None when greedy.
+    lanes, gen_buf, status [B, 4], steps replayed from the graph), the
+    first three updated in place; gens: one generator per lane, or None
+    when greedy.
     """
     K, B = cfg.n_codebooks, batch_size
     cap_mult = cfg.encodec_sr // 5
     y_start = x_pad + y_pad
     sample_lanes = make_lane_sampler(cfg, scfg, cap_mult)
     slot_dim = slab_dims(cfg)[1]
+    # the steps taken, the step's constant buffers and, once captured, its
+    # graph
+    bound = {}
+
+    def step(model: VoiceCraft, cache: torch.Tensor, s: LaneState,
+             gen_buf: torch.Tensor, gens, lanes, empty) -> None:
+        W = cache.shape[slot_dim] - y_start     # ring width (> gen_max - 1)
+        y_pos = s.prefix_lens + s.t
+        samples, new_eog, consec, prev = sample_lanes(
+            gens, s.logits, s.codebook_eog, s.t, s.consec, s.prev, y_pos,
+            s.x_lens)
+        live = s.active & ~s.codebook_eog.all(dim=1)
+        samples = torch.where(live[:, None], samples, empty)
+        new_eog = torch.where(live[:, None], new_eog, s.codebook_eog)
+        s.consec.copy_(torch.where(live, consec, s.consec))
+        s.prev.copy_(torch.where(live, prev, s.prev))
+        s.finish_t.copy_(torch.where(new_eog.all(dim=1) & live, s.t,
+                                     s.finish_t))
+        s.codebook_eog.copy_(new_eog)
+        # a live lane's row t; at the cap t stops advancing and the row is
+        # not kept (the JAX burst's flush keep-mask)
+        row = s.t.clamp(max=gen_max - 1)
+        keep = live & (s.t < gen_max - 1)
+        gen_buf[lanes, row] = torch.where(keep[:, None], samples,
+                                          gen_buf[lanes, row])
+        emb = embed_audio_tokens(model.audio_emb,
+                                 samples[:, :, None])[:, 0].to(model.dtype)
+        h, _ = _lane_decode_step(
+            model.decoder,
+            _step_feed(model, emb, y_pos.clamp(max=MAX_POS - 1)), cache,
+            s.x_lens, x_pad, s.prefix_lens, y_start, W, s.gstep, s.t)
+        logits = apply_heads(model.heads, h[:, 0])
+        s.logits.copy_(torch.where(live[:, None, None], logits, s.logits))
+        s.t.copy_(torch.where(live, (s.t + 1).clamp(max=gen_max - 1), s.t))
+        s.gstep.add_(1)
 
     @torch.inference_mode()
     def burst_fn(model: VoiceCraft, cache: torch.Tensor, s: LaneState,
                  gen_buf: torch.Tensor, gens):
-        dev, dtype = model.device, model.dtype
-        W = cache.shape[slot_dim] - y_start     # ring width (> gen_max - 1)
-        lanes = torch.arange(B, device=dev)
-        empty = torch.full((B, K), cfg.empty_token, dtype=torch.long,
-                           device=dev)
+        dev = model.device
+        if not bound:
+            bound.update(steps=0, graph=None,
+                         lanes=torch.arange(B, device=dev),
+                         empty=torch.full((B, K), cfg.empty_token,
+                                          dtype=torch.long, device=dev))
+        graphed = (step_graph_engages(model)
+                   and not isinstance(model.decoder, dsv2.Decoder))
+        run = lambda: step(model, cache, s, gen_buf, gens, bound["lanes"],
+                           bound["empty"])
+        replayed = 0
         for _ in range(burst):
-            y_pos = s.prefix_lens + s.t
-            samples, new_eog, consec, prev = sample_lanes(
-                gens, s.logits, s.codebook_eog, s.t, s.consec, s.prev, y_pos,
-                s.x_lens)
-            live = s.active & ~s.codebook_eog.all(dim=1)
-            samples = torch.where(live[:, None], samples, empty)
-            new_eog = torch.where(live[:, None], new_eog, s.codebook_eog)
-            s.consec = torch.where(live, consec, s.consec)
-            s.prev = torch.where(live, prev, s.prev)
-            s.finish_t = torch.where(new_eog.all(dim=1) & live, s.t,
-                                     s.finish_t)
-            s.codebook_eog = new_eog
-            # a live lane's row t; at the cap t stops advancing and the
-            # row is not kept (the JAX burst's flush keep-mask)
-            row = s.t.clamp(max=gen_max - 1)
-            keep = live & (s.t < gen_max - 1)
-            gen_buf[lanes, row] = torch.where(keep[:, None], samples,
-                                              gen_buf[lanes, row])
-            emb = embed_audio_tokens(model.audio_emb,
-                                     samples[:, :, None])[:, 0].to(dtype)
-            h, cache = _lane_decode_step(
-                model.decoder,
-                _step_feed(model, emb, y_pos.clamp(max=MAX_POS - 1)), cache,
-                s.x_lens, x_pad, s.prefix_lens, y_start, W, s.gstep, s.t)
-            logits = apply_heads(model.heads, h[:, 0])
-            s.logits = torch.where(live[:, None, None], logits, s.logits)
-            s.t = torch.where(live, (s.t + 1).clamp(max=gen_max - 1), s.t)
-            s.gstep = s.gstep + 1
-        return cache, s, gen_buf, _status(s)
+            if not graphed:
+                run()
+                continue
+            if bound["graph"] is None and bound["steps"] >= 1:
+                bound["graph"] = _StepGraph(run, gens or (), dev)
+            if bound["graph"] is None:
+                with _CaptureSite.of(dev).running():
+                    run()
+            else:
+                bound["graph"].replay()
+                replayed += 1
+            bound["steps"] += 1
+        return cache, s, gen_buf, _status(s), replayed
 
     return burst_fn
 
@@ -205,8 +245,9 @@ def make_spec_burst_fn(cfg: ModelConfig, *, batch_size: int, n_draft: int,
     token counts once a pass (the draws of token t_b + i are keyed on it).
 
     Returns fn(model, cache, lanes, gen_buf [B, gen_max + tau, K], gens) ->
-    (cache, lanes, gen_buf, status [B, 4]); gens: the token generators
-    (spec_common.token_generators keyed on the lanes' admissions).
+    (cache, lanes, gen_buf, status [B, 4], 0: no pass is replayed from a
+    graph); gens: the token generators (spec_common.token_generators keyed
+    on the lanes' admissions).
     """
     tau, B = n_draft, batch_size
     cap_mult = cfg.encodec_sr // 5
@@ -253,7 +294,7 @@ def make_spec_burst_fn(cfg: ModelConfig, *, batch_size: int, n_draft: int,
             s.logits, s.h = out["logits_next"], out["h_next"]
             s.pending, s.has_pending = out["pending"], out["has_pending"]
             s.gstep = s.gstep + 1
-        return cache, s, gen_buf, _status(s)
+        return cache, s, gen_buf, _status(s), 0
 
     return burst_fn
 
@@ -403,8 +444,9 @@ class ContinuousBatcher:
     :class:`StreamCancelled` when it reads a snapshot whose flag is set on
     any rank.  So every rank stops at the same burst, however many of them
     see the consumer; the batcher is not reused after.  ``stats`` counts
-    bursts, device steps (speculative: passes), wave prefills and lane
-    refills over the batcher's life.
+    bursts, device steps (speculative: passes), wave prefills, lane
+    refills and the steps replayed from the step's CUDA graph
+    (``graph_steps``; :func:`make_burst_fn`) over the batcher's life.
     """
 
     model: VoiceCraft
@@ -453,10 +495,12 @@ class ContinuousBatcher:
         self._lanes = _empty_lanes(B, K, cfg.card, cfg.d_model, dev)
         rows = (self.gen_max + max(self.spec, 0), K)
         self._gen_buf = torch.zeros((B,) + rows, dtype=torch.long, device=dev)
-        # the plain engine's sampled noise: lane b's generator, made at its
-        # admission; empty lanes draw from a shared idle one
-        idle = torch.Generator(device=dev).manual_seed(self.seed)
-        self._gens: List[torch.Generator] = [idle] * B
+        # the plain engine's sampled noise: one generator a lane for the
+        # batcher's life (a CUDA graph of the step draws from these),
+        # re-seeded at each admission; an empty lane's draws are discarded
+        self._gens: List[torch.Generator] = [
+            torch.Generator(device=dev).manual_seed(self.seed)
+            for _ in range(B)]
         # the host reads every lane's status, the cancel flag and the rows
         self._snaps = [_Snapshot(
             torch.empty((self.lanes, 5), dtype=torch.long, device=dev),
@@ -471,7 +515,8 @@ class ContinuousBatcher:
         self._stream_cbs: Dict[int, Callable] = {}
         self._stream_sent: Dict[int, int] = {}
         self._next_id = 0
-        self.stats = dict(bursts=0, steps=0, waves=0, refills=0)
+        self.stats = dict(bursts=0, steps=0, waves=0, refills=0,
+                          graph_steps=0)
         self._source = tracing.new_source()
 
     @property
@@ -546,14 +591,15 @@ class ContinuousBatcher:
                         self.model, self._cache, self._lanes, self._local(b),
                         xt[i:i + 1], len(x), yt[i:i + 1], prefix.length, rid)
                 self.stats["refills"] += 1
-        dev = self.model.device
         for b, rid, _, _ in pending:
             self._lane_req[b] = rid
             tracing.mark_request(self._source, rid, "admit", t_admit)
             if (self.spec <= 1 and self.scfg.temperature > 0
                     and self._local(b) is not None):
-                self._gens[self._local(b)] = seeded_generator(
-                    (self.seed, rid), dev)
+                # in place: the stream of a fresh seeded_generator((seed,
+                # rid)), from the generator the step's graph registered
+                self._gens[self._local(b)].manual_seed(
+                    generator_seed((self.seed, rid)))
 
     def _dispatch_burst(self) -> _Snapshot:
         """Enqueue one burst and the copy of its snapshot; no host sync
@@ -566,10 +612,12 @@ class ContinuousBatcher:
                           for r in self._lane_req[self._lo:self._lo + B]])
         else:
             gens = self._gens if self.scfg.temperature > 0 else None
-        self._cache, self._lanes, self._gen_buf, status = self._burst(
-            self.model, self._cache, self._lanes, self._gen_buf, gens)
+        self._cache, self._lanes, self._gen_buf, status, replayed = \
+            self._burst(self.model, self._cache, self._lanes, self._gen_buf,
+                        gens)
         self.stats["bursts"] += 1
         self.stats["steps"] += self._burst_steps
+        self.stats["graph_steps"] += replayed
         flag = int(self.cancel is not None and self.cancel.is_set())
         status = torch.cat([status, status.new_full((B, 1), flag)], 1)
         gen_buf = self._gen_buf
@@ -670,7 +718,7 @@ class ContinuousBatcher:
         (utils.tracing.Burst)."""
         pending = None        # the in-flight burst's snapshot
         while self._queue or any(r is not None for r in self._lane_req):
-            t0, refills = tracing.counter_ns(), self.stats["refills"]
+            t0, before = tracing.counter_ns(), dict(self.stats)
             self._admit()
             admit_ns, wait_ns = tracing.counter_ns() - t0, 0
             streaming = any(rid in self._stream_cbs
@@ -687,9 +735,11 @@ class ContinuousBatcher:
                     wait_ns = self._process_burst(pending)
                     pending = None
                 wait_ns += self._process_burst(snap)
+            grew = {k: self.stats[k] - before[k]
+                    for k in ("refills", "steps", "graph_steps")}
             tracing.record_burst(tracing.Burst(
                 self._source, t0, tracing.counter_ns(), admit_ns, wait_ns,
-                self.stats["refills"] - refills))
+                **grew))
         if pending is not None:
             self._process_burst(pending)
         out, self._results = self._results, {}

@@ -41,10 +41,17 @@ TokenGenerators = Callable[[Union[int, Sequence[int]], int],
                            Optional[List[torch.Generator]]]
 
 
+def generator_seed(entropy: Sequence[int]) -> int:
+    """The 64-bit seed that :func:`seeded_generator` derives from the
+    integers ``entropy``: ``g.manual_seed(generator_seed(e))`` restarts an
+    existing generator g on the stream of a fresh ``seeded_generator(e)``."""
+    hi, lo = np.random.SeedSequence(list(entropy)).generate_state(2, np.uint32)
+    return int(hi) << 32 | int(lo)
+
+
 def seeded_generator(entropy: Sequence[int], device) -> torch.Generator:
     """A generator whose draws depend on the integers ``entropy`` only."""
-    hi, lo = np.random.SeedSequence(list(entropy)).generate_state(2, np.uint32)
-    return torch.Generator(device=device).manual_seed(int(hi) << 32 | int(lo))
+    return torch.Generator(device=device).manual_seed(generator_seed(entropy))
 
 
 def lane_seeds(seed: Union[int, Sequence[int]], lanes: int) -> List[int]:

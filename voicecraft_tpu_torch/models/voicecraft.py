@@ -35,7 +35,7 @@ import dataclasses
 import functools
 import threading
 import warnings
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -730,16 +730,17 @@ class _CaptureSite:
 class _StepGraph:
     """One decode step captured in a CUDA graph.  The capture runs nothing;
     each replay runs the step's kernels in the captured order on the state
-    tensors the capture saw, and draws from ``generator`` (registered with
-    the graph) where the eager step draws: every replay advances its Philox
-    offset as an eager step does.  The fused FFN's launch counts move from
-    the capture to the replays (ops/_native.py:GraphLaunches)."""
+    tensors the capture saw, and draws from ``generators`` (each registered
+    with the graph) where the eager step draws: every replay advances their
+    Philox offsets as an eager step does, from the seed each holds when the
+    replay is launched.  The fused FFN's launch counts move from the
+    capture to the replays (ops/_native.py:GraphLaunches)."""
 
-    def __init__(self, step, generator: Optional[torch.Generator],
+    def __init__(self, step, generators: Sequence[torch.Generator],
                  device: torch.device):
         site = _CaptureSite.of(device)
         self.graph = torch.cuda.CUDAGraph()
-        if generator is not None:
+        for generator in generators:
             self.graph.register_generator_state(generator)
         pool = None if site.last is None else site.last.pool()
         with site.running(), _native.GraphLaunches() as self.launches:
@@ -970,7 +971,9 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
             for _ in range(steps_per_iter):
                 if graphed and forwards == 1:
                     with tracing.span("decode.capture"):
-                        graph = _StepGraph(lambda: step(False), generator, dev)
+                        graph = _StepGraph(
+                            lambda: step(False),
+                            [] if generator is None else [generator], dev)
                 with tracing.span("decode.step"):
                     if graph is not None:
                         with tracing.span("decode.replay"):

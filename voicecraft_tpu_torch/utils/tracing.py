@@ -21,7 +21,8 @@ program crosses once a request or once a burst, never once a step, and
 never a device read.  The continuous-batching engine marks each request's
 admission, its first streamed rows that complete a frame and its
 retirement (:func:`mark_request`), and records each pass of its loop with
-the host time in admission and in the wait for a burst's snapshot
+the host time in admission and in the wait for a burst's snapshot, and
+the burst's steps and those replayed from a CUDA graph
 (:func:`record_burst`).
 
 Expert rows.  While a profiler records, each decode forward of a block
@@ -75,13 +76,17 @@ class RequestMark(NamedTuple):
 class Burst(NamedTuple):
     """One pass of the engine's loop: its wall, the host ns in admission
     and in the wait for a burst's snapshot (the device); ``refills`` lanes
-    were refilled in its admission."""
+    were refilled in its admission; the burst it dispatched took ``steps``
+    device steps (speculative: passes), ``graph_steps`` of them replayed
+    from the step's CUDA graph."""
     source: int
     start_ns: int
     end_ns: int
     admit_ns: int
     wait_ns: int
     refills: int
+    steps: int = 0
+    graph_steps: int = 0
 
 
 _spans: deque = deque(maxlen=MAX_RECORDS)
