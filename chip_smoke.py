@@ -1422,9 +1422,9 @@ class DrawRecorder:
         import voicecraft_tpu_torch.inference.serving as sv
         import voicecraft_tpu_torch.inference.spec_common as sc
         import voicecraft_tpu_torch.models.voicecraft as vc
+        from voicecraft_tpu_torch.ops.graphs import StepGraph as graph
         self.logits, self.passes = [], []
         self._mods = (vc, sc, sv)
-        graph = vc._StepGraph
         self._orig = (vc.sample, sc.spec_verify_pass, graph.__init__,
                       graph.replay)
         sample, spec_pass, capture, replay = self._orig
@@ -1457,11 +1457,12 @@ class DrawRecorder:
         return self
 
     def __exit__(self, *exc):
+        from voicecraft_tpu_torch.ops.graphs import StepGraph
         vc, sc, sv = self._mods
         sample, spec_pass, capture, replay = self._orig
         vc.sample = sample
         sc.spec_verify_pass = sv.spec_verify_pass = spec_pass
-        vc._StepGraph.__init__, vc._StepGraph.replay = capture, replay
+        StepGraph.__init__, StepGraph.replay = capture, replay
 
     def lane(self, b):
         """by_index of lane b (each draw [B, K, card]; a serving pass's t is
@@ -1544,10 +1545,10 @@ def counting_forwards():
     of the single-stream loop's step makes (it runs nothing), plus each
     replay of a captured step."""
     from voicecraft_tpu_torch.models import transformer as trm
-    from voicecraft_tpu_torch.models import voicecraft as vc
+    from voicecraft_tpu_torch.ops.graphs import StepGraph
     count = [0]
     step = trm.decode_step_fast
-    capture, replay = vc._StepGraph.__init__, vc._StepGraph.replay
+    capture, replay = StepGraph.__init__, StepGraph.replay
 
     def counted_step(*a, **kw):
         count[0] += 1
@@ -1562,12 +1563,12 @@ def counting_forwards():
         replay(g)
 
     trm.decode_step_fast = counted_step
-    vc._StepGraph.__init__, vc._StepGraph.replay = counted_capture, counted_replay
+    StepGraph.__init__, StepGraph.replay = counted_capture, counted_replay
     try:
         yield count
     finally:
         trm.decode_step_fast = step
-        vc._StepGraph.__init__, vc._StepGraph.replay = capture, replay
+        StepGraph.__init__, StepGraph.replay = capture, replay
 
 
 def step_profile(run, n, module=None, name="decode_step_multi"):
@@ -2330,18 +2331,20 @@ class EngineRecorder(DrawRecorder):
     def __enter__(self):
         super().__enter__()
         import voicecraft_tpu_torch.inference.engine as em
+        import voicecraft_tpu_torch.ops.graphs as graphs
         cb = em.ContinuousBatcher
-        self._em = em
+        self._em, self._graphs = em, graphs
         self._eorig = (em.spec_verify_pass, em._lane_decode_step,
-                       cb._dispatch_burst, cb._retire, em.step_graph_engages)
+                       cb._dispatch_burst, cb._retire,
+                       graphs.step_graph_engages)
         pass_, step, dispatch, retire, _ = self._eorig
-        em.step_graph_engages = lambda model: False
+        graphs.step_graph_engages = lambda model: False
         self.ts, self.bursts, self.kept = [], [], {}
         em.spec_verify_pass = self._mods[1].spec_verify_pass  # recording
 
-        def stepping(*a):
+        def stepping(*a, **kw):
             self.ts.append(a[9].clone())          # t_lane of this step
-            return step(*a)
+            return step(*a, **kw)
 
         def dispatching(eng):
             # the lane map of the engine's own lanes (over a mesh, its data
@@ -2366,7 +2369,7 @@ class EngineRecorder(DrawRecorder):
     def __exit__(self, *exc):
         em, cb = self._em, self._em.ContinuousBatcher
         (em.spec_verify_pass, em._lane_decode_step, cb._dispatch_burst,
-         cb._retire, em.step_graph_engages) = self._eorig
+         cb._retire, self._graphs.step_graph_engages) = self._eorig
         super().__exit__(*exc)
 
     def request(self, rid):
@@ -2437,7 +2440,7 @@ def engine_phase(model, codec, ccfg, serve, texts2, a_req, long_wav):
     from voicecraft_tpu_torch.models import encodec as ec
     from voicecraft_tpu_torch.models.voicecraft import (SamplingConfig,
                                                         init_mtp_heads)
-    from voicecraft_tpu_torch.ops import _native
+    from voicecraft_tpu_torch.ops import _native, graphs
     from voicecraft_tpu_torch.utils.quantize import quantize_decoder_fp8
     cfg = model.cfg
     K, L = cfg.n_codebooks, cfg.num_decoder_layers
@@ -2546,14 +2549,15 @@ def engine_phase(model, codec, ccfg, serve, texts2, a_req, long_wav):
                              burst=PROFILE_STEPS + 2, scfg=sampled, seed=SEED)
     for x, y in reqs[:ENGINE_LANES]:
         peng.submit(x, y)
-    engages, em.step_graph_engages = em.step_graph_engages, lambda m: False
+    engages, graphs.step_graph_engages = (graphs.step_graph_engages,
+                                          lambda m: False)
     try:
         (ops, ms), _ = counted("o profile", lambda: (
             peng._admit(), step_profile(
                 lambda: peng._dispatch_burst().read(), PROFILE_STEPS, em,
                 "_lane_decode_step"))[1], L)
     finally:
-        em.step_graph_engages = engages
+        graphs.step_graph_engages = engages
     log(f"  (o) engine step at B={ENGINE_LANES}, sampled: "
         f"{'not measured' if ops is None else f'{ops:.1f}'} device "
         f"operations and {'not measured' if ms is None else f'{ms:.4f}'} "
@@ -3404,8 +3408,8 @@ class BenchRun:
     def __init__(self, label, argv, profile=None):
         import bench_torch
         import torch
-        from voicecraft_tpu_torch.models import voicecraft as vc
         from voicecraft_tpu_torch.ops import _native
+        from voicecraft_tpu_torch.ops.graphs import StepGraph
         self.label, self.argv = label, list(argv)
         err = io.StringIO()
         _native.reset_launch_counts()
@@ -3417,7 +3421,7 @@ class BenchRun:
                     self.costs = step_profile(
                         lambda: setattr(self, "results",
                                         bench_torch.main(self.argv)),
-                        profile, module=vc._StepGraph, name="replay")
+                        profile, module=StepGraph, name="replay")
                 else:
                     self.results = bench_torch.main(self.argv)
             torch.cuda.synchronize()
@@ -3670,12 +3674,12 @@ import json, os, runpy, sys
 import numpy as np
 import voicecraft_tpu_torch
 from voicecraft_tpu_torch.models import transformer as trm
-from voicecraft_tpu_torch.models import voicecraft as vc
 from voicecraft_tpu_torch.ops import _native
+from voicecraft_tpu_torch.ops.graphs import StepGraph
 from voicecraft_tpu_torch.utils import audio as au
 forwards, written = [0], {}
 step, write_wav = trm.decode_step_fast, au.write_wav
-capture, replay = vc._StepGraph.__init__, vc._StepGraph.replay
+capture, replay = StepGraph.__init__, StepGraph.replay
 
 def counted_step(*a, **k):
     forwards[0] += 1
@@ -3695,7 +3699,7 @@ def recorded_write(path, wav, sr):
     write_wav(path, wav, sr)
 
 trm.decode_step_fast, au.write_wav = counted_step, recorded_write
-vc._StepGraph.__init__, vc._StepGraph.replay = counted_capture, counted_replay
+StepGraph.__init__, StepGraph.replay = counted_capture, counted_replay
 sys.argv = sys.argv[1:]
 try:
     runpy.run_path(sys.argv[0], run_name="__main__")
@@ -5089,13 +5093,13 @@ def loop_ops(model, r, fused_ffn):
     (the draw, the bookkeeping, the forward, the heads and the host sync)
     at request r's geometry, over PROFILE_STEPS steps (step_profile)."""
     from voicecraft_tpu_torch.inference.tts import inference_tts
-    from voicecraft_tpu_torch.models import voicecraft as vc
+    from voicecraft_tpu_torch.ops.graphs import StepGraph
     # the loop replays its captured step from the second step on: the
     # window runs from the second replay to the (n + 2)-th
     return step_profile(
         lambda: inference_tts(model, r.x, r.codes, r.scfg, seed=SEED,
                               gen_max=PROFILE_STEPS + 3, fused_ffn=fused_ffn),
-        PROFILE_STEPS, module=vc._StepGraph, name="replay")
+        PROFILE_STEPS, module=StepGraph, name="replay")
 
 
 def main() -> None:

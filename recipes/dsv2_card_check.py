@@ -78,6 +78,7 @@ def main(argv=None) -> int:
     from voicecraft_tpu_torch.inference import engine as eng_mod
     from voicecraft_tpu_torch.inference import tts
     from voicecraft_tpu_torch.models import voicecraft as vc
+    from voicecraft_tpu_torch.ops import graphs
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -116,13 +117,13 @@ def main(argv=None) -> int:
     # ---- 2. inference_tts, graphed and eager --------------------------------
     x, prompt = request(300, 200)
     captured = []
-    graph_cls = vc._StepGraph
+    graph_cls = graphs.StepGraph
 
     class Counting(graph_cls):
         def __init__(self, *a, **kw):
             captured.append(1)
             super().__init__(*a, **kw)
-    vc._StepGraph = Counting
+    graphs.StepGraph = Counting
     scfg = vc.SamplingConfig(top_k=1, silence_tokens=())
     torch.cuda.synchronize()
     t0 = time.time()
@@ -130,14 +131,14 @@ def main(argv=None) -> int:
     _, gen = tts.inference_tts(model, x, prompt, scfg, stats=stats)
     torch.cuda.synchronize()
     t_graph = time.time() - t0
-    vc._StepGraph = graph_cls
-    engages = vc.step_graph_engages
-    vc.step_graph_engages = lambda m: False
+    graphs.StepGraph = graph_cls
+    engages = graphs.step_graph_engages
+    graphs.step_graph_engages = lambda m: False
     t0 = time.time()
     _, gen_eager = tts.inference_tts(model, x, prompt, scfg)
     torch.cuda.synchronize()
     t_eager = time.time() - t0
-    vc.step_graph_engages = engages
+    graphs.step_graph_engages = engages
     rows = rows_of(cfg, gen)
     gap, mean, cells = served(ref, x, prompt, rows, V)
     emit(phase="inference_tts", step_graph_engages=engages(model),

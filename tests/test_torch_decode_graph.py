@@ -1,5 +1,5 @@
 """On a CUDA card: make_decode_loop replays its decode step from a CUDA
-graph (models/voicecraft.py:_StepGraph) and leaves what a decode whose
+graph (ops/graphs.py:StepReplay) and leaves what a decode whose
 every step runs eagerly leaves, bit for bit: the recorded samples and
 span indices, the counts, the last forward's logits and the fused FFN's
 launch counts.  giga830M widths at 2 layers and one tts830e.single
@@ -18,7 +18,7 @@ from voicecraft_tpu_torch.data import spans
 from voicecraft_tpu_torch.inference import tts
 from voicecraft_tpu_torch.inference.loader import load_model
 from voicecraft_tpu_torch.models import voicecraft as vc
-from voicecraft_tpu_torch.ops import _native
+from voicecraft_tpu_torch.ops import _native, graphs
 
 LAYERS = 2
 PROMPT_FRAMES, PHONES, GEN = 250, 137, 128       # tts830e.single's middle
@@ -110,19 +110,19 @@ def _decode(model, case):
         torch.cuda.manual_seed(SEED)
         generator = None
     replays = [0]
-    replay = vc._StepGraph.replay
+    replay = graphs.StepGraph.replay
 
     def counted(self):
         replays[0] += 1
         replay(self)
 
     _native.reset_launch_counts()
-    vc._StepGraph.replay = counted
+    graphs.StepGraph.replay = counted
     try:
         res = loop(model, *args, generator)
         torch.cuda.synchronize()
     finally:
-        vc._StepGraph.replay = replay
+        graphs.StepGraph.replay = replay
     return res, dict(_native.ROUTE_LAUNCHES), replays[0]
 
 
@@ -132,7 +132,7 @@ def test_replayed_steps_equal_eager_steps(models, case, monkeypatch):
     task, *_, fused, _ = CASES[case]
     model = models[task]
     graphed, g_launches, g_replays = _decode(model, case)
-    monkeypatch.setattr(vc, "step_graph_engages", lambda model: False)
+    monkeypatch.setattr(graphs, "step_graph_engages", lambda model: False)
     eager, e_launches, e_replays = _decode(model, case)
     print(f"{case}: {graphed.forwards} forwards ({g_replays} replayed), "
           f"{graphed.gen_cnt} samples, {graphed.spans_done} spans, "

@@ -21,7 +21,7 @@ from voicecraft_tpu_torch import config
 from voicecraft_tpu_torch.data import spans
 from voicecraft_tpu_torch.inference import tts
 from voicecraft_tpu_torch.models import voicecraft as vc
-from voicecraft_tpu_torch.ops import _native
+from voicecraft_tpu_torch.ops import _native, graphs
 from voicecraft_tpu_torch.utils import tracing
 from tests.test_torch_spec import one_torch_thread  # noqa: F401 (autouse)
 
@@ -135,15 +135,15 @@ def test_the_result_holds_the_last_forwards_logits(setup, monkeypatch):
 
 @pytest.mark.parametrize("case", ["tts-sampled-k1", "edit2-sampled-k3"])
 def test_a_cpu_decode_runs_every_step_eagerly(setup, case):
-    """No graph on the CPU: every step is a decode.step holding its
-    decode.sample, and nothing is captured or replayed."""
+    """No graph on the CPU: every step is a decode.step, and nothing is
+    captured or replayed."""
     model = setup[0]
-    assert not vc.step_graph_engages(model)
+    assert not graphs.step_graph_engages(model)
     kw, intervals, seed, bias, _ = CASES[case]
     with profile(activities=[ProfilerActivity.CPU]):
         res = _decode(setup, kw, intervals, seed, bias)
     names = collections.Counter(s.name for s in tracing.spans())
-    assert names["decode.step"] == names["decode.sample"] == res.forwards
+    assert names["decode.step"] == res.forwards
     assert names["decode.prefill"] == 1 and names["decode.sync"] >= 1
     assert names["decode.capture"] == names["decode.replay"] == 0
 

@@ -144,9 +144,11 @@ def _engine_logits(model, reqs, monkeypatch, **kw):
     steps = []
     step_fn, heads = eng_mod._lane_decode_step, eng_mod.apply_heads
 
-    def lane_step(decoder, x_t, cache, x_lens, x_pad, prefix_lens, *a):
+    def lane_step(decoder, x_t, cache, x_lens, x_pad, prefix_lens, *a,
+                  **kw):
         steps.append([x_lens.clone(), prefix_lens.clone(), a[-1].clone()])
-        return step_fn(decoder, x_t, cache, x_lens, x_pad, prefix_lens, *a)
+        return step_fn(decoder, x_t, cache, x_lens, x_pad, prefix_lens, *a,
+                       **kw)
 
     def lane_heads(h_mod, h):
         out = heads(h_mod, h)

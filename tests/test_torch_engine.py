@@ -17,6 +17,7 @@ import torch
 from voicecraft_tpu.config import tiny_test
 from voicecraft_tpu.inference import engine as jeng
 from voicecraft_tpu.models import voicecraft as jvc
+from voicecraft_tpu_torch import config
 from voicecraft_tpu_torch.data.spans import compose_tts_prefix
 from voicecraft_tpu_torch.inference import engine as eng_mod
 from voicecraft_tpu_torch.inference.spec_common import (generator_seed,
@@ -24,6 +25,7 @@ from voicecraft_tpu_torch.inference.spec_common import (generator_seed,
 from voicecraft_tpu_torch.inference.tts import inference_tts
 from voicecraft_tpu_torch.models import voicecraft as vc
 from voicecraft_tpu_torch.ops import attention as attn
+from voicecraft_tpu_torch.ops import graphs
 from voicecraft_tpu_torch.utils import tracing
 from voicecraft_tpu_torch.utils.convert import from_jax_params
 
@@ -344,44 +346,84 @@ def test_sampled_rows_independent_of_lane_and_refill_time(setup):
 
 
 class _FakeGraph:
-    """A stand-in for models/voicecraft.py:_StepGraph on the CPU: the
-    capture keeps the step and the registered generators, a replay runs the
-    step."""
+    """A stand-in for ops/graphs.py:StepGraph on the CPU: the capture keeps
+    the step and the registered generators, a replay runs the step and
+    writes what it returns into ``out`` (the first replay's tensors, in
+    place after that, as a replay refills the captured outputs)."""
     made = []
 
     def __init__(self, step, generators, device):
         self.step, self.generators = step, list(generators)
+        self.out, self.replays = None, 0
         _FakeGraph.made.append(self)
 
     def replay(self):
-        self.step()
+        out = self.step()
+        if self.replays == 0:
+            self.out = out
+        elif out is not None:
+            for a, b in zip(*((o,) if torch.is_tensor(o) else o
+                              for o in (self.out, out))):
+                a.copy_(b)
+        self.replays += 1
 
 
+@pytest.fixture(scope="module")
+def setup_dsv2():
+    """tiny_test_dsv2 in f32 with random weights, and _requests'."""
+    cfg = dataclasses.replace(config.tiny_test_dsv2(),
+                              compute_dtype="float32")
+    model = vc.VoiceCraft(cfg, "cpu")
+    model.init_weights(torch.Generator().manual_seed(3))
+    return model.eval(), _requests(cfg)
+
+
+@pytest.mark.parametrize("block", ["voicecraft", "deepseek_v2"])
 @pytest.mark.parametrize("sampling", ["top-k 1", "sampled", "argmax"])
-def test_graphed_engine_control_flow(setup, monkeypatch, sampling):
+def test_graphed_engine_control_flow(request, monkeypatch, sampling, block):
     """Where the step is graphed: the batcher's first step runs eagerly,
-    the second captures (once for the batcher's life, every lane's
-    generator registered unless greedy draws nothing) and every later step
-    replays, as the counters say, and the rows equal an eager engine's."""
-    _, _, model, reqs = setup
+    the second captures and every later step replays, and the rows equal
+    an eager engine's.  VoiceCraft's block captures its whole step once for
+    the batcher's life (every lane's generator registered unless greedy
+    draws nothing), as the counters say.  DeepSeek-V2's steps eagerly
+    around its stack's parts, each captured once for the batcher's life
+    and replayed at every later step, and counts no replayed step."""
+    if block == "voicecraft":
+        _, _, model, reqs = request.getfixturevalue("setup")
+    else:
+        model, reqs = request.getfixturevalue("setup_dsv2")
     scfg = vc.SamplingConfig(**{"top-k 1": GREEDY, "sampled": SAMPLED,
                                 "argmax": ARGMAX}[sampling])
     eager, _ = _run(model, reqs, scfg, lanes=2)
     _FakeGraph.made = []
     site = types.SimpleNamespace(running=contextlib.nullcontext)
-    monkeypatch.setattr(eng_mod, "_StepGraph", _FakeGraph)
-    monkeypatch.setattr(eng_mod, "step_graph_engages", lambda model: True)
-    monkeypatch.setattr(eng_mod, "_CaptureSite",
+    monkeypatch.setattr(graphs, "StepGraph", _FakeGraph)
+    monkeypatch.setattr(graphs, "step_graph_engages", lambda model: True)
+    monkeypatch.setattr(graphs, "CaptureSite",
                         types.SimpleNamespace(of=lambda device: site))
     tracing.clear()
     graphed, eng = _run(model, reqs, scfg, lanes=2)
-    assert len(_FakeGraph.made) == 1
-    want = eng._gens if scfg.temperature > 0 else []
-    assert len(_FakeGraph.made[0].generators) == len(want)
-    assert all(a is b for a, b in zip(_FakeGraph.made[0].generators, want))
-    assert eng.stats["graph_steps"] == eng.stats["steps"] - 1
+    steps = eng.stats["steps"]
+    if block == "voicecraft":
+        assert len(_FakeGraph.made) == 1
+        want = eng._gens if scfg.temperature > 0 else []
+        assert len(_FakeGraph.made[0].generators) == len(want)
+        assert all(a is b for a, b in zip(_FakeGraph.made[0].generators,
+                                          want))
+        assert eng.stats["graph_steps"] == steps - 1
+    else:
+        cfg = model.cfg
+        n_dense = cfg.first_k_dense_replace
+        # per layer its attention, then a dense FFN or routing, routed
+        # products and combine; then the final norm
+        parts = cfg.num_decoder_layers + n_dense + 3 * (
+            cfg.num_decoder_layers - n_dense) + 1
+        assert len(_FakeGraph.made) == parts
+        assert all(g.generators == [] for g in _FakeGraph.made)
+        assert all(g.replays == steps - 1 for g in _FakeGraph.made)
+        assert eng.stats["graph_steps"] == 0
     bursts = tracing.bursts()
-    assert sum(b.steps for b in bursts) == eng.stats["steps"]
+    assert sum(b.steps for b in bursts) == steps
     assert sum(b.graph_steps for b in bursts) == eng.stats["graph_steps"]
     for (fa, ga), (fb, gb) in zip(eager, graphed):
         np.testing.assert_array_equal(ga, gb)

@@ -5,7 +5,9 @@ layers and tts830e.stream32's pads and bursts, 8 lanes: requests submitted
 from the streaming callbacks as bursts go by, so refills land mid-flight.
 bf16, and fp8 weights with packed qkv and the fp8 slab; top-k 1 (the
 cell's) and top-k 40, both at temperature 1, so the lanes' generators are
-live.  Run on a card with
+live.  DeepSeek-V2's block at tiny_test_dsv2 replays its stack part by
+part (models/deepseek_v2.py:StepGraphs) and serves what an eager engine
+serves, bit for bit, too.  Run on a card with
 ``python -m pytest tests/test_torch_engine_graph.py -q``; it skips
 elsewhere."""
 
@@ -16,6 +18,7 @@ import torch
 from voicecraft_tpu_torch.inference import engine as eng_mod
 from voicecraft_tpu_torch.inference.loader import load_model
 from voicecraft_tpu_torch.models import voicecraft as vc
+from voicecraft_tpu_torch.ops import graphs
 from voicecraft_tpu_torch.utils.quantize import quantize_decoder_fp8
 
 LAYERS = 2
@@ -72,11 +75,11 @@ def _requests(cfg):
     return out
 
 
-def _serve(model, kv_dtype, scfg):
+def _serve(model, kv_dtype, scfg, engine=ENGINE):
     """AT_START requests at once (a wave), then PER_BURST more from the
     streaming callbacks after each burst: (rows by request, batcher)."""
     eng = eng_mod.ContinuousBatcher(model, scfg=scfg, seed=SEED,
-                                    kv_dtype=kv_dtype, **ENGINE)
+                                    kv_dtype=kv_dtype, **engine)
     reqs = _requests(model.cfg)
     rids, seen = [], set()
 
@@ -105,7 +108,7 @@ def test_graphed_engine_equals_eager_engine(models, weights, sampling,
     scfg = SAMPLINGS[sampling]
     graphed, g_eng = _serve(model, kv_dtype, scfg)
     with monkeypatch.context() as m:
-        m.setattr(eng_mod, "step_graph_engages", lambda model: False)
+        m.setattr(graphs, "step_graph_engages", lambda model: False)
         eager, e_eng = _serve(model, kv_dtype, scfg)
     print(f"{weights} {sampling}: {g_eng.stats}; generated "
           f"{[g.shape[1] for g in graphed]}")
@@ -128,7 +131,7 @@ def test_burst_has_no_host_sync(models, graphed, monkeypatch):
     sync: it runs under set_sync_debug_mode("error") without raising."""
     model, kv_dtype = models["fp8"]
     if not graphed:
-        monkeypatch.setattr(eng_mod, "step_graph_engages",
+        monkeypatch.setattr(graphs, "step_graph_engages",
                             lambda model: False)
     eng = eng_mod.ContinuousBatcher(model, scfg=SAMPLINGS["topk1"],
                                     seed=SEED, kv_dtype=kv_dtype, **ENGINE)
@@ -145,3 +148,52 @@ def test_burst_has_no_host_sync(models, graphed, monkeypatch):
     eng._process_burst(snap)
     steps = 2 * ENGINE["burst"]
     assert eng.stats["graph_steps"] == (steps - 1 if graphed else 0)
+
+
+# for tiny_test_dsv2: _requests' texts fit x_pad and its prompts y_pad
+DSV2_ENGINE = dict(lanes=8, x_pad=64, y_pad=448, gen_max=160, burst=16)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("top_k", [1, 40])
+def test_dsv2_parts_replayed_equal_eager_engine(card, top_k, monkeypatch):
+    """tiny_test_dsv2 in bf16: the engine steps eagerly around its stack's
+    parts, each captured once for the batcher's life and replayed at every
+    later step, and the rows equal an eager engine's bit for bit."""
+    _, model, _ = load_model("tiny_test_dsv2", random_init=True, seed=5,
+                             device=card)
+    scfg = vc.SamplingConfig(top_k=top_k, top_p=1.0, temperature=1.0,
+                             stop_repetition=3, silence_tokens=(5, 7))
+    made, replays = [], [0]
+    capture, replay = graphs.StepGraph.__init__, graphs.StepGraph.replay
+
+    def counted_capture(g, *a, **kw):
+        made.append(g)
+        capture(g, *a, **kw)
+
+    def counted_replay(g):
+        replays[0] += 1
+        replay(g)
+
+    with monkeypatch.context() as m:
+        m.setattr(graphs.StepGraph, "__init__", counted_capture)
+        m.setattr(graphs.StepGraph, "replay", counted_replay)
+        graphed, g_eng = _serve(model, None, scfg, DSV2_ENGINE)
+    with monkeypatch.context() as m:
+        m.setattr(graphs, "step_graph_engages", lambda model: False)
+        eager, e_eng = _serve(model, None, scfg, DSV2_ENGINE)
+    cfg = model.cfg
+    n_dense = cfg.first_k_dense_replace
+    parts = cfg.num_decoder_layers + n_dense + 3 * (
+        cfg.num_decoder_layers - n_dense) + 1
+    print(f"tiny_test_dsv2 top-k {top_k}: {g_eng.stats}; {len(made)} "
+          f"parts, {replays[0]} replays; generated "
+          f"{[g.shape[1] for g in graphed]}")
+    assert g_eng.stats["refills"] >= N_REQUESTS - AT_START
+    assert len(made) == parts
+    assert replays[0] == parts * (g_eng.stats["steps"] - 1)
+    assert g_eng.stats == e_eng.stats
+    assert g_eng.stats["graph_steps"] == 0
+    assert all(g.shape[1] > 0 for g in graphed)
+    for g, e in zip(graphed, eager):
+        np.testing.assert_array_equal(g, e)

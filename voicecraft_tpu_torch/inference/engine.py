@@ -52,11 +52,10 @@ from ..data import spans
 from ..models import deepseek_v2 as dsv2
 from ..models import transformer as trm
 from ..models.voicecraft import (MAX_POS, SamplingConfig, VoiceCraft,
-                                 _CaptureSite, _StepGraph, apply_heads,
-                                 check_mtp_heads, embed_audio_tokens,
-                                 new_kv_cache, prefill_lanes, slab_dims,
-                                 step_graph_engages)
-from ..ops import patterns
+                                 apply_heads, check_mtp_heads,
+                                 embed_audio_tokens, new_kv_cache,
+                                 prefill_lanes, slab_dims)
+from ..ops import graphs, patterns
 from ..ops.attention import _attend_one, _ring_valid
 from ..parallel.mesh import all_gather_data, data_slice, stack_ranks
 from ..utils import tracing
@@ -107,19 +106,21 @@ def _status(s: LaneState) -> torch.Tensor:
 
 def _lane_decode_step(decoder: trm.Decoder, x_t: torch.Tensor,
                       cache: torch.Tensor, x_lens, x_pad: int, prefix_lens,
-                      y_start: int, W: int, gstep, t_lane
+                      y_start: int, W: int, gstep, t_lane,
+                      parts: Optional[dsv2.StepGraphs] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One burst step against the ring slab: the decoder's layer stack
     (transformer._layer_stack, unfused FFN) reading the slab read-only
     through the ring attention, then ONE write of every layer's k/v at ring
     slot y_start + (gstep mod W).  The ring mask is the same in every layer,
     so it is built once a step.  A DeepSeek-V2 decoder takes its own step
-    on its latent slab (models/deepseek_v2.py:lane_decode_step), chosen
-    once for the whole stack.  Returns (final-normed hidden [B, 1, D],
-    cache)."""
+    on its latent slab (models/deepseek_v2.py:lane_decode_step, through
+    ``parts``), chosen once for the whole stack.  Returns (final-normed
+    hidden [B, 1, D], cache)."""
     if isinstance(decoder, dsv2.Decoder):
         return dsv2.lane_decode_step(decoder, x_t, cache, x_lens, x_pad,
-                                     prefix_lens, y_start, W, gstep, t_lane)
+                                     prefix_lens, y_start, W, gstep, t_lane,
+                                     parts)
     valid = _ring_valid(cache.shape[3], x_lens, x_pad, prefix_lens, y_start,
                         W, gstep, t_lane, x_t.device)
     h, kv = trm._layer_stack(
@@ -143,16 +144,16 @@ def make_burst_fn(cfg: ModelConfig, *, batch_size: int, x_pad: int,
     it, and its samples and logits are discarded.  A step writes the
     lanes' tensors, the slab and the row buffer in place.
 
-    Where :func:`step_graph_engages` (a CUDA model, its decoder not split
-    over 'model') and the block is VoiceCraft's, the step is replayed from
-    a CUDA graph (models/voicecraft.py:_StepGraph): the first step runs
-    eagerly on the capture site's stream, the second is captured, with
-    every lane's generator registered, and replayed, and every later step
-    of every burst replays it.  So the function is bound to the model and
-    state of its first call (the slab, the lanes' tensors, the row buffer
-    and the generators: one batcher's, fixed for its life).  DeepSeek-V2's
-    block steps eagerly around its stack's per-part replays
-    (deepseek_v2.StepGraphs: a capture cannot hold those graphs, and the
+    Where ops/graphs.py:step_graph_engages (a CUDA model, its decoder not
+    split over 'model') and the block is VoiceCraft's, the step runs
+    through one ops/graphs.py:StepReplay for the function's life: the
+    first step runs eagerly, the second is captured, with every lane's
+    generator registered, and replayed, and every later step of every
+    burst replays it.  So the function is bound to the model and state of
+    its first call (the slab, the lanes' tensors, the row buffer and the
+    generators: one batcher's, fixed for its life).  DeepSeek-V2's block
+    steps eagerly around its stack's per-part replays (deepseek_v2.
+    StepGraphs, held as long: a capture cannot hold those graphs, and the
     parts' spans would go).
 
     Returns fn(model, cache, lanes, gen_buf [B, gen_max, K], gens) -> (cache,
@@ -165,12 +166,10 @@ def make_burst_fn(cfg: ModelConfig, *, batch_size: int, x_pad: int,
     y_start = x_pad + y_pad
     sample_lanes = make_lane_sampler(cfg, scfg, cap_mult)
     slot_dim = slab_dims(cfg)[1]
-    # the steps taken, the step's constant buffers and, once captured, its
-    # graph
-    bound = {}
+    bound = {}      # made at the first call, kept for the function's life
 
     def step(model: VoiceCraft, cache: torch.Tensor, s: LaneState,
-             gen_buf: torch.Tensor, gens, lanes, empty) -> None:
+             gen_buf: torch.Tensor, gens, lanes, empty, parts) -> None:
         W = cache.shape[slot_dim] - y_start     # ring width (> gen_max - 1)
         y_pos = s.prefix_lens + s.t
         samples, new_eog, consec, prev = sample_lanes(
@@ -195,7 +194,8 @@ def make_burst_fn(cfg: ModelConfig, *, batch_size: int, x_pad: int,
         h, _ = _lane_decode_step(
             model.decoder,
             _step_feed(model, emb, y_pos.clamp(max=MAX_POS - 1)), cache,
-            s.x_lens, x_pad, s.prefix_lens, y_start, W, s.gstep, s.t)
+            s.x_lens, x_pad, s.prefix_lens, y_start, W, s.gstep, s.t,
+            parts=parts)
         logits = apply_heads(model.heads, h[:, 0])
         s.logits.copy_(torch.where(live[:, None, None], logits, s.logits))
         s.t.copy_(torch.where(live, (s.t + 1).clamp(max=gen_max - 1), s.t))
@@ -206,28 +206,22 @@ def make_burst_fn(cfg: ModelConfig, *, batch_size: int, x_pad: int,
                  gen_buf: torch.Tensor, gens):
         dev = model.device
         if not bound:
-            bound.update(steps=0, graph=None,
-                         lanes=torch.arange(B, device=dev),
-                         empty=torch.full((B, K), cfg.empty_token,
-                                          dtype=torch.long, device=dev))
-        graphed = (step_graph_engages(model)
-                   and not isinstance(model.decoder, dsv2.Decoder))
+            engaged = graphs.step_graph_engages(model)
+            per_part = engaged and isinstance(model.decoder, dsv2.Decoder)
+            bound.update(
+                lanes=torch.arange(B, device=dev),
+                empty=torch.full((B, K), cfg.empty_token, dtype=torch.long,
+                                 device=dev),
+                replay=graphs.StepReplay(dev, gens or (),
+                                         engaged=engaged and not per_part),
+                parts=dsv2.StepGraphs() if per_part else None)
+        replay = bound["replay"]
         run = lambda: step(model, cache, s, gen_buf, gens, bound["lanes"],
-                           bound["empty"])
+                           bound["empty"], bound["parts"])
         replayed = 0
         for _ in range(burst):
-            if not graphed:
-                run()
-                continue
-            if bound["graph"] is None and bound["steps"] >= 1:
-                bound["graph"] = _StepGraph(run, gens or (), dev)
-            if bound["graph"] is None:
-                with _CaptureSite.of(dev).running():
-                    run()
-            else:
-                bound["graph"].replay()
-                replayed += 1
-            bound["steps"] += 1
+            replay(run)
+            replayed += replay.graph is not None
         return cache, s, gen_buf, _status(s), replayed
 
     return burst_fn

@@ -68,7 +68,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
-from ..ops import moe
+from ..ops import graphs, moe
 from ..ops.attention import (NEG_INF, _attend_one, _ring_valid,
                              decode_attention_self, matmul_f32)
 from ..utils import tracing
@@ -207,8 +207,6 @@ class Decoder(nn.Module):
             for li in range(cfg.num_decoder_layers))
         self.final_ln_g = _param(cfg.d_model, dtype=torch.float32,
                                  device=device)
-        # the engine's captured steps, for the last slab (StepGraphs)
-        self.lane_graphs: dict = {}
         cos, sin = rope_tables(cfg, max_pos)
         self.register_buffer("rope_cos", cos.to(device), persistent=False)
         self.register_buffer("rope_sin", sin.to(device), persistent=False)
@@ -400,9 +398,9 @@ def _decode_stack(dec: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
     the step's masked attention over the slab read as one kv head (k:
     the whole latent [B, S_max, 1, r + dr], v: its c [B, S_max, 1, r]) plus
     the lane's own entry.  x_t [B, 1, D]; pos [B]: the rotary positions.
-    ``run(span, part, *args)`` runs each part (eagerly, or a StepGraphs'
-    capture or replay).  Returns (final-normed hidden [B, 1, D], the new
-    latent entries [L, B, 1, r + dr]); the caller writes them once."""
+    ``run(span, part, *args)`` runs each part (eagerly, or StepGraphs.run).
+    Returns (final-normed hidden [B, 1, D], the new latent entries [L, B,
+    1, r + dr]); the caller writes them once."""
     keep = tracing.recording()
     x, new, rows = x_t, [], []
     for li, layer in enumerate(dec.layers):
@@ -418,64 +416,39 @@ def _decode_stack(dec: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
 
 
 class StepGraphs:
-    """The engine's decode step of the stack on one slab, each part (a
-    layer's attention, its dense FFN or its expert layer's routing, routed
-    products and combine; the final norm) captured into a CUDA graph of
-    its own and replayed in order, each inside its span: a replayed
-    graph's kernels carry the correlation id of its launch, which the span
-    holds, so a trace ties them to the span as it ties an eager step's.
-    The first step runs eagerly (settling what the captures reuse, as
-    models/voicecraft.py:_CaptureSite does), the second captures every
-    part and then replays them; the lane's token, its rotary position and
-    the step's mask are copied into static buffers, and the slab is read
-    and written in place.  The graphs share one memory pool, which holds
-    as they are replayed in the order they were captured."""
+    """The engine's step of the stack, part by part (a layer's attention,
+    its dense FFN or its expert layer's routing, products and combine; the
+    final norm): the i-th part of a step runs through the i-th ops/graphs.py
+    StepReplay, inside the part's span (a replay's kernels carry its
+    launch's correlation id, which the span holds), on static copies of the
+    step's inputs and the slab in place.  Captured back to back, the parts
+    share one pool, which holds as they replay in capture order.  The
+    engine's burst function keeps one for a batcher's life."""
 
-    def __init__(self, x_t: torch.Tensor, pos: torch.Tensor,
-                 valid: torch.Tensor):
-        self.x, self.pos, self.valid = (x_t.clone(), pos.clone(),
-                                        valid.clone())
+    def __init__(self):
         self.parts: list = []
+        self.inputs = None
         self.i = 0
-        self.steps = 0
-        self.pool = None
 
-    def _capture(self, name, fn, *args):
-        g = torch.cuda.CUDAGraph()
-        g.capture_begin(pool=self.pool, capture_error_mode="thread_local")
-        try:
-            out = fn(*args)
-        finally:
-            g.capture_end()
-        self.pool = g.pool()
-        self.parts.append((g, out))
-        return out
+    def bind(self, *inputs: torch.Tensor) -> tuple:
+        """Start a step: copy its inputs into the parts' static tensors."""
+        if self.inputs is None:
+            self.inputs = tuple(t.clone() for t in inputs)
+        for static, t in zip(self.inputs, inputs):
+            static.copy_(t)
+        self.i = 0
+        return self.inputs
 
-    def _replay(self, name, fn, *args):
-        g, out = self.parts[self.i]
+    def run(self, name, fn, *args):
+        """_decode_stack's ``run``: the step's next part."""
+        if self.i == len(self.parts):
+            self.parts.append(graphs.StepReplay(self.inputs[0].device))
+        part = self.parts[self.i]
         self.i += 1
-        with tracing.span(name) if name else contextlib.nullcontext():
-            g.replay()
-        return out
-
-    def step(self, dec: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
-             pos: torch.Tensor, valid: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        from .voicecraft import _CaptureSite
-        self.x.copy_(x_t)
-        self.pos.copy_(pos)
-        self.valid.copy_(valid)
-        attend = lambda q, ks, vs, kn, vn: _attend_one(
-            q, ks, vs, self.valid, kn, vn, dec.scale)
-        args = (dec, self.x, cache, self.pos, attend)
-        self.steps += 1
-        if self.steps <= 2:
-            with _CaptureSite.of(x_t.device).running():
-                if self.steps == 1:
-                    return _decode_stack(*args)
-                _decode_stack(*args, run=self._capture)
-        self.i = 0
-        return _decode_stack(*args, run=self._replay)
+        run = lambda: fn(*args)
+        if part.capture_due:
+            part.capture(run)
+        return _eager(name, part, run)
 
 
 def decode_step(dec: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
@@ -497,30 +470,25 @@ def decode_step(dec: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
 
 def lane_decode_step(dec: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
                      x_lens, x_pad: int, prefix_lens, y_start: int, W: int,
-                     gstep, t_lane) -> Tuple[torch.Tensor, torch.Tensor]:
+                     gstep, t_lane, parts: Optional[StepGraphs] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One step of the continuous-batching engine
     (inference/engine.py:_lane_decode_step) on the latent slab: the ring
     mask of ops.attention._ring_valid, lane b's token at rotary position
     x_len_b + prefix_len_b + t_b, every layer's entry written once at ring
-    slot y_start + (gstep mod W).  On a CUDA card the stack's parts replay
-    from CUDA graphs (:class:`StepGraphs`, kept on the decoder for the last
-    slab it stepped)."""
+    slot y_start + (gstep mod W).  The stack's parts run through ``parts``
+    (the engine's, where its steps are graphed), else eagerly."""
     valid = _ring_valid(cache.shape[2], x_lens, x_pad, prefix_lens, y_start,
                         W, gstep, t_lane, x_t.device)
     pos = x_lens + prefix_lens + t_lane
-    if x_t.device.type == "cuda":
-        key = (cache.data_ptr(), tuple(cache.shape))
-        graphs = dec.lane_graphs.get(key)
-        if graphs is None:
-            # one slab's graphs at a time: a new slab releases the last's
-            dec.lane_graphs = {key: StepGraphs(x_t, pos, valid)}
-            graphs = dec.lane_graphs[key]
-        h, new = graphs.step(dec, x_t, cache, pos, valid)
+    # reads ``valid`` when called: the static copy where the parts replay
+    attend = lambda q, ks, vs, kn, vn: _attend_one(q, ks, vs, valid, kn, vn,
+                                                   dec.scale)
+    if parts is None:
+        h, new = _decode_stack(dec, x_t, cache, pos, attend)
     else:
-        h, new = _decode_stack(
-            dec, x_t, cache, pos,
-            lambda q, ks, vs, kn, vn: _attend_one(q, ks, vs, valid, kn, vn,
-                                                  dec.scale))
+        x_t, pos, valid = parts.bind(x_t, pos, valid)
+        h, new = _decode_stack(dec, x_t, cache, pos, attend, parts.run)
     cache.index_copy_(2, (y_start + torch.remainder(gstep, W)).view(1),
                       new.to(cache.dtype))
     return h, cache

@@ -25,7 +25,7 @@ Each decode loop keeps its state in device tensors of static shape (the
 write pointer, the sampling state, the token and span buffers, the span
 feed queue) and syncs with the host once per step (speculative loops: once
 per verified pass).  On a CUDA device the single-stream loop replays its
-step from a CUDA graph.
+step from a CUDA graph (ops/graphs.py).
 """
 
 from __future__ import annotations
@@ -33,9 +33,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-import threading
 import warnings
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import ModelConfig, block_of
 
 from ..ops.attention import dropout, mha, segment_padding_bias
-from ..ops import _native
+from ..ops import graphs
 from ..ops.flash_attention import chunked_attention, prefill_attention
 from ..ops.sampling import sample
 from ..parallel.mesh import (copy_to_model, gather_table_cols, reduce_data,
@@ -675,91 +674,6 @@ class DecodeResult:
                                            # [1, K, card] (device)
 
 
-def step_graph_engages(model: VoiceCraft) -> bool:
-    """Whether make_decode_loop replays its decode step from a CUDA graph:
-    the model's tensors are on a CUDA device and its decoder is not split
-    over a mesh's 'model' axis (a split step runs collectives, which are
-    not captured).  Either block: DeepSeek-V2's expert layers route with
-    no host sync and no shape taken from the routing (ops/moe.py)."""
-    mesh = getattr(model.decoder, "mesh", None)
-    return (model.device.type == "cuda"
-            and not (mesh is not None and mesh.n_model > 1))
-
-
-_sites = threading.local()
-
-
-class _CaptureSite:
-    """This thread's place on one device to capture decode steps: a stream
-    other than the default one, which a capture needs (a decode's first
-    step runs there too, and so settles what the capture then reuses:
-    cuBLAS's workspace for that stream, the FFN kernel's attributes, cached
-    constants), and the graph captured there last, kept so that the next
-    capture shares its memory pool.  A capture into a pool of its own
-    leaves that pool reserved until a cudaMalloc fails (a 2 MiB segment a
-    decode)."""
-
-    def __init__(self, idx: int):
-        self.idx = idx
-        self.stream = torch.cuda.Stream(idx)
-        self.last: Optional["torch.cuda.CUDAGraph"] = None
-
-    @staticmethod
-    def of(device: torch.device) -> "_CaptureSite":
-        sites = getattr(_sites, "by_device", None)
-        if sites is None:
-            sites = _sites.by_device = {}
-        idx = (torch.cuda.current_device() if device.index is None
-               else device.index)
-        if idx not in sites:
-            sites[idx] = _CaptureSite(idx)
-        return sites[idx]
-
-    @contextlib.contextmanager
-    def running(self):
-        """Run the block on the site's stream, ordered after the work
-        queued on the current stream and before the work queued there
-        after it."""
-        main = torch.cuda.current_stream(self.idx)
-        self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
-            yield
-        main.wait_stream(self.stream)
-
-
-class _StepGraph:
-    """One decode step captured in a CUDA graph.  The capture runs nothing;
-    each replay runs the step's kernels in the captured order on the state
-    tensors the capture saw, and draws from ``generators`` (each registered
-    with the graph) where the eager step draws: every replay advances their
-    Philox offsets as an eager step does, from the seed each holds when the
-    replay is launched.  The fused FFN's launch counts move from the
-    capture to the replays (ops/_native.py:GraphLaunches)."""
-
-    def __init__(self, step, generators: Sequence[torch.Generator],
-                 device: torch.device):
-        site = _CaptureSite.of(device)
-        self.graph = torch.cuda.CUDAGraph()
-        for generator in generators:
-            self.graph.register_generator_state(generator)
-        pool = None if site.last is None else site.last.pool()
-        with site.running(), _native.GraphLaunches() as self.launches:
-            self.graph.capture_begin(pool=pool,
-                                     capture_error_mode="thread_local")
-            try:
-                step()
-            except BaseException:
-                with contextlib.suppress(RuntimeError):
-                    self.graph.capture_end()
-                raise
-            self.graph.capture_end()
-        site.last = self.graph
-
-    def replay(self) -> None:
-        self.graph.replay()
-        self.launches.replayed()
-
-
 def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
                      y_pad: int, gen_max: int, scfg: SamplingConfig,
                      max_spans: Optional[int] = None,
@@ -781,12 +695,11 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
     a feed and leaves that bookkeeping out (~30 fewer launches per step).
 
     A step is one function that updates that state in place, the sampling
-    logits and the counts the host reads included.  Where
-    :func:`step_graph_engages` (a CUDA model), the first step runs eagerly
-    and the second captures the step in a CUDA graph, which every later
-    step replays (:class:`_StepGraph`): the same kernels on the same data,
-    and the same draws from ``generator``, with one launch a step from the
-    host.  Elsewhere every step runs eagerly.
+    logits and the counts the host reads included.  Where a CUDA model's
+    steps are graphed (ops/graphs.py), the first step runs eagerly and the
+    second captures the step, which every later step replays: the same
+    kernels on the same data, and the same draws from ``generator``, with
+    one launch a step from the host.  Elsewhere every step runs eagerly.
 
     ``steps_per_iter`` = k runs k steps between host syncs, each of which
     reads ``done``, the sample count and the span index together (k = 1:
@@ -863,18 +776,15 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
             model, torch.full((K,), cfg.empty_token, dtype=ltype, device=dev))
         multi = n_spans > 1
 
-        def step(sample_span: bool) -> None:
+        def step() -> None:
             """One decode step from ``logits``: draw, record, feed the
-            decoder, and write the next ``logits``, all in place.
-            ``sample_span`` records the draw as ``decode.sample``."""
+            decoder, and write the next ``logits``, all in place."""
             if grouped:
                 active = (done == 0) & (gen_cnt < gen_max)
-            with (tracing.span("decode.sample") if sample_span
-                  else contextlib.nullcontext()):
-                samples, new_eog, new_consec, new_prev = _adjust_and_sample(
-                    cfg, scfg, is_tts, cap_mult, generator, logits[0],
-                    codebook_eog, cur_num_gen, consec, prev, y_pos, x_len_t,
-                    bench_mode=bench_mode)
+            samples, new_eog, new_consec, new_prev = _adjust_and_sample(
+                cfg, scfg, is_tts, cap_mult, generator, logits[0],
+                codebook_eog, cur_num_gen, consec, prev, y_pos, x_len_t,
+                bench_mode=bench_mode)
             gen_buf.index_copy_(0, gen_cnt.view(1), samples[None])
             emb = column_embedding(model, samples)
             if not multi and not grouped:
@@ -965,31 +875,25 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
                 pos.add_(1)
                 y_pos.add_(1)
 
-        graphed = step_graph_engages(model)
-        graph, forwards = None, 0
+        replay = graphs.StepReplay(
+            dev, [] if generator is None else [generator],
+            engaged=graphs.step_graph_engages(model))
         while True:
             for _ in range(steps_per_iter):
-                if graphed and forwards == 1:
+                if replay.capture_due:
                     with tracing.span("decode.capture"):
-                        graph = _StepGraph(
-                            lambda: step(False),
-                            [] if generator is None else [generator], dev)
-                with tracing.span("decode.step"):
-                    if graph is not None:
-                        with tracing.span("decode.replay"):
-                            graph.replay()
-                    elif graphed:
-                        with _CaptureSite.of(dev).running():
-                            step(False)
-                    else:
-                        step(True)
-                forwards += 1
+                        replay.capture(step)
+                with tracing.span("decode.step"), (
+                        tracing.span("decode.replay")
+                        if replay.graph is not None
+                        else contextlib.nullcontext()):
+                    replay(step)
             with tracing.span("decode.sync"):
                 is_done, n_gen, n_span, n_idle = counts.tolist()
             if is_done or n_gen >= gen_max:
                 break
         return DecodeResult(gen_buf[:gen_max], span_buf[:gen_max], n_gen,
-                            n_span + 1, forwards, n_idle, logits)
+                            n_span + 1, replay.calls, n_idle, logits)
 
     return decode
 
