@@ -25,7 +25,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               library times from CUDA-graph replays (the FFN over a round
               robin of weight sets larger than L2) beside the bound computed
               from the shapes; the attention kernel's grid, and its time
-              against dense mha over a range of S
+              against dense mha over a range of S; the engine's ring
+              attention over an fp8 slab against its plain version at
+              tts830e.stream32's step shape and at small head dims, timed
+              beside PyTorch's fused attention on the upcast slab
   4. slice    giga830M in bf16 and the 16 kHz EnCodec, random weights from a
               seed, serving three zero-shot TTS requests through the
               functions tts_torch_cli.py calls: (a) a ~17 s prompt, whose
@@ -348,6 +351,20 @@ F32_FLOP_PER_S = 67e12
 # |v|, not with a small output
 FLASH_VS_PLAIN_ULPS = 3.0
 FLASH_VS_MHA_ULPS = 2.0
+# the engine's ring attention over an fp8 slab (csrc/ring_decode_attention.
+# cu), per element, in bf16 ulps of max(|out|, 1), against its plain
+# version, which rounds at the same points (f32 logits, f32 softmax, probs
+# to bf16, f32 p@v, one output rounding) and sums in another order: the
+# output's rounding may flip (1 ulp), and a prob rounded the other way
+# moves p@v by 2^-8 of that key's share of |v|, far under an output ulp;
+# 2 bounds both.  Its geometry: tts830e.stream32's step (benchmark/traffic/
+# stream_poisson32.json): 32 lanes, x_pad 96, y_pad 448, a ring of gen_max
+# 448 + burst 48 slots, 16 heads of 128
+RING_VS_PLAIN_ULPS = 2.0
+# the kernels the single-stream decode loop of phases 4-5 launches (the
+# ring kernel runs only in the engine's step on an fp8 slab: phase 8 (o))
+DECODE_LOOP_KERNELS = ("flash_prefix_attention", "fused_ffn")
+RING_GEOM = dict(B=32, x_pad=96, y_start=96 + 448, W=448 + 48, H=16, Dh=128)
 # the bf16 rounding points on the card against the CPU (which upcasts the
 # bf16 operands): one bf16 ulp of the output's largest magnitude, where the
 # two devices' f32 sums in different orders flip a rounding, plus 1e-5 of
@@ -821,9 +838,11 @@ def proj_check():
 
 
 def library_attention(q, k, v, allowed):
-    """One call of PyTorch's fused attention, q/k/v [B, H, S, Dh] under the
-    boolean mask ``allowed`` [B, 1, S, S]: the yardstick that phases 3 and
-    9 time beside the port's attention, used nowhere in the port."""
+    """One call of PyTorch's fused attention, q [B, H, S_q, Dh] against
+    k / v [B, H, S_kv, Dh] under the boolean mask ``allowed`` [B, 1, S_q,
+    S_kv]: the yardstick that phases 3 and 9 time beside the port's
+    attention (phase 3 also beside the ring kernel, on the upcast slab with
+    the lanes' own keys appended), used nowhere in the port."""
     import torch.nn.functional as fnn
     return fnn.scaled_dot_product_attention(q, k, v, attn_mask=allowed)  # library_ms
 
@@ -988,6 +1007,93 @@ def flash_phase(geom_long, geom_serve):
     log(f"  crossover: the kernel beats dense mha from S={crossover} on "
         f"(FLASH_PREFILL_MIN_LEN stays 1024)")
     return dict(max_abs_err=err, **main, f32=f32, cases=cases)
+
+
+def ring_phase():
+    """The engine's ring decode attention over an fp8 slab against its
+    plain version (the slab upcast, then _attend_one): at tts830e.
+    stream32's step shape with random ring geometry (empty lanes, lanes at
+    t = 0, a text filling x_pad, a clock far past many wraps), and at head
+    dims 16, 32 and 64 with 8 heads; repeated and replayed from a CUDA
+    graph bit for bit; kernel, plain and library ms a call from CUDA-graph
+    replays over a round robin of slabs larger than L2, beside the bound:
+    the allowed keys' fp8 bytes read once, and the whole slab's."""
+    import torch
+    from voicecraft_tpu_torch.ops.attention import _ring_valid
+    from voicecraft_tpu_torch.ops.ring_attention import (
+        ring_decode_attention, ring_decode_attention_plain)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED + 24)
+
+    def inputs(B, H, Dh, x_pad, y_start, W, n_slabs=1):
+        S = y_start + W
+        r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        x = rng.integers(1, x_pad + 1, B)
+        p = rng.integers(150, min(401, y_start - x_pad + 1), B)
+        t = rng.integers(0, W - 48, B)
+        x[:2], p[:2], t[:4] = 1, 1, 0
+        x[4 % B] = x_pad
+        long = lambda v: torch.as_tensor(v, dtype=torch.long, device="cuda")
+        rest = (long(x), x_pad, long(p), y_start, W,
+                long(int(rng.integers(10 ** 6, 10 ** 7))), long(t))
+        slabs = [(2.0 * r(2, B, S, H, Dh)).to(torch.float8_e4m3fn)
+                 for _ in range(n_slabs)]
+        q, kn, vn = (r(B, 1, H * Dh).bfloat16(),
+                     *(r(B, 1, H, Dh).bfloat16() for _ in range(2)))
+        return [(q, sl[0], sl[1], kn, vn, *rest) for sl in slabs]
+
+    def case(name, B, H, Dh, x_pad, y_start, W):
+        args = inputs(B, H, Dh, x_pad, y_start, W)[0]
+        got = ring_decode_attention(*args)
+        want = ring_decode_attention_plain(*args)
+        torch.cuda.synchronize()
+        err = check_ulps(name, got, want, RING_VS_PLAIN_ULPS)
+        if not (torch.equal(ring_decode_attention(*args), got)
+                and replay_matches_eager(lambda: ring_decode_attention(*args))):
+            raise AssertionError(f"{name}: a repeated or replayed call differs")
+        return err
+
+    g = RING_GEOM
+    B, H, Dh, S = g["B"], g["H"], g["Dh"], g["y_start"] + g["W"]
+    log(f"ring_decode_attention, fp8 slab, bf16 q: B={B} S_max={S} H={H} "
+        f"Dh={Dh} (tts830e.stream32's step): grid of {B * H} blocks")
+    err = case("fp8 slab, the cell's step shape vs plain", B, H, Dh,
+               g["x_pad"], g["y_start"], g["W"])
+    for h2, dh2 in ((8, 64), (8, 32), (8, 16)):
+        case(f"fp8 slab B={B} S_max={S} H={h2} Dh={dh2}", B, h2, dh2,
+             g["x_pad"], g["y_start"], g["W"])
+    # a round robin over slabs of 8 x 136 MB, far past the 50 MB L2, as
+    # decode reads a fresh layer's slab each call
+    sets = inputs(B, H, Dh, g["x_pad"], g["y_start"], g["W"], n_slabs=8)
+    xl, xp, pl, ys, W, gs, tl = sets[0][5:]
+    valid = _ring_valid(S, xl, xp, pl, ys, W, gs, tl, "cuda")[:, 0, 0]
+    n_valid = int(valid.sum().item())
+    allowed = torch.cat([valid, torch.ones_like(valid[:, :1])],
+                        dim=1)[:, None, None]
+    heads = lambda t: t.transpose(1, 2)
+    ups = [(heads(torch.cat([a[1].bfloat16(), a[3]], dim=1)),
+            heads(torch.cat([a[2].bfloat16(), a[4]], dim=1))) for a in sets]
+    qh = heads(sets[0][0].view(B, 1, H, Dh))
+    t = dict(
+        ms=graph_ms([lambda a=a: ring_decode_attention(*a) for a in sets]),
+        plain_ms=graph_ms([lambda a=a: ring_decode_attention_plain(*a)
+                           for a in sets]),
+        library_ms=graph_ms([lambda u=u: library_attention(
+            qh, u[0], u[1], allowed) for u in ups]))
+    small = 4 * B * H * Dh * 2                      # q, k_new, v_new, out
+    t["bound_ms"], t["bound_by"] = bound(2 * n_valid * H * Dh + small,
+                                         4 * (n_valid + B) * H * Dh,
+                                         F32_FLOP_PER_S)
+    t["slab_bound_ms"], _ = bound(2 * B * S * H * Dh + small, 0, 1.0)
+    t["allowed_share"] = n_valid / (B * S)
+    log(f"  kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+        f"(PyTorch's fused attention on the upcast slab) "
+        f"{t['library_ms']:.4f} ms per call (CUDA-graph replays over 8 "
+        f"slabs); bound {t['bound_ms']:.4f} ms ({t['bound_by']}: the "
+        f"{t['allowed_share']:.1%} of keys the ring allows), the kernel at "
+        f"{t['bound_ms'] / t['ms']:.0%} of it; the whole slab's bytes "
+        f"{t['slab_bound_ms']:.4f} ms")
+    return dict(max_abs_err=err, **t)
 
 
 def ffn_phase():
@@ -1376,8 +1482,8 @@ def edit_phase(model, codec, requests):
                                  f"{res.shape}, wav {wav.shape}, finite "
                                  f"{np.isfinite(wav).all()}")
     launches = dict(_native.LAUNCHES)
-    for name, n in launches.items():
-        if n == 0:
+    for name in DECODE_LOOP_KERNELS:
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by the edits")
 
     for r in requests:
@@ -2582,9 +2688,16 @@ def engine_phase(model, codec, ccfg, serve, texts2, a_req, long_wav):
         f"{BENCH_PROMPT}-frame random prompts, targets 60-100% of "
         f"{BENCH_ENGINE_FRAMES} frames, quantize_decoder_fp8(pack_qkv=True), "
         f"fp8 slab")
-    engine_run("o bench", qmodel, breqs, bench_scfg, lanes=BENCH_LANES,
-               pads=(BENCH_X_PAD, BENCH_Y_PAD, BENCH_ENGINE_FRAMES + 16),
-               kv_dtype="float8_e4m3fn")
+    _, eng, _ = engine_run("o bench", qmodel, breqs, bench_scfg,
+                           lanes=BENCH_LANES,
+                           pads=(BENCH_X_PAD, BENCH_Y_PAD,
+                                 BENCH_ENGINE_FRAMES + 16),
+                           kv_dtype="float8_e4m3fn")
+    # the fp8 slab is read by the ring kernel, once a layer and step
+    if out[-1]["ring_decode_attention"] != L * eng.stats["steps"]:
+        raise AssertionError(f"(o bench) ring_decode_attention launched "
+                             f"{out[-1]['ring_decode_attention']} times, want "
+                             f"{L} x {eng.stats['steps']} steps")
     del qmodel
 
     # the speculative engine, random MTP heads
@@ -3804,7 +3917,8 @@ def install_phase(long_wav, long_text, x_len):
             log(f"  {name}: {rep['package']}; kernel library {rep['lib']}; "
                 f"launches {rep['launches']}, routes {rep['routes']}, "
                 f"{fw} decode forwards; wavs {rep['written']}")
-            want = {"flash_prefix_attention": L, "fused_ffn": L * fw}
+            want = {"flash_prefix_attention": L, "fused_ffn": L * fw,
+                    "ring_decode_attention": 0}
             if (fw <= 0 or rep["launches"] != want
                     or rep["routes"] != {"fused_ffn:sm90/bf16": L * fw}):
                 raise AssertionError(f"(15) {name}: launches {rep['launches']}"
@@ -5161,6 +5275,7 @@ def main() -> None:
                         (SERVE_PADS[0], SERVE_PADS[1], [len(r.x) for r in serve],
                          [r.prefix_len for r in serve]))
     ffn = ffn_phase()
+    ring = ring_phase()
 
     # ---- 4. the slice ----
     t0 = time.time()
@@ -5213,8 +5328,8 @@ def main() -> None:
                                  f"{full.shape}, wav {wav.shape}, finite "
                                  f"{np.isfinite(wav).all()}")
     launches = dict(_native.LAUNCHES)
-    for name, n in launches.items():
-        if n == 0:
+    for name in DECODE_LOOP_KERNELS:
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by the slice")
 
     long_prefix = compose_tts_prefix(ec.encode_bucketed(codec, long_wav)[0], cfg)
@@ -5333,6 +5448,12 @@ def main() -> None:
                               "(csrc/fused_ffn_sm90.cu)",
                       "f32": "simt (csrc/fused_ffn.cu)"},
              launches=launches["fused_ffn"], **ffn),
+        dict(name="ring_decode_attention", route="cuda",
+             source="voicecraft_tpu_torch/csrc/ring_decode_attention.cu",
+             replaces=None,
+             variant={"bf16": "simt, fp8 slab read in place, two passes "
+                              "over the allowed keys"},
+             launches=launches["ring_decode_attention"], **ring),
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -11,7 +11,8 @@ a RING indexed by one global step clock: every lane writes its token's k/v
 at ring slot (gstep mod W) of its own batch row, so a step writes the slab
 once, at one uniform index, as lockstep serving does, and each lane's
 history is index arithmetic (ops.attention.decode_attention_ring: slot age
-<= the lane's step count).  Per-lane slab layout:
+<= the lane's step count; an fp8 slab is read in place by the kernel of
+ops/ring_attention.py).  Per-lane slab layout:
 
     [ text 0..x_len_b | pad .. x_pad | prompt 0..prefix_len_b | pad .. y_pad |
       ring of W generated slots, valid where age <= t_b ]
@@ -57,6 +58,7 @@ from ..models.voicecraft import (MAX_POS, SamplingConfig, VoiceCraft,
                                  prefill_lanes, slab_dims)
 from ..ops import graphs, patterns
 from ..ops.attention import _attend_one, _ring_valid
+from ..ops.ring_attention import ring_decode_attention
 from ..parallel.mesh import all_gather_data, data_slice, stack_ranks
 from ..utils import tracing
 from .serving import _step_feed
@@ -104,6 +106,12 @@ def _status(s: LaneState) -> torch.Tensor:
                         s.codebook_eog.all(dim=1).long()], dim=1)
 
 
+def reads_fp8_slab(cache: torch.Tensor) -> bool:
+    """Whether the plain engine's step for VoiceCraft's block reads its
+    slab through the ring kernel (ops/ring_attention.py): an fp8 slab."""
+    return cache.dtype == torch.float8_e4m3fn
+
+
 def _lane_decode_step(decoder: trm.Decoder, x_t: torch.Tensor,
                       cache: torch.Tensor, x_lens, x_pad: int, prefix_lens,
                       y_start: int, W: int, gstep, t_lane,
@@ -112,20 +120,30 @@ def _lane_decode_step(decoder: trm.Decoder, x_t: torch.Tensor,
     """One burst step against the ring slab: the decoder's layer stack
     (transformer._layer_stack, unfused FFN) reading the slab read-only
     through the ring attention, then ONE write of every layer's k/v at ring
-    slot y_start + (gstep mod W).  The ring mask is the same in every layer,
-    so it is built once a step.  A DeepSeek-V2 decoder takes its own step
-    on its latent slab (models/deepseek_v2.py:lane_decode_step, through
-    ``parts``), chosen once for the whole stack.  Returns (final-normed
-    hidden [B, 1, D], cache)."""
+    slot y_start + (gstep mod W).  An fp8 slab (:func:`reads_fp8_slab`)
+    goes to ops/ring_attention.py:ring_decode_attention as the layer's
+    views, which the kernel reads in place (its plain version on the CPU);
+    any other slab reaches ``_attend_one`` in q's dtype, under a ring mask
+    built once a step (the same in every layer).  A DeepSeek-V2 decoder
+    takes its own step on its latent slab (models/deepseek_v2.py:
+    lane_decode_step, through ``parts``), chosen once for the whole stack.
+    Returns (final-normed hidden [B, 1, D], cache)."""
     if isinstance(decoder, dsv2.Decoder):
         return dsv2.lane_decode_step(decoder, x_t, cache, x_lens, x_pad,
                                      prefix_lens, y_start, W, gstep, t_lane,
                                      parts)
-    valid = _ring_valid(cache.shape[3], x_lens, x_pad, prefix_lens, y_start,
-                        W, gstep, t_lane, x_t.device)
-    h, kv = trm._layer_stack(
-        decoder, x_t, cache,
-        lambda q, ks, vs, kn, vn: _attend_one(q, ks, vs, valid, kn, vn))
+    if reads_fp8_slab(cache):
+        h, kv = trm._layer_stack(
+            decoder, x_t, cache,
+            lambda q, ks, vs, kn, vn: ring_decode_attention(
+                q, ks, vs, kn, vn, x_lens, x_pad, prefix_lens, y_start, W,
+                gstep, t_lane), raw_slab=True)
+    else:
+        valid = _ring_valid(cache.shape[3], x_lens, x_pad, prefix_lens,
+                            y_start, W, gstep, t_lane, x_t.device)
+        h, kv = trm._layer_stack(
+            decoder, x_t, cache,
+            lambda q, ks, vs, kn, vn: _attend_one(q, ks, vs, valid, kn, vn))
     trm._store_kv(cache, 3, (y_start + torch.remainder(gstep, W)).view(1), kv)
     return h, cache
 

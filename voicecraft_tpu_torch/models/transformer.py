@@ -468,14 +468,18 @@ def prefill(decoder: Decoder, x: torch.Tensor,
 
 
 def _layer_stack(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
-                 attend, ffn=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                 attend, ffn=None, raw_slab: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer stack of every decode forward against a READ-ONLY slab:
     attend(q, k_slab, v_slab, k_new, v_new) is the forward's decode
     attention (the T new tokens' k/v enter it as extra terms), and
     ffn(layer, h) the feed-forward block (default: the unfused
-    :func:`ffn_block`).  The caller writes the returned k/v into the slab
-    once.  Returns (final-normed hidden [B, T, D], the new k/v
-    [L, 2, B, T, H, Dh]).  Another block's decoder raises, naming it."""
+    :func:`ffn_block`).  The layer's slabs reach ``attend`` through
+    :func:`_layer_slab` (in q's dtype), or with ``raw_slab`` as the cache's
+    own views, for an attention that reads an fp8 slab in place.  The
+    caller writes the returned k/v into the slab once.  Returns
+    (final-normed hidden [B, T, D], the new k/v [L, 2, B, T, H, Dh]).
+    Another block's decoder raises, naming it."""
     if not isinstance(decoder, Decoder):
         raise ValueError(f"this decode path serves VoiceCraft's block only, "
                          f"not block {getattr(decoder, 'block', '?')!r}")
@@ -487,7 +491,8 @@ def _layer_stack(decoder: Decoder, x_t: torch.Tensor, cache: torch.Tensor,
         q, k, v = qkv_proj(layer, apply_norm(layer, "ln1", x))
         k_new = k.reshape(B, T, H, Dh)
         v_new = v.reshape(B, T, H, Dh)
-        k_slab, v_slab = _layer_slab(cache, li, q.dtype)
+        k_slab, v_slab = ((cache[li, 0], cache[li, 1]) if raw_slab
+                          else _layer_slab(cache, li, q.dtype))
         a = attend(q, k_slab, v_slab, k_new, v_new)
         x = x + row_proj(layer, a, layer.wo, layer.bo)
         h2 = apply_norm(layer, "ln2", x)

@@ -43,7 +43,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
                torch.float8_e4m3fn: "fp8"}
 
-LAUNCHES = {"flash_prefix_attention": 0, "fused_ffn": 0}
+LAUNCHES = {"flash_prefix_attention": 0, "fused_ffn": 0,
+            "ring_decode_attention": 0}
 # the same launches by route, "<kernel>/<weight dtype>" ("sm90/fp8", ...)
 ROUTE_LAUNCHES = collections.Counter()
 
@@ -167,6 +168,11 @@ def lib() -> ctypes.CDLL:
         L.vc_flash_prefix_attention.restype = ci
         L.vc_fused_ffn.argtypes = [vp] * 10 + [ci] * 6 + [vp, vp]
         L.vc_fused_ffn.restype = ci
+        ll = ctypes.c_longlong
+        L.vc_ring_decode_attention.argtypes = (
+            [vp] * 5 + [ll] * 3 + [vp] * 5 + [ci] * 7
+            + [ctypes.c_float, ci, vp])
+        L.vc_ring_decode_attention.restype = ci
         L.vc_error_string.argtypes = [ci]
         L.vc_error_string.restype = ctypes.c_char_p
         _lib = L
