@@ -1,0 +1,12 @@
+"""Device time of the operations launched inside the port's ``kda.attend``
+spans (each KDA layer's whole attention: projections, convolution, gates,
+the recurrence, the gated head norm and W_o, in decode steps and
+prefills) over the traced burst's device time, %."""
+from harness.common import load_file
+from pathlib import Path
+
+_h = load_file(Path(__file__).with_name("dsv2_records.py"), "bench_dsv2_records")
+
+
+def read(res):
+    return _h.span_share(res, "kda.attend")

@@ -28,7 +28,14 @@ Phases, in order; any failure raises and the script exits non-zero:
               against dense mha over a range of S; the engine's ring
               attention over an fp8 slab against its plain version at
               tts830e.stream32's step shape and at small head dims, timed
-              beside PyTorch's fused attention on the upcast slab
+              beside PyTorch's fused attention on the upcast slab; Kimi
+              Linear's KDA recurrence (csrc/kda_recurrent.cu) against its
+              plain version at kimilinear.stream32's decode shape (32
+              lanes, T 1) and at a refill's prefill (1 lane, T 544, and a
+              lane shorter than T), repeated and replayed bit for bit,
+              timed against the state's bytes; and its launches, 20 an
+              engine step, in a full-depth, full-width Kimi Linear stack
+              (8 experts held) serving two requests through the engine
   4. slice    giga830M in bf16 and the 16 kHz EnCodec, random weights from a
               seed, serving three zero-shot TTS requests through the
               functions tts_torch_cli.py calls: (a) a ~17 s prompt, whose
@@ -365,6 +372,17 @@ RING_VS_PLAIN_ULPS = 2.0
 # ring kernel runs only in the engine's step on an fp8 slab: phase 8 (o))
 DECODE_LOOP_KERNELS = ("flash_prefix_attention", "fused_ffn")
 RING_GEOM = dict(B=32, x_pad=96, y_start=96 + 448, W=448 + 48, H=16, Dh=128)
+# Kimi Linear's KDA recurrence (csrc/kda_recurrent.cu) against its plain
+# version, both f32 from bf16 q / k / v: per element of o and of the final
+# state, relative to max(|want|, 1).  The kernel fuses each multiply-add
+# and sums dk = 128 terms in 4 partial sums where the plain version sums
+# them in another order, ~1e-7 relative a token; the state is a
+# contraction (||I - beta k k^T|| <= 1, exp(g) <= 1), so the differences
+# of the 544 tokens of a prefill add up to at most ~5e-5.  Its shapes:
+# kimilinear.stream32's decode step (32 lanes, 32 heads of 128) and a
+# refill's prefill (x_pad 96 + y_pad 448 tokens packed)
+KDA_VS_PLAIN_REL = 1e-4
+KDA_GEOM = dict(B=32, H=32, dk=128, T_prefill=96 + 448)
 # the bf16 rounding points on the card against the CPU (which upcasts the
 # bf16 operands): one bf16 ulp of the output's largest magnitude, where the
 # two devices' f32 sums in different orders flip a rounding, plus 1e-5 of
@@ -1094,6 +1112,140 @@ def ring_phase():
         f"{t['bound_ms'] / t['ms']:.0%} of it; the whole slab's bytes "
         f"{t['slab_bound_ms']:.4f} ms")
     return dict(max_abs_err=err, **t)
+
+
+def kda_inputs(gen, B, T, H, dk, lens=None):
+    """Random recurrence inputs as a KDA layer makes them: q and k
+    L2-normalised per head and v in bf16, the log decay g (f32, <= 0) and
+    beta in (0, 1) (f32), and a state [B, H, dk, dk] (f32; 0 where a
+    prefill starts it)."""
+    import torch
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    unit = lambda t: (t / t.norm(dim=-1, keepdim=True)).bfloat16()
+    g = -torch.rand((B, T, H, dk), generator=gen, device="cuda") * 0.5
+    beta = torch.sigmoid(r(B, T, H))
+    state = (0.1 * r(B, H, dk, dk)) if T == 1 else torch.zeros(
+        (B, H, dk, dk), device="cuda")
+    return (unit(r(B, T, H, dk)), unit(r(B, T, H, dk)),
+            r(B, T, H, dk).bfloat16(), g, beta, state, lens)
+
+
+def kda_phase():
+    """Kimi Linear's KDA recurrence (csrc/kda_recurrent.cu) against its
+    plain version: kimilinear.stream32's decode step (32 lanes, T 1) and
+    a refill's prefill (1 lane, T 544; and 2 lanes of 544 and 300 real
+    tokens), o and the final state within KDA_VS_PLAIN_REL; the decode
+    call repeated and replayed from a CUDA graph bit for bit; kernel and
+    plain ms a call from CUDA-graph replays over a round robin of 8 states
+    (536 MB, far past the 50 MB L2), beside the bound: the state read and
+    written once, the inputs and o once."""
+    import torch
+    from voicecraft_tpu_torch.ops.kda import (kda_recurrent,
+                                              kda_recurrent_plain)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    g = KDA_GEOM
+    B, H, dk = g["B"], g["H"], g["dk"]
+
+    def case(name, args):
+        q, k, v, gg, beta, state, lens = args
+        s_k, s_p = state.clone(), state.clone()
+        got = kda_recurrent(q, k, v, gg, beta, s_k, lens)
+        want = kda_recurrent_plain(q, k, v, gg, beta, s_p, lens)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for what, a, b in (("o", got, want), ("state", s_k, s_p)):
+            rel = ((a - b).abs() / b.abs().clamp(min=1.0)).max().item()
+            worst = max(worst, rel)
+            log(f"  {name}, {what}: max error {rel:.2e} of max(|plain|, 1) "
+                f"(tolerance {KDA_VS_PLAIN_REL:g})")
+            if not rel <= KDA_VS_PLAIN_REL:
+                raise AssertionError(f"{name} {what}: {rel} > "
+                                     f"{KDA_VS_PLAIN_REL}")
+        return worst
+
+    log(f"kda_recurrent, bf16 q/k/v, f32 state: decode B={B} H={H} dk=dv="
+        f"{dk} (kimilinear.stream32's step): grid of {B * H * dk // 32} "
+        f"warps")
+    dec = kda_inputs(gen, B, 1, H, dk)
+    err = case("decode, the cell's step shape vs plain", dec)
+    T = g["T_prefill"]
+    err = max(err, case(f"prefill B=1 T={T} vs plain",
+                        kda_inputs(gen, 1, T, H, dk)))
+    lens = torch.tensor([T, 300], device="cuda")
+    err = max(err, case(f"prefill B=2 T={T} lens {lens.tolist()} vs plain",
+                        kda_inputs(gen, 2, T, H, dk, lens)))
+
+    q, k, v, gg, beta, state, _ = dec
+    base = state.clone()
+
+    def again():
+        state.copy_(base)
+        return kda_recurrent(q, k, v, gg, beta, state)
+    first = again()
+    if not (torch.equal(again(), first) and replay_matches_eager(again)):
+        raise AssertionError("kda_recurrent: a repeated or replayed call "
+                             "differs")
+    states = [0.1 * torch.randn((B, H, dk, dk), generator=gen,
+                                device="cuda") for _ in range(8)]
+    t = dict(ms=graph_ms([lambda s=s: kda_recurrent(q, k, v, gg, beta, s)
+                          for s in states]))
+    t["plain_ms"] = graph_ms([lambda s=s: kda_recurrent_plain(
+        q, k, v, gg, beta, s, None) for s in states[:2]])
+    pq, pk, pv, pg, pb, ps, _ = kda_inputs(gen, 1, T, H, dk)
+    t["prefill_ms"] = graph_ms([lambda: kda_recurrent(pq, pk, pv, pg, pb,
+                                                      ps)], replays=3)
+    # the cell's decode call: the f32 state read and written, then q, k, v
+    # (bf16), g, o (f32) and beta (f32): benchmark/architectures/
+    # kimi_linear.py:kda_step_bytes
+    nbytes = B * (8 * H * dk * dk + H * (3 * dk * 2 + 2 * dk * 4 + 4))
+    t["bound_ms"], t["bound_by"] = bound(nbytes, 6 * B * H * dk * dk,
+                                         F32_FLOP_PER_S)
+    log(f"  kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms per "
+        f"decode call (CUDA-graph replays over 8 states); bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}), the kernel at "
+        f"{t['bound_ms'] / t['ms']:.0%} of it; a refill's prefill (T {T}) "
+        f"{t['prefill_ms']:.3f} ms")
+    return dict(max_rel_err=err, **t)
+
+
+def kda_launch_phase():
+    """kda_recurrent's launches in Kimi Linear's stack at its published
+    depth and widths (8 experts held, for memory and time): one a KDA
+    layer and step, 20 an engine step, and one a KDA layer per prefill
+    call (a wave or a refill), with the step's parts replayed from CUDA
+    graphs."""
+    import torch
+    from voicecraft_tpu_torch.config import kimi_linear_48b_a3b
+    from voicecraft_tpu_torch.inference.engine import ContinuousBatcher
+    from voicecraft_tpu_torch.models.voicecraft import SamplingConfig, VoiceCraft
+    from voicecraft_tpu_torch.ops import _native
+    import dataclasses
+    cfg = dataclasses.replace(kimi_linear_48b_a3b(), n_routed_experts=8)
+    model = VoiceCraft(cfg, "cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(SEED + 26)).eval()
+    n_kda = len(cfg.kda_layers)
+    rng = np.random.default_rng(SEED + 26)
+    eng = ContinuousBatcher(model, lanes=4, x_pad=96, y_pad=448, gen_max=96,
+                            burst=48,
+                            scfg=SamplingConfig(top_k=1, silence_tokens=()))
+    for frames in (150, 300, 200):
+        eng.submit(rng.integers(0, cfg.text_vocab_size, 40),
+                   rng.integers(0, cfg.audio_vocab_size, (4, frames)))
+    before = _native.LAUNCHES["kda_recurrent"]
+    res = eng.run()
+    got = _native.LAUNCHES["kda_recurrent"] - before
+    st = eng.stats
+    want = n_kda * (st["steps"] + st["waves"] + st["refills"])
+    log(f"  kda_recurrent launches in the engine: {got} over {st['steps']} "
+        f"steps ({st['graph_steps']} graphed), {st['waves']} waves, "
+        f"{st['refills']} refills; want {n_kda} a step and a prefill call: "
+        f"{want}")
+    if got != want or len(res) != 3 or n_kda != 20:
+        raise AssertionError(f"kda_recurrent launched {got} times, want "
+                             f"{want}")
+    del eng, model
+    torch.cuda.empty_cache()
+    return dict(per_step=n_kda, engine_launches=got)
 
 
 def ffn_phase():
@@ -3918,7 +4070,7 @@ def install_phase(long_wav, long_text, x_len):
                 f"launches {rep['launches']}, routes {rep['routes']}, "
                 f"{fw} decode forwards; wavs {rep['written']}")
             want = {"flash_prefix_attention": L, "fused_ffn": L * fw,
-                    "ring_decode_attention": 0}
+                    "ring_decode_attention": 0, "kda_recurrent": 0}
             if (fw <= 0 or rep["launches"] != want
                     or rep["routes"] != {"fused_ffn:sm90/bf16": L * fw}):
                 raise AssertionError(f"(15) {name}: launches {rep['launches']}"
@@ -5276,6 +5428,8 @@ def main() -> None:
                          [r.prefix_len for r in serve]))
     ffn = ffn_phase()
     ring = ring_phase()
+    kda = kda_phase()
+    kda.update(kda_launch_phase())
 
     # ---- 4. the slice ----
     t0 = time.time()
@@ -5454,6 +5608,12 @@ def main() -> None:
              variant={"bf16": "simt, fp8 slab read in place, two passes "
                               "over the allowed keys"},
              launches=launches["ring_decode_attention"], **ring),
+        dict(name="kda_recurrent", route="cuda",
+             source="voicecraft_tpu_torch/csrc/kda_recurrent.cu",
+             replaces=None,
+             variant={"bf16": "simt, a thread a value column with its "
+                              "state in registers across tokens"},
+             launches=launches["kda_recurrent"], **kda),
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

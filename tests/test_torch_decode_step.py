@@ -164,13 +164,15 @@ def test_a_graphs_launches_are_counted_at_its_replays(zero_launches):
             _native.count_launch("fused_ffn", "sm90/bf16")
     # the capture ran nothing
     assert _native.LAUNCHES == {"flash_prefix_attention": 1, "fused_ffn": 0,
-                                "ring_decode_attention": 0}
+                                "ring_decode_attention": 0,
+                                "kda_recurrent": 0}
     assert sum(_native.ROUTE_LAUNCHES.values()) == 0
     assert g.per_replay == {"fused_ffn": 16, "fused_ffn:sm90/bf16": 16}
     for _ in range(3):
         g.replayed()
     assert _native.LAUNCHES == {"flash_prefix_attention": 1, "fused_ffn": 48,
-                                "ring_decode_attention": 0}
+                                "ring_decode_attention": 0,
+                                "kda_recurrent": 0}
     assert _native.ROUTE_LAUNCHES == {"fused_ffn:sm90/bf16": 48}
 
 

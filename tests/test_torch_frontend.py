@@ -21,7 +21,8 @@ DEMO = str(Path(__file__).resolve().parents[1] / "demo" / "demo.wav")
 
 # the port's presets of a block the JAX package lacks, and the fields that
 # choose and size it (every other field is the JAX package's)
-PORT_ONLY_PRESETS = {"deepseek_v2_lite", "tiny_test_dsv2"}
+PORT_ONLY_PRESETS = {"deepseek_v2_lite", "tiny_test_dsv2",
+                     "kimi_linear_48b_a3b", "tiny_test_kimi"}
 JAX_FIELDS = {f.name for f in dataclasses.fields(jcfg.ModelConfig)}
 PORT_DEFAULTS = {f.name: f.default for f in dataclasses.fields(tcfg.ModelConfig)
                  if f.name not in JAX_FIELDS}

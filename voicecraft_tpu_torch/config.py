@@ -82,12 +82,14 @@ class ModelConfig:
     # "attn" | "attn_ffn1" | "none" (models/transformer.py:apply_stack)
     train_remat: str = "full"
 
-    # the decoder block: "voicecraft" (models/transformer.py) or
+    # the decoder block: "voicecraft" (models/transformer.py),
     # "deepseek_v2" (models/deepseek_v2.py: latent attention over a latent
     # slab, RMSNorm, a dense SwiGLU in the first first_k_dense_replace
-    # layers and routed + shared SwiGLU experts after them).  The fields
-    # below are DeepSeek-V2's config.json keys; VoiceCraft's block reads
-    # none of them.
+    # layers and routed + shared SwiGLU experts after them) or
+    # "kimi_linear" (models/kimi_linear.py: KDA delta-rule layers beside
+    # that latent attention, and the same expert layers).  The fields
+    # below are DeepSeek-V2's config.json keys, then Kimi Linear's;
+    # VoiceCraft's block reads none of them.
     block: str = "voicecraft"
     q_lora_rank: Optional[int] = None
     kv_lora_rank: int = 0
@@ -116,6 +118,21 @@ class ModelConfig:
     yarn_beta_slow: float = 1.0
     yarn_mscale: float = 1.0
     yarn_mscale_all_dim: float = 0.0
+    # Kimi Linear: the KDA layers, 1-indexed as the published
+    # linear_attn_config lists them (the others are latent attention,
+    # unrotated where mla_use_nope), their heads, head dim (keys and
+    # values) and short-convolution width
+    kda_layers: Tuple[int, ...] = ()
+    kda_num_heads: int = 0
+    kda_head_dim: int = 0
+    kda_conv_size: int = 0
+    mla_use_nope: bool = False
+    # the router's published width (0: n_routed_experts), of which the
+    # first n_routed_experts are held here (one chip's share of an
+    # expert-parallel deployment), and a score-correction bias that
+    # chooses the top k but does not weight them
+    router_experts: int = 0
+    router_bias: bool = False
 
     # ---- derived quantities -------------------------------------------------
 
@@ -156,9 +173,17 @@ class ModelConfig:
                                        "balanceddoubleswish"), self.ffn_activation
         if self.block == "deepseek_v2":
             self._check_deepseek_v2()
+        elif self.block == "kimi_linear":
+            self._check_kimi_linear()
         elif self.block != "voicecraft":
             raise ValueError(f"unknown block {self.block!r}; expected "
-                             "'voicecraft' or 'deepseek_v2'")
+                             "'voicecraft', 'deepseek_v2' or 'kimi_linear'")
+
+    @property
+    def n_router_experts(self) -> int:
+        """The router's outputs: the published expert count, of which the
+        first n_routed_experts are held here."""
+        return self.router_experts or self.n_routed_experts
 
     def _check_deepseek_v2(self) -> None:
         """What the port's deepseek_v2 block does not implement raises."""
@@ -171,6 +196,11 @@ class ModelConfig:
             "norm_topk_prob": self.norm_topk_prob,
             "routed_scaling_factor": self.routed_scaling_factor != 1,
             "n_mtp": self.n_mtp != 0,
+            "kda_layers": bool(self.kda_layers),
+            "mla_use_nope": self.mla_use_nope,
+            "router_experts / router_bias": (
+                self.n_router_experts != self.n_routed_experts
+                or self.router_bias),
         }
         bad = [k for k, v in refused.items() if v]
         if bad:
@@ -188,6 +218,44 @@ class ModelConfig:
                              "[0, num_decoder_layers]")
         if self.qk_rope_head_dim % 2 or self.qk_rope_head_dim <= 0:
             raise ValueError("deepseek_v2: qk_rope_head_dim must be even")
+
+    def _check_kimi_linear(self) -> None:
+        """What the port's kimi_linear block does not implement raises."""
+        refused = {
+            "q_lora_rank": self.q_lora_rank is not None,
+            "n_group / topk_group": self.n_group != 1 or self.topk_group != 1,
+            "topk_method": self.topk_method != "greedy",
+            "moe_layer_freq": self.moe_layer_freq != 1,
+            "n_mtp": self.n_mtp != 0,
+            "mla_use_nope": not self.mla_use_nope,
+            "scoring_func": self.scoring_func != "sigmoid",
+        }
+        bad = [k for k, v in refused.items() if v]
+        if bad:
+            raise ValueError(
+                f"block 'kimi_linear' does not implement {', '.join(bad)}: "
+                "the port's block has no q LoRA, one expert group, an expert "
+                "layer after every leading dense layer, no MTP heads, "
+                "latent attention without rotary positions (mla_use_nope) "
+                "and sigmoid scoring")
+        L = self.num_decoder_layers
+        if (not self.kda_layers or list(self.kda_layers) != sorted(
+                set(self.kda_layers)) or not 1 <= self.kda_layers[0]
+                or self.kda_layers[-1] > L or len(self.kda_layers) == L):
+            raise ValueError("kimi_linear: kda_layers must be distinct "
+                             "increasing layer numbers in [1, num_decoder_"
+                             "layers], leaving a latent-attention layer")
+        if min(self.kda_num_heads, self.kda_head_dim, self.kda_conv_size) < 1:
+            raise ValueError("kimi_linear: need kda_num_heads, kda_head_dim "
+                             "and kda_conv_size >= 1")
+        if not (0 < self.num_experts_per_tok <= self.n_router_experts
+                and 0 < self.n_routed_experts <= self.n_router_experts):
+            raise ValueError("kimi_linear: need 0 < num_experts_per_tok <= "
+                             "router_experts and 0 < n_routed_experts <= "
+                             "router_experts")
+        if not 0 <= self.first_k_dense_replace <= L:
+            raise ValueError("kimi_linear: first_k_dense_replace outside "
+                             "[0, num_decoder_layers]")
 
     # ---- (de)serialization ---------------------------------------------------
 
@@ -213,6 +281,8 @@ class ModelConfig:
                 v = tuple(float(x) for x in eval(v, {}, {}))
             if k == "codebook_weight" and isinstance(v, list):
                 v = tuple(float(x) for x in v)
+            if k == "kda_layers":
+                v = tuple(int(x) for x in v)
             clean[k] = v
         return cls(**clean)
 
@@ -363,6 +433,47 @@ def tiny_test_dsv2() -> ModelConfig:
         yarn_beta_slow=1.0, yarn_mscale=0.707, yarn_mscale_all_dim=0.707)
 
 
+def kimi_linear_48b_a3b() -> ModelConfig:
+    """Kimi Linear's decoder (moonshotai/Kimi-Linear-48B-A3B-Instruct
+    config.json) at its published widths and depth on VoiceCraft's
+    TTS-enhanced token layout and front end: 27 layers at 2304, three KDA
+    layers (32 heads of 128, a short convolution of 4) to one latent
+    attention layer without rotary positions (32 heads, kv_lora_rank 512,
+    128 + 64 query/key and 128 value dims; layers 4, 8, ..., 24 and 27), a
+    dense SwiGLU of 9216 in layer 0 and, after it, a sigmoid router over
+    256 experts of 1024 (top-8 by score plus a correction bias,
+    renormalised and scaled by 2.446) with 1 shared expert.  This chip
+    holds experts 0-63 of each layer: one of four that share the layer."""
+    return dataclasses.replace(
+        giga830M_tts_enhanced(), block="kimi_linear", d_model=2304,
+        audio_embedding_dim=2304, nhead=32, num_decoder_layers=27,
+        kda_layers=tuple(i for i in range(1, 27) if i % 4),
+        kda_num_heads=32, kda_head_dim=128, kda_conv_size=4,
+        mla_use_nope=True, kv_lora_rank=512, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, intermediate_size=9216,
+        moe_intermediate_size=1024, n_routed_experts=64, router_experts=256,
+        num_experts_per_tok=8, n_shared_experts=1, first_k_dense_replace=1,
+        scoring_func="sigmoid", router_bias=True, norm_topk_prob=True,
+        routed_scaling_factor=2.446, rms_norm_eps=1e-5, rope_theta=10000.0)
+
+
+def tiny_test_kimi() -> ModelConfig:
+    """kimi_linear_48b_a3b's block at tiny widths for the CPU tests: one
+    period of 4 layers (KDA with the dense FFN, two KDA layers with
+    experts, latent attention with experts), 8 held experts of a 16-wide
+    top-4 router with one shared, tiny_test's TTS-enhanced token layout."""
+    return dataclasses.replace(
+        tiny_test(), eos=131, n_special=4, reduced_eog=1, block="kimi_linear",
+        num_decoder_layers=4, kda_layers=(1, 2, 3), kda_num_heads=4,
+        kda_head_dim=16, kda_conv_size=4, mla_use_nope=True,
+        kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+        v_head_dim=16, intermediate_size=96, moe_intermediate_size=24,
+        n_routed_experts=8, router_experts=16, num_experts_per_tok=4,
+        n_shared_experts=1, first_k_dense_replace=1, scoring_func="sigmoid",
+        router_bias=True, norm_topk_prob=True, routed_scaling_factor=2.446,
+        rms_norm_eps=1e-5, rope_theta=10000.0)
+
+
 PRESETS = {
     "giga330M": giga330M,
     "giga830M": giga830M,
@@ -372,4 +483,6 @@ PRESETS = {
     "proc50M": proc50M,
     "deepseek_v2_lite": deepseek_v2_lite,
     "tiny_test_dsv2": tiny_test_dsv2,
+    "kimi_linear_48b_a3b": kimi_linear_48b_a3b,
+    "tiny_test_kimi": tiny_test_kimi,
 }

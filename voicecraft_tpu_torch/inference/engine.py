@@ -51,11 +51,12 @@ import torch
 from ..config import ModelConfig
 from ..data import spans
 from ..models import deepseek_v2 as dsv2
+from ..models import kimi_linear as kimi
 from ..models import transformer as trm
 from ..models.voicecraft import (MAX_POS, SamplingConfig, VoiceCraft,
-                                 apply_heads, check_mtp_heads,
+                                 apply_heads, cache_slots, check_mtp_heads,
                                  embed_audio_tokens, new_kv_cache,
-                                 prefill_lanes, slab_dims)
+                                 prefill_lanes, store_lanes)
 from ..ops import graphs, patterns
 from ..ops.attention import _attend_one, _ring_valid
 from ..ops.ring_attention import ring_decode_attention
@@ -126,10 +127,16 @@ def _lane_decode_step(decoder: trm.Decoder, x_t: torch.Tensor,
     any other slab reaches ``_attend_one`` in q's dtype, under a ring mask
     built once a step (the same in every layer).  A DeepSeek-V2 decoder
     takes its own step on its latent slab (models/deepseek_v2.py:
-    lane_decode_step, through ``parts``), chosen once for the whole stack.
-    Returns (final-normed hidden [B, 1, D], cache)."""
+    lane_decode_step, through ``parts``), a Kimi Linear decoder its own on
+    its hybrid cache (models/kimi_linear.py:lane_decode_step, likewise),
+    chosen once for the whole stack.  Returns (final-normed hidden [B, 1,
+    D], cache)."""
     if isinstance(decoder, dsv2.Decoder):
         return dsv2.lane_decode_step(decoder, x_t, cache, x_lens, x_pad,
+                                     prefix_lens, y_start, W, gstep, t_lane,
+                                     parts)
+    if isinstance(decoder, kimi.Decoder):
+        return kimi.lane_decode_step(decoder, x_t, cache, x_lens, x_pad,
                                      prefix_lens, y_start, W, gstep, t_lane,
                                      parts)
     if reads_fp8_slab(cache):
@@ -169,10 +176,10 @@ def make_burst_fn(cfg: ModelConfig, *, batch_size: int, x_pad: int,
     generator registered, and replayed, and every later step of every
     burst replays it.  So the function is bound to the model and state of
     its first call (the slab, the lanes' tensors, the row buffer and the
-    generators: one batcher's, fixed for its life).  DeepSeek-V2's block
-    steps eagerly around its stack's per-part replays (deepseek_v2.
-    StepGraphs, held as long: a capture cannot hold those graphs, and the
-    parts' spans would go).
+    generators: one batcher's, fixed for its life).  DeepSeek-V2's and
+    Kimi Linear's blocks step eagerly around their stack's per-part
+    replays (deepseek_v2.StepGraphs, held as long: a capture cannot hold
+    those graphs, and the parts' spans would go).
 
     Returns fn(model, cache, lanes, gen_buf [B, gen_max, K], gens) -> (cache,
     lanes, gen_buf, status [B, 4], steps replayed from the graph), the
@@ -183,12 +190,11 @@ def make_burst_fn(cfg: ModelConfig, *, batch_size: int, x_pad: int,
     cap_mult = cfg.encodec_sr // 5
     y_start = x_pad + y_pad
     sample_lanes = make_lane_sampler(cfg, scfg, cap_mult)
-    slot_dim = slab_dims(cfg)[1]
     bound = {}      # made at the first call, kept for the function's life
 
     def step(model: VoiceCraft, cache: torch.Tensor, s: LaneState,
              gen_buf: torch.Tensor, gens, lanes, empty, parts) -> None:
-        W = cache.shape[slot_dim] - y_start     # ring width (> gen_max - 1)
+        W = cache_slots(cfg, cache) - y_start   # ring width (> gen_max - 1)
         y_pos = s.prefix_lens + s.t
         samples, new_eog, consec, prev = sample_lanes(
             gens, s.logits, s.codebook_eog, s.t, s.consec, s.prev, y_pos,
@@ -225,7 +231,8 @@ def make_burst_fn(cfg: ModelConfig, *, batch_size: int, x_pad: int,
         dev = model.device
         if not bound:
             engaged = graphs.step_graph_engages(model)
-            per_part = engaged and isinstance(model.decoder, dsv2.Decoder)
+            per_part = engaged and isinstance(model.decoder,
+                                              (dsv2.Decoder, kimi.Decoder))
             bound.update(
                 lanes=torch.arange(B, device=dev),
                 empty=torch.full((B, K), cfg.empty_token, dtype=torch.long,
@@ -321,12 +328,12 @@ def make_prefill_batch_fn(cfg: ModelConfig, *, x_pad: int, y_pad: int,
     are computed ([n, x_pad + y_pad] through models.voicecraft.
     prefill_lanes: the attention kernel from 1024 columns) and only their
     rows of the slab's prefix region are written, through the uint8 views
-    for an fp8 slab; their generated region needs no reset, since a lane
-    at t = 0 reads none of it.  The admitted lanes' state is reset as a new
-    request's.
+    for an fp8 slab, with every other part of their cache (a hybrid
+    cache's KDA and convolution states: models.voicecraft.store_lanes);
+    their generated region needs no reset, since a lane at t = 0 reads
+    none of it.  The admitted lanes' state is reset as a new request's.
     """
     Sp = x_pad + y_pad
-    lane_dim, slot_dim = slab_dims(cfg)
 
     @torch.inference_mode()
     def prefill(model: VoiceCraft, cache: torch.Tensor, s: LaneState, idx,
@@ -340,7 +347,7 @@ def make_prefill_batch_fn(cfg: ModelConfig, *, x_pad: int, y_pad: int,
             model, torch.as_tensor(x_tokens, device=dev).long(), xl,
             torch.as_tensor(y_prefix, device=dev).long(), pl, no_mask, Sp,
             kv_dtype)
-        trm._store_kv(cache.narrow(slot_dim, 0, Sp), lane_dim, idx, new)
+        store_lanes(cfg, cache, idx, new)
         s.active[idx] = True
         s.t[idx] = 0
         s.x_lens[idx] = xl.long()

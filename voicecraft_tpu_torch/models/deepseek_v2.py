@@ -144,11 +144,8 @@ def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
 class Layer(nn.Module):
     """One layer's parameters: the norms' gains (f32), the latent
     attention's W_q [D, H (dn + dr)], W_kva [D, r + dr], W_kvb [r, H (dn +
-    dv)] and W_o [H dv, D], and a dense SwiGLU (``w1`` [D, 2 I], gate then
-    up, and ``w2`` [I, D]) or the expert layer: the router [D, E], the
-    routed experts (``experts_w1`` [E, D, 2 Ie], ``experts_w2`` [E, Ie,
-    D]) and the shared experts as one SwiGLU of n_shared * Ie
-    (``shared_w1``, ``shared_w2``).  No projection has a bias."""
+    dv)] and W_o [H dv, D], and the FFN's (:func:`ffn_params`).  No
+    projection has a bias."""
 
     def __init__(self, cfg: ModelConfig, dense: bool, dtype: torch.dtype,
                  device):
@@ -156,26 +153,13 @@ class Layer(nn.Module):
         D, H, r = cfg.d_model, cfg.nhead, cfg.kv_lora_rank
         dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
         f32 = torch.float32
-        self.dense = dense
         self.ln1_g = _param(D, dtype=f32, device=device)
         self.wq = _param(D, H * (dn + dr), dtype=dtype, device=device)
         self.wkv_a = _param(D, r + dr, dtype=dtype, device=device)
         self.kv_ln_g = _param(r, dtype=f32, device=device)
         self.wkv_b = _param(r, H * (dn + dv), dtype=dtype, device=device)
         self.wo = _param(H * dv, D, dtype=dtype, device=device)
-        self.ln2_g = _param(D, dtype=f32, device=device)
-        if dense:
-            I = cfg.intermediate_size
-            self.w1 = _param(D, 2 * I, dtype=dtype, device=device)
-            self.w2 = _param(I, D, dtype=dtype, device=device)
-        else:
-            E, Ie = cfg.n_routed_experts, cfg.moe_intermediate_size
-            Is = cfg.n_shared_experts * Ie
-            self.router = _param(D, E, dtype=dtype, device=device)
-            self.experts_w1 = _param(E, D, 2 * Ie, dtype=dtype, device=device)
-            self.experts_w2 = _param(E, Ie, D, dtype=dtype, device=device)
-            self.shared_w1 = _param(D, 2 * Is, dtype=dtype, device=device)
-            self.shared_w2 = _param(Is, D, dtype=dtype, device=device)
+        ffn_params(self, cfg, dense, dtype, device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -186,6 +170,36 @@ class Layer(nn.Module):
             else:
                 bound = t.shape[-2] ** -0.5
                 t.uniform_(-bound, bound, generator=generator)
+
+
+def ffn_params(mod: nn.Module, cfg: ModelConfig, dense: bool,
+               dtype: torch.dtype, device) -> None:
+    """A layer's FFN parameters on ``mod``: the gain ``ln2_g`` (f32) and a
+    dense SwiGLU (``w1`` [D, 2 I], gate then up, and ``w2`` [I, D]) or the
+    expert layer: the router [D, E_router] (the published width; the held
+    experts are its first E), its score-correction bias ``router_bias``
+    [E_router] (f32) where the configuration has one, the routed experts
+    (``experts_w1`` [E, D, 2 Ie], ``experts_w2`` [E, Ie, D]) and the
+    shared experts as one SwiGLU of n_shared * Ie (``shared_w1``,
+    ``shared_w2``)."""
+    D = cfg.d_model
+    mod.dense = dense
+    mod.ln2_g = _param(D, dtype=torch.float32, device=device)
+    if dense:
+        I = cfg.intermediate_size
+        mod.w1 = _param(D, 2 * I, dtype=dtype, device=device)
+        mod.w2 = _param(I, D, dtype=dtype, device=device)
+        return
+    E, Ie = cfg.n_routed_experts, cfg.moe_intermediate_size
+    Is = cfg.n_shared_experts * Ie
+    mod.router = _param(D, cfg.n_router_experts, dtype=dtype, device=device)
+    mod.experts_w1 = _param(E, D, 2 * Ie, dtype=dtype, device=device)
+    mod.experts_w2 = _param(E, Ie, D, dtype=dtype, device=device)
+    mod.shared_w1 = _param(D, 2 * Is, dtype=dtype, device=device)
+    mod.shared_w2 = _param(Is, D, dtype=dtype, device=device)
+    if cfg.router_bias:
+        mod.router_bias = _param(cfg.n_router_experts, dtype=torch.float32,
+                                 device=device)
 
 
 class Decoder(nn.Module):
@@ -241,14 +255,17 @@ def _attn_inputs(dec: Decoder, layer: Layer, a: torch.Tensor,
                  pos: torch.Tensor):
     """(q_nope [B, T, H, dn], rotated q_pe [B, T, H, dr], the latent entry
     [c ; rotated k_pe] [B, T, r + dr]) of normed rows a [B, T, D] at rotary
-    positions pos [B, T]."""
+    positions pos [B, T]; a config without rotary positions
+    (``mla_use_nope``) leaves q_pe and k_pe as projected and ignores pos."""
     cfg = dec.cfg
     B, T = a.shape[:2]
     r, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
     q = (a @ layer.wq).view(B, T, dec.nhead, -1)
     kva = a @ layer.wkv_a
-    cos, sin = dec.rope_cos[pos], dec.rope_sin[pos]                # [B,T,dr/2]
     c = rms_norm(kva[..., :r], layer.kv_ln_g, cfg.rms_norm_eps)
+    if cfg.mla_use_nope:
+        return q[..., :dn], q[..., dn:], torch.cat([c, kva[..., r:]], dim=-1)
+    cos, sin = dec.rope_cos[pos], dec.rope_sin[pos]                # [B,T,dr/2]
     k_pe = rotate(kva[..., r:], cos, sin)
     q_pe = rotate(q[..., dn:], cos[:, :, None], sin[:, :, None])
     return q[..., :dn], q_pe, torch.cat([c, k_pe], dim=-1)
@@ -277,12 +294,15 @@ def _dense_part(dec: Decoder, layer: Layer, x: torch.Tensor) -> torch.Tensor:
 def _route_part(dec: Decoder, layer: Layer, x: torch.Tensor):
     """The expert layer's input rows, their routing and the routed rows
     ordered by expert: (rows [T, D], weights [T, k], order [T * k], rows
-    per expert [E], offsets [E], routed rows [T * k, D])."""
-    rows = rms_norm(x, layer.ln2_g, dec.cfg.rms_norm_eps).reshape(-1,
-                                                                  x.shape[-1])
-    k = dec.cfg.num_experts_per_tok
-    weights, experts = moe.route(rows, layer.router, k)
-    order, counts, offs = moe.group_by_expert(experts, dec.cfg.n_routed_experts)
+    per held expert [E], offsets [E], routed rows [T * k, D])."""
+    cfg = dec.cfg
+    rows = rms_norm(x, layer.ln2_g, cfg.rms_norm_eps).reshape(-1, x.shape[-1])
+    k = cfg.num_experts_per_tok
+    weights, experts = moe.route(
+        rows, layer.router, k, cfg.scoring_func,
+        getattr(layer, "router_bias", None), cfg.norm_topk_prob,
+        cfg.routed_scaling_factor)
+    order, counts, offs = moe.group_by_expert(experts, cfg.n_routed_experts)
     return rows, weights, order, counts, offs, rows.index_select(0, order // k)
 
 
@@ -292,27 +312,31 @@ def _experts_part(layer: Layer, xs: torch.Tensor, offs: torch.Tensor
 
 
 def _combine_part(layer: Layer, x: torch.Tensor, rows: torch.Tensor,
-                  weights: torch.Tensor, order: torch.Tensor, y: torch.Tensor
-                  ) -> torch.Tensor:
-    """x plus the routed sum and the shared experts' output, added in f32
-    and rounded once."""
+                  weights: torch.Tensor, order: torch.Tensor, y: torch.Tensor,
+                  held_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x plus the routed sum (of the held experts' pairs: ``held_rows``, an
+    expert share's) and the shared experts' output, added in f32 and
+    rounded once."""
     shared = swiglu(rows, layer.shared_w1, layer.shared_w2)
-    return x + (moe.combine(y, order, weights) + shared.float()).to(
-        x.dtype).view_as(x)
+    return x + (moe.combine(y, order, weights, held_rows)
+                + shared.float()).to(x.dtype).view_as(x)
 
 
 def _ffn(dec: Decoder, layer: Layer, x: torch.Tensor, run: Callable = _eager
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x + the layer's FFN of RMSNorm_2(x), part by part through ``run``,
-    and an expert layer's rows per expert [E] (None for a dense layer)."""
+    and an expert layer's rows per held expert [E] (None for a dense
+    layer).  An expert share (fewer experts held than the router routes
+    to) combines the held experts' pairs only."""
     if layer.dense:
         return run(None, _dense_part, dec, layer, x), None
+    share = dec.cfg.n_routed_experts < dec.cfg.n_router_experts
     with tracing.span("moe.layer"):
         rows, weights, order, counts, offs, xs = run(None, _route_part, dec,
                                                      layer, x)
         y = run("moe.experts", _experts_part, layer, xs, offs)
-        return run(None, _combine_part, layer, x, rows, weights, order,
-                   y), counts
+        return run(None, _combine_part, layer, x, rows, weights, order, y,
+                   offs[-1:] if share else None), counts
 
 
 def _final_part(dec: Decoder, x: torch.Tensor) -> torch.Tensor:
@@ -329,6 +353,31 @@ def text_audio_positions(S: int, x_lens: torch.Tensor, x_pad: int
     return torch.where(j < x_pad, j, x_lens.long()[:, None] + j - x_pad)
 
 
+def prefill_attention(dec: Decoder, layer: Layer, x: torch.Tensor,
+                      pos: torch.Tensor, allowed: torch.Tensor):
+    """x [B, S, D] plus one layer's latent attention over its own rows,
+    unabsorbed (k_nope and v from c, f32 logits and softmax), where
+    ``allowed`` [B, 1, S, S] (query, key) at rotary positions pos [B, S];
+    and the rows' latent entries [B, S, r + dr]."""
+    cfg = dec.cfg
+    B, S, _ = x.shape
+    H, dn = dec.nhead, cfg.qk_nope_head_dim
+    with tracing.span("mla.attend"):
+        a = rms_norm(x, layer.ln1_g, cfg.rms_norm_eps)
+        q_nope, q_pe, lat = _attn_inputs(dec, layer, a, pos)
+        kv = (lat[..., :cfg.kv_lora_rank] @ layer.wkv_b).view(B, S, H, -1)
+        k = torch.cat([kv[..., :dn],
+                       lat[:, :, None, cfg.kv_lora_rank:].expand(
+                           B, S, H, -1)], dim=-1)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        logits = matmul_f32(q.transpose(1, 2), k.permute(0, 2, 3, 1))
+        logits = (logits * dec.scale).masked_fill(~allowed, NEG_INF)
+        v = kv[..., dn:]
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)          # [B,H,S,S]
+        o = matmul_f32(probs, v.transpose(1, 2)).to(v.dtype)
+        return x + o.transpose(1, 2).reshape(B, S, -1) @ layer.wo, lat
+
+
 def prefill(dec: Decoder, x: torch.Tensor, x_lens: torch.Tensor,
             prefix_lens: torch.Tensor, x_pad: int, cache: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -336,29 +385,14 @@ def prefill(dec: Decoder, x: torch.Tensor, x_lens: torch.Tensor,
     valid in [0, x_len) u [x_pad, x_pad + prefix_len), causally, with the
     unabsorbed attention; fills cache[:, :, :S] in place.  Returns
     (final-normed hidden [B, S, D], cache)."""
-    cfg = dec.cfg
-    B, S, _ = x.shape
-    H, dn = dec.nhead, cfg.qk_nope_head_dim
+    S = x.shape[1]
     pos = text_audio_positions(S, x_lens, x_pad)
     j = torch.arange(S, device=x.device)
     key_ok = ((j[None, :] < x_lens[:, None])
               | ((j[None, :] >= x_pad) & (j[None, :] < x_pad + prefix_lens[:, None])))
     allowed = ((j[None, :] <= j[:, None])[None] & key_ok[:, None, :])[:, None]
     for li, layer in enumerate(dec.layers):
-        with tracing.span("mla.attend"):
-            a = rms_norm(x, layer.ln1_g, cfg.rms_norm_eps)
-            q_nope, q_pe, lat = _attn_inputs(dec, layer, a, pos)
-            kv = (lat[..., :cfg.kv_lora_rank] @ layer.wkv_b).view(B, S, H, -1)
-            k = torch.cat([kv[..., :dn],
-                           lat[:, :, None, cfg.kv_lora_rank:].expand(
-                               B, S, H, -1)], dim=-1)
-            q = torch.cat([q_nope, q_pe], dim=-1)
-            logits = matmul_f32(q.transpose(1, 2), k.permute(0, 2, 3, 1))
-            logits = (logits * dec.scale).masked_fill(~allowed, NEG_INF)
-            v = kv[..., dn:]
-            probs = torch.softmax(logits, dim=-1).to(v.dtype)      # [B,H,S,S]
-            o = matmul_f32(probs, v.transpose(1, 2)).to(v.dtype)
-            x = x + o.transpose(1, 2).reshape(B, S, -1) @ layer.wo
+        x, lat = prefill_attention(dec, layer, x, pos, allowed)
         x = _ffn(dec, layer, x)[0]
         cache[li, :, :S] = lat.to(cache.dtype)
     return _final_part(dec, x), cache
@@ -370,12 +404,13 @@ def _attn_part(dec: Decoder, layer: Layer, x: torch.Tensor,
                slab: torch.Tensor, pos: torch.Tensor, attend: Callable):
     """x plus the latent attention of one token a lane over the layer's
     slab [B, S_max, r + dr] (W_kvb absorbed), and the token's latent entry
-    [B, 1, r + dr]."""
+    [B, 1, r + dr]; pos [B]: the rotary positions (None without them)."""
     cfg = dec.cfg
     B, H, r = x.shape[0], dec.nhead, cfg.kv_lora_rank
     dn = cfg.qk_nope_head_dim
     a = rms_norm(x, layer.ln1_g, cfg.rms_norm_eps)
-    q_nope, q_pe, lat = _attn_inputs(dec, layer, a, pos[:, None])
+    q_nope, q_pe, lat = _attn_inputs(dec, layer, a,
+                                     None if pos is None else pos[:, None])
     w_b = layer.wkv_b.view(r, H, -1)
     # q~ = q_nope W_UK^T per head: [H, B, dn] @ [H, dn, r]
     q_lat = torch.bmm(q_nope[:, 0].transpose(0, 1),

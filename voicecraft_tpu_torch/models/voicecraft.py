@@ -7,9 +7,11 @@ text and mask embeddings, sine positional embeddings scaled by learnable
 alphas, the pre-norm decoder, per-codebook 2-layer GELU heads and, for
 speculative decoding, ``n_mtp`` groups of multi-token-prediction heads.
 The decoder is the config's block (``ModelConfig.block``): VoiceCraft's
-(models/transformer.py) or DeepSeek-V2's (models/deepseek_v2.py, with a
-latent slab), chosen once for the whole stack; the front end and the heads
-are the same for both.
+(models/transformer.py), DeepSeek-V2's (models/deepseek_v2.py, with a
+latent slab) or Kimi Linear's (models/kimi_linear.py, with a cache of
+three parts: a latent slab, the KDA state and the convolutions' state),
+chosen once for the whole stack; the front end and the heads are the same
+for all.
 Embedding tables, alphas, norm parameters and head biases are f32, as
 the JAX code reads them.  For inference every weight matrix is stored once
 in the compute dtype (or weight-only fp8, utils/quantize.py); a trainable
@@ -52,6 +54,7 @@ from ..parallel.mesh import (copy_to_model, gather_table_cols, reduce_data,
 from ..utils import tracing
 from ..utils.quantize import dequant_dot
 from . import deepseek_v2 as dsv2
+from . import kimi_linear as kimi
 from . import transformer as trm
 from .embedding import sine_table
 
@@ -115,6 +118,10 @@ class VoiceCraft(nn.Module):
             require_voicecraft(cfg, "training (a trainable model)",
                                refuse=trainable)
             self.decoder = dsv2.Decoder(cfg, wdtype, device, MAX_POS)
+        elif block_of(cfg) == kimi.BLOCK:
+            require_voicecraft(cfg, "training (a trainable model)",
+                               refuse=trainable)
+            self.decoder = kimi.Decoder(cfg, wdtype, device)
         else:
             self.decoder = trm.Decoder(cfg.num_decoder_layers, D, cfg.nhead,
                                        cfg.ffn_dim, wdtype, device,
@@ -602,22 +609,45 @@ def kv_cache_dtype(model: VoiceCraft, kv_dtype: Optional[str]) -> torch.dtype:
 
 
 def new_kv_cache(model: VoiceCraft, batch: int, s_max: int,
-                 kv_dtype: Optional[str] = None) -> torch.Tensor:
-    """The one slab constructor, for the model's block: VoiceCraft's
+                 kv_dtype: Optional[str] = None):
+    """The one cache constructor, for the model's block: VoiceCraft's slab
     [L, 2, B, S_max, H, Dh] (H this rank's heads) in the ``kv_dtype`` slab
-    dtype, or DeepSeek-V2's latent slab [L, B, S_max, r + dr]."""
+    dtype, DeepSeek-V2's latent slab [L, B, S_max, r + dr], or Kimi
+    Linear's kimi_linear.HybridCache (its latent slab in the slab dtype,
+    its KDA state in f32)."""
     cfg, dec = model.cfg, model.decoder
     dtype = kv_cache_dtype(model, kv_dtype)
     if block_of(cfg) == dsv2.BLOCK:
         return dsv2.init_latent_cache(cfg.num_decoder_layers, batch, s_max,
                                       dec.latent_dim, dtype, model.device)
+    if block_of(cfg) == kimi.BLOCK:
+        return kimi.HybridCache(dec, batch, s_max, dtype, model.device)
     return trm.init_kv_cache(cfg.num_decoder_layers, batch, s_max, dec.nhead,
                              cfg.head_dim, dtype, model.device)
 
 
 def slab_dims(cfg: ModelConfig) -> Tuple[int, int]:
-    """(lane dim, slot dim) of the model's slab (:func:`new_kv_cache`)."""
+    """(lane dim, slot dim) of a one-tensor slab (:func:`new_kv_cache`'s
+    for VoiceCraft's and DeepSeek-V2's blocks)."""
     return (1, 2) if block_of(cfg) == dsv2.BLOCK else (2, 3)
+
+
+def cache_slots(cfg: ModelConfig, cache) -> int:
+    """The slots S_max of a cache from :func:`new_kv_cache`."""
+    if block_of(cfg) == kimi.BLOCK:
+        return cache.slots
+    return cache.shape[slab_dims(cfg)[1]]
+
+
+def store_lanes(cfg: ModelConfig, cache, idx: torch.Tensor, new) -> None:
+    """Write lanes ``idx`` [n] of ``cache`` from ``new``, a prefill's cache
+    of n lanes over the first slots (every part of a hybrid cache)."""
+    if block_of(cfg) == kimi.BLOCK:
+        cache.store_lanes(idx, new)
+        return
+    lane_dim, slot_dim = slab_dims(cfg)
+    trm._store_kv(cache.narrow(slot_dim, 0, new.shape[slot_dim]), lane_dim,
+                  idx, new)
 
 
 def prefill_lanes(model: VoiceCraft, x_tokens, x_lens, y_prefix, prefix_lens,
@@ -638,6 +668,9 @@ def prefill_lanes(model: VoiceCraft, x_tokens, x_lens, y_prefix, prefix_lens,
     cache = new_kv_cache(model, B, s_max, kv_dtype)
     if block_of(cfg) == dsv2.BLOCK:
         h, cache = dsv2.prefill(model.decoder, xy, x_lens, prefix_lens, x_pad,
+                                cache)
+    elif block_of(cfg) == kimi.BLOCK:
+        h, cache = kimi.prefill(model.decoder, xy, x_lens, prefix_lens, x_pad,
                                 cache)
     else:
         attn = prefill_attention(x_lens, prefix_lens, x_pad,
@@ -746,7 +779,7 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
         ltype = torch.long
         if fused_ffn:
             require_voicecraft(model.cfg, "the fused FFN")
-        latent = block_of(model.cfg) == dsv2.BLOCK
+        block = block_of(model.cfg)
 
         with tracing.span("decode.prefill"):
             _, logits, cache = prefill_prompt(model, x_tokens, x_len,
@@ -857,7 +890,11 @@ def make_decode_loop(cfg: ModelConfig, *, is_tts: bool, x_pad: int,
             # sample, as the JAX loop does); an idle step's frozen pos may be
             # the slot past the slab
             at = pos.clamp(max=s_max - 1) if grouped else pos
-            if latent:
+            if block == kimi.BLOCK:
+                h, _ = kimi.decode_step(
+                    model.decoder, step_input(model, emb, y_pos), cache, at,
+                    x_len=x_len_t, x_pad=x_pad)
+            elif block == dsv2.BLOCK:
                 h, _ = dsv2.decode_step(
                     model.decoder, step_input(model, emb, y_pos), cache, at,
                     (x_len_t + y_pos).clamp(max=MAX_POS - 1), x_len=x_len_t,

@@ -44,7 +44,7 @@ DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
                torch.float8_e4m3fn: "fp8"}
 
 LAUNCHES = {"flash_prefix_attention": 0, "fused_ffn": 0,
-            "ring_decode_attention": 0}
+            "ring_decode_attention": 0, "kda_recurrent": 0}
 # the same launches by route, "<kernel>/<weight dtype>" ("sm90/fp8", ...)
 ROUTE_LAUNCHES = collections.Counter()
 
@@ -173,6 +173,9 @@ def lib() -> ctypes.CDLL:
             [vp] * 5 + [ll] * 3 + [vp] * 5 + [ci] * 7
             + [ctypes.c_float, ci, vp])
         L.vc_ring_decode_attention.restype = ci
+        L.vc_kda_recurrent.argtypes = (
+            [vp] * 8 + [ci] * 5 + [ctypes.c_float, ci, vp])
+        L.vc_kda_recurrent.restype = ci
         L.vc_error_string.argtypes = [ci]
         L.vc_error_string.restype = ctypes.c_char_p
         _lib = L

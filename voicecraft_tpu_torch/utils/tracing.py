@@ -26,11 +26,16 @@ the burst's steps and those replayed from a CUDA graph
 (:func:`record_burst`).
 
 Expert rows.  While a profiler records, each decode forward of a block
-with routed experts (models/deepseek_v2.py) keeps the rows it routed to
+with routed experts (models/deepseek_v2.py, models/kimi_linear.py) keeps the rows it routed to
 each expert of each expert layer, [layers, experts], in a ring of device
 rows (:func:`record_expert_rows`: one device copy a forward, no host
 read), stamped on the host; :func:`expert_rows` reads those of a span of
 time back after the profiler has stopped.
+
+KDA calls.  While a profiler records, each decode step's recurrence of a
+KDA layer (models/kimi_linear.py) keeps the lanes it advanced, stamped on
+the host (:func:`record_kda_call`, a host integer; :func:`kda_calls`
+reads those of a span of time).
 
 Spans are stamped in Unix nanoseconds (``time.time_ns``), the clock of the
 profiler's host events (``KinetoEvent.start_ns``), so a reader can lay a
@@ -215,9 +220,27 @@ def expert_rows(lo_ns: int = 0, hi_ns: Optional[int] = None
     return ring[torch.tensor(slots, device=ring.device)].cpu().long()
 
 
+_kda_calls: deque = deque(maxlen=MAX_RECORDS)
+
+
+def record_kda_call(lanes: int) -> None:
+    """Keep one decode recurrence's lanes (a KDA layer's kernel call in a
+    decode step) while a profiler records; nothing otherwise."""
+    if _profiler._is_profiler_enabled:
+        _kda_calls.append((time.time_ns(), lanes))
+
+
+def kda_calls(lo_ns: int = 0, hi_ns: Optional[int] = None) -> List[int]:
+    """The lanes of each kept decode recurrence stamped in [lo_ns,
+    hi_ns], in the order they ran."""
+    return [n for t, n in _kda_calls
+            if t >= lo_ns and (hi_ns is None or t <= hi_ns)]
+
+
 def clear() -> None:
     """Forget every span and counter (tests)."""
     _spans.clear()
     _marks.clear()
     _bursts.clear()
     _expert_stamps.clear()
+    _kda_calls.clear()
